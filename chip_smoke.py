@@ -11,19 +11,27 @@ non-zero without printing a result):
 2. build: the CUDA kernels (nvcc, sm_90a) and the native BVH builder
    (g++), from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   with the tolerance stated, timed with CUDA events;
-4. golden: the tests/goldens/cube_hybrid_128.png case rendered on the
-   card, held to the golden off triangle edges;
-5. headline: the hybrid frame of bench.py (stress scene, 250 objects,
-   1920x1080, shadow + AO + SVGF) for 8 frames, with the launch count
-   of every kernel the frame runs and a check that no plain version ran
-   on the card. variance_blur is checked in phase 3 but not launched by
-   the frame: its output feeds nothing (ops/svgf.py).
+   on the inputs the render paths hand it at 1920x1080, with the
+   tolerance stated, timed with CUDA events beside the least time the
+   card could take (bound) and, where one PyTorch call computes the
+   same function, that call's time (library);
+4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png and
+   cube_forward_64.png rendered on the card, held to the goldens off
+   triangle edges;
+5. renders, each of 8 frames on the stress scene (250 objects) at
+   1920x1080 from bench.py's camera, with the launch count of every
+   kernel it runs (counts set to 0 just before it) and a check that
+   no plain version ran on the card:
+   a. the headline, bench.py's hybrid frame (shadow + AO + SVGF);
+   b. the full graph, the headline plus reflections and diffuse GI;
+   c. forward + TAA (LIGHT | IBL | TAA).
+   variance_blur is checked in phase 3 but launched by no path: its
+   output feeds nothing (ops/svgf.py).
 
 The last three lines of standard output are the kernels' JSON record,
 the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Float32 throughout; TF32 is off for
-matmul and cuDNN. The headline image is written to DIR (default: the
+matmul and cuDNN. The rendered images are written to DIR (default: the
 system temporary directory).
 """
 from __future__ import annotations
@@ -52,6 +60,21 @@ GOLDEN_CAM = dict(distance=7.0, pitch=0.45, yaw=0.6, focal_point=(0, 0.7, 0))
 # and tests/test_torch_slice.py holds the frame before SVGF to 2 u8)
 GOLDEN_OFF_EDGE_MAX = 24
 GOLDEN_P99_MAX = 8
+# tests/test_golden_ladder.py CORNELL_CAM
+CORNELL_CAM = dict(distance=13.0, pitch=0.0, yaw=0.0, focal_point=(0, 2.5, 0))
+# the full-graph golden's gate: the reference's own jit-vs-eager reading
+# on that case (127 / 31, tests/torch_gate_reading.py cornell_full_128)
+# plus the margin above; tests/test_torch_full_graph.py holds the same
+FULL_GOLDEN_OFF_EDGE_MAX = 131
+FULL_GOLDEN_P99_MAX = 33
+# the forward golden's gate of tests/test_golden.py
+FORWARD_GOLDEN_OFF_EDGE_MAX = 16
+FORWARD_GOLDEN_P99_MAX = 2
+# the least time the card could take: bytes over the HBM rate, float32
+# operations over the rate outside the tensor cores (NVIDIA's H100 SXM
+# data sheet, at its 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 
 def log(*a):
@@ -64,6 +87,17 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_time(fn, reps):
@@ -168,7 +202,12 @@ def check_raster(dev):
                              f"{mismatch:.2e} of pixels, max err {err}")
     ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
     plain_ms = cuda_time(lambda: rc.raster_tiles_plain(*args), 2)
-    return dict(err=err, ms=ms, plain_ms=plain_ms,
+    # ~20 FLOP per (candidate, pixel) coverage test, every pixel of the
+    # 16x16 tile of every tile entry (csrc/raster.cu)
+    b = bound(nbytes(rec, ts, ec, data.raster_rows, vk.tri_id, vk.depth,
+                     vk.bary1, vk.bary2, ak),
+              20.0 * ec.shape[0] * rc.TILE * rc.TILE)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b,
                 shape=f"{W}x{H}, {ec.shape[0]} tile entries, "
                       f"{rec.shape[0]} candidates",
                 tol="exact (tri ids and all outputs)")
@@ -206,7 +245,11 @@ def check_trace(dev):
     plain = lambda: [trace_cuda.intersect_any_plain(tracer.packed, o, d, TMIN,
                                                     t, a)
                      for o, d, t, a in batches]
-    tks, tps = kern(), plain()
+    visits = {}
+    tks = kern()
+    tps = [trace_cuda.intersect_any_plain(tracer.packed, o, d, TMIN, t, a,
+                                          visits=visits)
+           for o, d, t, a in batches]
     mismatch, hit = [], []
     for (o, d, t, a), tk, tp in zip(batches, tks, tps):
         mismatch.append(((tk >= 0) != (tp >= 0)).float().mean().item())
@@ -223,11 +266,97 @@ def check_trace(dev):
     active = [int(a.sum()) for *_, a in batches]
     return dict(err=max(mismatch), ms=cuda_time(kern, 20),
                 plain_ms=cuda_time(plain, 1),
+                bound=trace_bound(tracer.packed, batches, tks, visits),
                 shape=f"2 queries (shadow tmax 10000, AO tmax 10) of {R} rays "
                       f"of one {W}x{H} headline frame, {active} active, "
                       f"{data.num_triangles} triangles, tree depth {depth}, "
                       f"hit shadow {hit[0]:.3f} AO {hit[1]:.3f}; ms for both",
                 tol="visibility mismatch <= 1e-3 of rays per query")
+
+
+def trace_bound(packed, batches, outs, visits):
+    """The tree read once; every ray's active flag read and its outputs
+    written once, an active ray's origin, direction and tmax read once
+    (an inactive ray needs nothing else); ~30 FLOP per child-box slab
+    test (two per internal node visited) and ~40 per triangle test, over
+    the nodes these rays visit (counted by the plain version)."""
+    data = nbytes(packed.nodes, packed.node_tri, packed.tri_verts)
+    for (o, d, tmax, active), out in zip(batches, outs):
+        per_active = (o[0], d[0], tmax[:1])
+        data += nbytes(active, *(out if isinstance(out, tuple) else (out,)))
+        data += int(active.sum()) * nbytes(*per_active)
+    return bound(data, 60.0 * visits["internal"] + 40.0 * visits["leaf"])
+
+
+def check_trace_closest(dev):
+    """K2c on the rays of one full-graph frame at 1920x1080 on the
+    headline camera: RTReflectionPass's reflection rays and
+    RTDiffuseGIPass's GI rays, recorded as the passes hand them to the
+    tracer."""
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    r = Renderer.for_scene(_hybrid_settings(
+        W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI), data)
+    tracer, trace, batches = r.tracer, r.tracer.trace_radiance, []
+
+    def recording(scene, origin, direction, ctx, depth=0, active=None):
+        batches.append(tracer.radiance_rays(origin, direction, active))
+        return trace(scene, origin, direction, ctx, depth, active=active)
+
+    tracer.trace_radiance = recording
+    r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
+        taa_enabled=True))
+    del tracer.trace_radiance
+    if len(batches) != 2:
+        raise AssertionError(f"expected the reflection and GI queries, got "
+                             f"{len(batches)}")
+    kern = lambda: [trace_cuda.intersect_closest(tracer.packed, o, d,
+                                                 RADIANCE_TMIN, t, a)
+                    for o, d, t, a in batches]
+    plain = lambda: [trace_cuda.intersect_closest_plain(
+        tracer.packed, o, d, RADIANCE_TMIN, t, a) for o, d, t, a in batches]
+    visits = {}
+    ks = kern()
+    ps = [trace_cuda.intersect_closest_plain(tracer.packed, o, d,
+                                             RADIANCE_TMIN, t, a,
+                                             visits=visits)
+          for o, d, t, a in batches]
+    mismatch, errs, hit = [], [0.0, 0.0, 0.0], []
+    for (o, d, t, a), k, p in zip(batches, ks, ps):
+        same = k[1] == p[1]
+        mismatch.append((~same & a).float().sum().item()
+                        / max(int(a.sum()), 1))
+        both = same & (p[1] >= 0)
+        for i, c in enumerate((0, 2, 3)):
+            if bool(both.any()):
+                errs[i] = max(errs[i],
+                              (k[c] - p[c]).abs()[both].max().item())
+        hit.append((p[1] >= 0)[a].float().mean().item())
+    # the same path through the tree with the same arithmetic
+    # (-fmad=false): exact; 0.1% slack on the triangle for grazing rays,
+    # none on t, u and v where the triangle agrees
+    if max(mismatch) > 1e-3 or max(errs) > 0.0:
+        raise AssertionError(f"K2c disagrees with its plain version "
+                             f"(reflection, GI): triangle mismatch "
+                             f"{mismatch}, max err t, u, v {errs}")
+    active = [int(a.sum()) for *_, a in batches]
+    return dict(err=max(errs), ms=cuda_time(kern, 10),
+                plain_ms=cuda_time(plain, 1),
+                bound=trace_bound(tracer.packed, batches, ks, visits),
+                shape=f"2 queries (reflection, GI; tmax 1e6) of "
+                      f"{batches[0][0].shape[0]} rays of one {W}x{H} "
+                      f"full-graph frame, {active} active, hit "
+                      f"{hit[0]:.3f} / {hit[1]:.3f} of the active; max "
+                      f"err t {errs[0]:.3g} u {errs[1]:.3g} v {errs[2]:.3g};"
+                      f" triangle mismatch {mismatch}; ms for both",
+                tol="triangle mismatch <= 1e-3 of active rays per query; "
+                    "t, u, v exact where the triangle agrees")
 
 
 def _frame_planes(dev, H, W, seed):
@@ -280,9 +409,90 @@ def check_temporal(dev):
     valid = (p[..., 7] > 0.01).float().mean().item()
     ms = cuda_time(lambda: temporal_cuda.temporal_fetch(*args), 50)
     plain_ms = cuda_time(lambda: temporal_cuda.temporal_fetch_plain(*args), 5)
+    check_reproject(dev, H, W, hist_sig, hist_mom, prev_depth, oid, nrm, mp)
+    # ~25 FLOP per tap (validation + 7 weighted sums), 4 taps a pixel
     return dict(err=err, ms=ms, plain_ms=plain_ms,
+                bound=bound(nbytes(*args, k), 110.0 * H * W),
                 shape=f"{W}x{H}, bf16 history, {valid:.3f} valid",
                 tol="1e-5 abs")
+
+
+def check_reproject(dev, H, W, hist_sig, hist_mom, prev_depth, oid, nrm, mp):
+    """K3s: the reference's single-signal entry (legacy (12, H, W) pack)
+    over K3 on the card, against the same call on the CPU (plain)."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import temporal_cuda
+
+    hpack = torch.cat([hist_sig.float().permute(2, 0, 1),
+                       hist_mom.float()[..., [0, 1, 3]].permute(2, 0, 1),
+                       nrm.permute(2, 0, 1), prev_depth[None],
+                       oid.float()[None]]).contiguous()
+    args = (hpack, mp[..., :2].contiguous(), nrm, mp[..., 2].contiguous(),
+            oid)
+    k = temporal_cuda.reproject(*args)
+    p = temporal_cuda.reproject(*(a.cpu() for a in args))
+    err = max((a.cpu() - b).abs().max().item() for a, b in zip(k, p))
+    log(f"[kernel] reproject (K3s over K3): max err {err:.3g} against the "
+        f"CPU plain version at {W}x{H} (tol 1e-5 abs)")
+    if err > 1e-5:
+        raise AssertionError(f"K3s max err {err}")
+
+
+def check_window_sample(dev):
+    """K5 on the TAA history fetch of the forward + TAA frame at
+    1920x1080 on the headline camera (the third frame's fetch: a
+    three-plane f32 history and its reprojected uv), against its plain
+    version and against grid_sample, which computes the same function
+    (bilinear, border padding, align_corners=False, uv * 2 - 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import taa, temporal_cuda
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    r = Renderer.for_scene(_forward_settings(W, H), data)
+    calls = []
+
+    def recording(image, uv):
+        calls.append((image, uv))
+        return temporal_cuda.window_sample(image, uv)
+
+    taa.window_sample = recording
+    cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    try:
+        for _ in range(3):
+            r.render(cam.step(taa_enabled=True))
+            cam.orbit(0.01, 0.0)
+    finally:
+        taa.window_sample = temporal_cuda.window_sample
+    image, uv = calls[-1]
+    k = temporal_cuda.window_sample(image, uv)
+    p = temporal_cuda.window_sample_plain(image, uv)
+    err = (k - p).abs().max().item()
+    if err > 0.0:
+        raise AssertionError(f"K5 max err {err}")
+    grid = (uv * 2.0 - 1.0).unsqueeze(0)
+    planes = image.permute(2, 0, 1).unsqueeze(0).contiguous()
+    lib = lambda: F.grid_sample(planes, grid, mode="bilinear",
+                                padding_mode="border", align_corners=False)
+    lib_err = (lib()[0].permute(1, 2, 0) - k).abs().max().item()
+    on = ((uv >= 0.0) & (uv <= 1.0)).all(-1).float().mean().item()
+    P = image.shape[-1]
+    return dict(err=err, ms=cuda_time(lambda: temporal_cuda.window_sample(
+                    image, uv), 50),
+                plain_ms=cuda_time(lambda: temporal_cuda.window_sample_plain(
+                    image, uv), 10),
+                library_ms=cuda_time(lib, 50),
+                # 4 taps: ~10 FLOP of coordinates, 6 per plane
+                bound=bound(nbytes(image, uv, k), (10.0 + 6.0 * P) * H * W),
+                shape=f"{W}x{H}, {P} f32 planes (the third forward + TAA "
+                      f"frame's history), {on:.4f} of uv on screen; "
+                      f"grid_sample differs by {lib_err:.3g}",
+                tol="exact")
 
 
 def check_stencils(dev):
@@ -320,9 +530,20 @@ def check_stencils(dev):
         if err > 1e-4:
             raise AssertionError(f"K4 {name} max rel err {err}")
         reps = 3 if name == "atrous" else 1
+        # per pixel: the channels a stencil reads (csrc/stencil.cu) once
+        # and its outputs once; ~30 FLOP per tap (edge-stopping weights
+        # with an exp and a pow, weighted sums)
+        px, f32 = H * W, 4
+        reads = {  # filter_moments: mom 0, 1, 3; both: mp 2, 3 (depth)
+            "filter_moments": nbytes(sig, nrm) + px * f32 * (3 + 2),
+            "variance_blur": nbytes(mom),
+            "atrous": nbytes(sig, nrm) + px * f32 * 2}[name]
+        taps = {"filter_moments": 49, "variance_blur": 9, "atrous": 25}[name]
         out[name] = dict(
             err=err, ms=cuda_time(kern, 20) / reps,
             plain_ms=cuda_time(plain, 2) / reps,
+            bound=bound(reads + nbytes(*(ks[:1] if reps > 1 else ks)),
+                        30.0 * taps * px),
             shape=f"{W}x{H}" + (", per step (1, 2, 4)" if reps > 1 else ""),
             tol="1e-4 relative to 1 + |plain|")
     return out
@@ -332,47 +553,135 @@ def check_stencils(dev):
 # phase 4-5: renders
 # ---------------------------------------------------------------------------
 
-def _hybrid_settings(width, height, **kw):
+def _hybrid_settings(width, height, extra=0, **kw):
+    """bench.py's hybrid flags, with ``extra`` flags added."""
     from hybridrenderer_tpu_torch.core.config import RenderSettings
     from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
 
     flags = (RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.EMISSIVE
              | RenderFlags.SHADOW | RenderFlags.AO | RenderFlags.SVGF
-             | RenderFlags.SVGF_TEMPORAL | RenderFlags.SVGF_SPATIAL)
+             | RenderFlags.SVGF_TEMPORAL | RenderFlags.SVGF_SPATIAL
+             | extra)
     return RenderSettings(width=width, height=height,
                           path=RenderPathType.HYBRID, flags=flags, **kw)
 
 
-def phase_golden(dev):
+def _forward_settings(width, height, taa=True):
+    """bench.py's forward flags (LIGHT | IBL | TAA)."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+
+    flags = RenderFlags.LIGHT | RenderFlags.IBL
+    return RenderSettings(width=width, height=height,
+                          path=RenderPathType.FORWARD,
+                          flags=flags | RenderFlags.TAA if taa else flags)
+
+
+def _golden(dev, name, settings, scene_fn, cam_kw, frames, taa, gates):
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.ops import raster_cuda
     from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
     from hybridrenderer_tpu_torch.runtime.output import read_png, to_u8
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
-    from hybridrenderer_tpu_torch.scene import scene as scenes
 
-    S = 128
-    data = scenes.cube_scene().build(dev)
-    r = Renderer.for_scene(_hybrid_settings(S, S, ao_block=8), data)
-    cam = OrbitCamera(width=S, height=S, **GOLDEN_CAM)
-    for _ in range(2):
-        img = to_u8(r.render_np(cam.step()))
-    golden = read_png(os.path.join(ROOT, "tests", "goldens",
-                                   "cube_hybrid_128.png"))
+    S = settings.width
+    data = scene_fn().build(dev)
+    r = Renderer.for_scene(settings, data)
+    cam = OrbitCamera(width=S, height=S, **cam_kw)
+    for _ in range(frames):
+        img = to_u8(r.render_np(cam.step(taa_enabled=taa)))
+    golden = read_png(os.path.join(ROOT, "tests", "goldens", name + ".png"))
     vis, _ = raster_cuda.rasterize_binned(
-        _clipped(data, S, S, GOLDEN_CAM), S, S, data.raster_rows)
+        _clipped(data, S, S, cam_kw), S, S, data.raster_rows)
     diff = np.abs(img.astype(int) - golden.astype(int))
     err = diff.max(axis=-1)
     off = err[~tri_boundary_mask(vis.tri_id.cpu().numpy(), dilate=1)]
     off_max, p99 = int(off.max()), float(np.percentile(diff, 99))
-    log(f"[golden] cube_hybrid_128: off-edge max {off_max} u8 "
-        f"(gate {GOLDEN_OFF_EDGE_MAX}), p99 {p99} (gate {GOLDEN_P99_MAX}), "
-        f"max {int(diff.max())}, mean {diff.mean():.4f}")
-    if off_max > GOLDEN_OFF_EDGE_MAX or p99 > GOLDEN_P99_MAX:
-        raise AssertionError("golden gate failed")
+    log(f"[golden] {name}: off-edge max {off_max} u8 (gate {gates[0]}), "
+        f"p99 {p99} (gate {gates[1]}), max {int(diff.max())}, mean "
+        f"{diff.mean():.4f}")
+    return off_max <= gates[0] and p99 <= gates[1]
 
 
-def phase_headline(dev, out_dir):
+def phase_golden(dev):
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    ok = [
+        _golden(dev, "cube_hybrid_128", _hybrid_settings(128, 128, ao_block=8),
+                scenes.cube_scene, GOLDEN_CAM, 2, False,
+                (GOLDEN_OFF_EDGE_MAX, GOLDEN_P99_MAX)),
+        _golden(dev, "cornell_full_128", _hybrid_settings(
+                    128, 128, extra=RenderFlags.REFLECTION | RenderFlags.GI,
+                    ao_block=8, gi_block=8),
+                scenes.cornell_scene, CORNELL_CAM, 2, False,
+                (FULL_GOLDEN_OFF_EDGE_MAX, FULL_GOLDEN_P99_MAX)),
+        _golden(dev, "cube_forward_64", _forward_settings(64, 64, taa=False),
+                scenes.cube_scene, GOLDEN_CAM, 1, False,
+                (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
+    ]
+    if not all(ok):
+        raise AssertionError(f"golden gate failed: {ok}")
+
+
+def frame_breakdown(name, r, cam):
+    """Two more frames: one with a sync around each pass (per-pass ms on
+    the host clock), one under torch.profiler (device time by kernel,
+    device operations, busy share of the profiled frame's wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    passes, spent = r.path.graph.passes, {}
+
+    def timed(p, fn):
+        def run(reg, ctx):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(reg, ctx)
+            torch.cuda.synchronize()
+            spent[p.name] = 1e3 * (time.perf_counter() - t)
+            return out
+        return run
+
+    fns = [p.fn for p in passes]
+    for p in passes:
+        p.fn = timed(p, p.fn)
+    try:
+        r.render(cam.step(taa_enabled=True))
+    finally:
+        for p, fn in zip(passes, fns):
+            p.fn = fn
+    log(f"[{name}] per pass ms (sync around each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spent.items())
+        + f"; sum {sum(spent.values()):.3f}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        r.render(cam.step(taa_enabled=True))
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    # device-side events only (kernels, copies): an aten op's own entry
+    # repeats the device time of the kernels it launched
+    dev_ms = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_ms(e) > 0.0]
+    busy = sum(dev_ms(e) for e in events)
+    if busy <= 0.0:
+        log(f"[{name}] profiler: no device time recorded; not measured")
+        return
+    ops = sum(e.count for e in events)
+    top = sorted(events, key=dev_ms, reverse=True)[:8]
+    log(f"[{name}] profiled frame: device busy {busy:.3f} ms of "
+        f"{wall:.3f} ms wall (share {busy / wall:.3f}), {ops} device "
+        f"operations; top: " + "; ".join(
+            f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
+
+
+def phase_render(dev, out_dir, name, settings, kernels):
+    """8 frames at 1920x1080 with the counts set to 0 just before and read
+    just after; ``kernels`` must each have launched."""
     import torch
 
     from hybridrenderer_tpu_torch import native
@@ -380,13 +689,15 @@ def phase_headline(dev, out_dir):
     from hybridrenderer_tpu_torch.runtime.output import write_png
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
-    W, H, F = HEADLINE["width"], HEADLINE["height"], HEADLINE["frames"]
+    W, H, F = settings.width, settings.height, HEADLINE["frames"]
     data = _headline_scene(dev, HEADLINE["objects"])
     t0 = time.perf_counter()
-    r = Renderer.for_scene(_hybrid_settings(W, H), data)
-    log(f"[headline] {data.num_triangles} triangles; BVH build + renderer "
+    r = Renderer.for_scene(settings, data)
+    log(f"[{name}] {data.num_triangles} triangles; BVH build + renderer "
         f"{time.perf_counter() - t0:.2f} s")
     cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     native.reset_counts()
     times = []
     for _ in range(F):
@@ -397,33 +708,37 @@ def phase_headline(dev, out_dir):
         times.append(1e3 * (time.perf_counter() - t))
         cam.orbit(0.01, 0.0)
     launches = {k.name: k.launches for k in native.KERNELS.values()
-                if k.on_path}
+                if k.launches}
     plain = {k.name: k.plain_cuda_calls for k in native.KERNELS.values()}
     stats = r.frame_stats()
     img = out.cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
-        raise AssertionError(f"headline output {img.shape} not finite")
+        raise AssertionError(f"{name} output {img.shape} not finite")
     if img.max() <= 0.0 or stats["covered_pixels"] <= 0:
-        raise AssertionError(f"headline frame black or empty: {stats}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+        raise AssertionError(f"{name} frame black or empty: {stats}")
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: "
+                             f"{missing} ({launches})")
     if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the card: {plain}")
-    png = os.path.join(out_dir, "chip_smoke_headline.png")
+        raise AssertionError(f"{name}: plain versions ran on the card: "
+                             f"{plain}")
+    png = os.path.join(out_dir, f"chip_smoke_{name}.png")
     write_png(png, np.clip(img, 0.0, 1.0))
     med = float(np.median(times[2:]))
-    log(f"[headline] ms/frame per frame: {[round(t, 2) for t in times]}")
-    log(f"[headline] median ms/frame (frames 3-{F}) {med:.2f} on "
+    log(f"[{name}] ms/frame per frame: {[round(t, 2) for t in times]}")
+    log(f"[{name}] median ms/frame (frames 3-{F}) {med:.2f} on "
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
-        f"launches {launches}; image {png}")
+        f"launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image {png}")
+    frame_breakdown(name, r, cam)
     return launches
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=tempfile.gettempdir(),
-                    help="directory for the headline PNG")
+                    help="directory for the rendered PNGs")
     args = ap.parse_args(argv)
 
     import torch
@@ -447,7 +762,9 @@ def main(argv=None):
     results, failures = {}, []
     for name, check in (("raster_tiles", check_raster),
                         ("trace_any", check_trace),
+                        ("trace_closest", check_trace_closest),
                         ("temporal_fetch", check_temporal),
+                        ("window_sample", check_window_sample),
                         ("stencils", check_stencils)):
         try:
             res = check(dev)
@@ -458,12 +775,30 @@ def main(argv=None):
         results.update(res if name == "stencils" else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
-            " (checked only: the frame does not launch it)"
+            " (checked only: no path launches it)"
+        lib = res.get("library_ms")
         log(f"[kernel] {name}: max err {res['err']:.3g} ({res['tol']}); "
-            f"{res['ms']:.4f} ms kernel vs {res['plain_ms']:.4f} ms plain "
+            f"{res['ms']:.4f} ms kernel vs {res['plain_ms']:.4f} ms plain"
+            + (f" vs {lib:.4f} ms library" if lib is not None else "")
+            + f"; bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) "
             f"at {res['shape']}{off}")
     phase_golden(dev)
-    launches = phase_headline(dev, args.out)
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+              "filter_moments", "atrous"]
+    paths = {
+        "headline": phase_render(dev, args.out, "headline",
+                                 _hybrid_settings(W, H), hybrid),
+        "full_graph": phase_render(
+            dev, args.out, "full_graph", _hybrid_settings(
+                W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
+            hybrid + ["trace_closest"]),
+        "forward_taa": phase_render(dev, args.out, "forward_taa",
+                                    _forward_settings(W, H),
+                                    ["raster_tiles", "window_sample"]),
+    }
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
 
@@ -472,10 +807,13 @@ def main(argv=None):
         k = native.KERNELS[name]
         if not k.on_path:
             continue
-        kernels.append(dict(name=name, route="cuda", source=k.source,
-                            replaces=k.replaces, launches=launches[name],
-                            max_abs_err=res["err"], ms=res["ms"],
-                            plain_ms=res["plain_ms"], shape=res["shape"]))
+        per_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        kernels.append(dict(
+            name=name, route="cuda", source=k.source, replaces=k.replaces,
+            launches=sum(per_path.values()), max_abs_err=res["err"],
+            ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
+            bound_by=res["bound"][1], library_ms=res.get("library_ms"),
+            launches_per_path=per_path, shape=res["shape"]))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

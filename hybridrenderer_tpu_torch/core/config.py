@@ -1,11 +1,14 @@
 """Static render configuration (hybridrenderer_tpu/core/config.py).
 
-Only the fields the hybrid path reads are ported, with the reference's
+Only the fields the ported paths read are ported, with the reference's
 defaults. The reference's kernel-backend fields (raster_backend,
 trace_backend, svgf_backend, svgf_temporal_gather, bvh_builder) pick
 Pallas or jnp by platform; here the device of the tensors picks the
 kernel or its plain version, so they are not fields and passing one
-raises TypeError. Nothing is read from the environment.
+raises TypeError. So does passing gi_layout or ao_layout (relayouts of
+the TPU's ray packets that change no result), shade_fetch (an A/B
+switch of the hit-shading fetch) or debug_radiance_stage (a diagnostic
+cut of the radiance pass). Nothing is read from the environment.
 """
 from __future__ import annotations
 
@@ -37,6 +40,16 @@ class RenderSettings:
     # per-pixel AO draws (ao_interleaved=False) from the blue-noise
     # texture, else from the TEA hash
     use_blue_noise: bool = True
+
+    # one GI bounce direction per (gi_block x gi_block) pixel block
+    # pattern, else per-pixel draws like AO's
+    gi_interleaved: bool = True
+    gi_block: int = 64
+    # reflection rays only where the G-buffer roughness is at most this
+    reflection_roughness_cutoff: float = 0.6
+    # trace reflection / GI on the half-res grid, then upsample
+    reflection_half_res: bool = False
+    gi_half_res: bool = False
 
     def __post_init__(self):
         if self.svgf_bits not in (16, 32):

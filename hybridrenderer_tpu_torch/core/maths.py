@@ -35,6 +35,11 @@ def length(v):
     return torch.linalg.vector_norm(v, dim=-1)
 
 
+def reflect(i, n):
+    """GLSL reflect: i - 2 dot(n, i) n (incident pointing at the surface)."""
+    return i - 2.0 * dot(n, i, keepdim=True) * n
+
+
 def mix(a, b, t):
     return a + (b - a) * t
 

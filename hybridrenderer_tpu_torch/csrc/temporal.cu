@@ -1,5 +1,7 @@
-// K3: SVGF temporal history fetch (reprojection).
+// K3: SVGF temporal history fetch (reprojection), and K5: the TAA
+// history fetch (bilinear sample of P planes).
 //
+// K3
 // Replaces hybridrenderer_tpu/ops/temporal_pallas.py _kernel (:55). Same
 // contract for one signal: each pixel reprojects through its motion
 // vector into the previous frame, takes the 2x2 bilinear footprint
@@ -16,6 +18,16 @@
 // type; all arithmetic is f32. Bound on the card: memory, ~60 B read
 // per tap (history 16 B, validation 20 B) and 60 B of current-frame
 // planes and output per pixel, mostly L2 hits for smooth motion.
+//
+// K5 replaces temporal_pallas.py _sample_kernel (:264, window_sample).
+// Its contract is the reference's CPU path, ops/image.py sample_bilinear:
+// each query point uv samples an (H, W, P) f32 image bilinearly at
+// x = u * W - 0.5, y = v * H - 0.5 with clamp-to-edge taps. The TPU
+// kernel's tile window, outside which a pixel lost its history, was a
+// VMEM workaround and is not kept. Design: one thread per query point,
+// four P-float taps. Bound on the card: memory, 8 B of uv read and 4P B
+// written per point, the image read once (neighbouring threads share
+// taps through L1/L2).
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -82,7 +94,50 @@ __global__ void temporal_fetch_kernel(
   for (int c = 0; c < 8; ++c) out[8 * p + c] = acc[c];
 }
 
+__global__ void window_sample_kernel(const float* __restrict__ planes, int H,
+                                     int W, int P,
+                                     const float* __restrict__ uv, int Q,
+                                     float* __restrict__ out) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= Q) return;
+  const float x = uv[2 * q] * static_cast<float>(W) - 0.5f;
+  const float y = uv[2 * q + 1] * static_cast<float>(H) - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  // clamp in float, then convert: the same taps as the reference's
+  // clip(int(x0)) for every representable coordinate
+  const float wm = static_cast<float>(W - 1), hm = static_cast<float>(H - 1);
+  const int xa = static_cast<int>(fminf(fmaxf(x0, 0.0f), wm));
+  const int xb = static_cast<int>(fminf(fmaxf(x0 + 1.0f, 0.0f), wm));
+  const int ya = static_cast<int>(fminf(fmaxf(y0, 0.0f), hm));
+  const int yb = static_cast<int>(fminf(fmaxf(y0 + 1.0f, 0.0f), hm));
+  const float* c00 = planes + (static_cast<size_t>(ya) * W + xa) * P;
+  const float* c10 = planes + (static_cast<size_t>(ya) * W + xb) * P;
+  const float* c01 = planes + (static_cast<size_t>(yb) * W + xa) * P;
+  const float* c11 = planes + (static_cast<size_t>(yb) * W + xb) * P;
+  for (int c = 0; c < P; ++c) {
+    out[static_cast<size_t>(q) * P + c] =
+        (c00[c] * (1.0f - fx) + c10[c] * fx) * (1.0f - fy) +
+        (c01[c] * (1.0f - fx) + c11[c] * fx) * fy;
+  }
+}
+
 }  // namespace
+
+HR_EXPORT int hr_window_sample(const void* planes, int H, int W, int P,
+                               const void* uv, int Q, void* out,
+                               void* stream) {
+  if (Q > 0) {
+    constexpr int kBlock = 256;
+    window_sample_kernel<<<(Q + kBlock - 1) / kBlock, kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(planes), H, W, P,
+        static_cast<const float*>(uv), Q, static_cast<float*>(out));
+  }
+  HR_RETURN_LAUNCH_STATUS();
+}
 
 HR_EXPORT int hr_temporal_fetch(const void* hist_signal,
                                 const void* hist_moments, int bf16,

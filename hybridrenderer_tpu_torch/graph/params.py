@@ -60,6 +60,9 @@ class RS:
     EMISSIVE = "Emissive"
     DEPTH = "Depth"
     CUR_COLOR = "ShadowAO"       # packed shadow + AO signal
+    REFLECTION_RAW = "ReflectionRaw"
+    GI_RAW = "GIRaw"
     FINAL_COLOR = "FinalColor"
+    TAA_OUTPUT = "TAAOutput"
     RENDER_OUTPUT = "RENDER_OUTPUT"
     WORLD_POS = "WorldPos"

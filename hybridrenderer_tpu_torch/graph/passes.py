@@ -1,5 +1,5 @@
-"""Render passes of the hybrid path as functions over the graph registry
-(hybridrenderer_tpu/graph/passes.py).
+"""Render passes of the hybrid and forward paths as functions over the
+graph registry (hybridrenderer_tpu/graph/passes.py).
 
 Each ``make_*_pass(settings)`` returns (fn, reads, writes, history) for
 ``RenderGraph.add_pass``. ``ctx`` is the FrameContext below.
@@ -12,13 +12,14 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..core import maths
-from ..core.types import RenderFlags
+from ..core.types import DisplayMode, RenderFlags
 from ..ops import composition as comp_ops
 from ..ops import gbuffer as gbuffer_ops
 from ..ops import postprocess as post_ops
 from ..ops import raster as raster_ops
-from ..ops import raster_cuda
+from ..ops import raster_cuda, shade, sky
 from ..ops import svgf as svgf_ops
+from ..ops import taa as taa_ops
 from .params import RS, FrameState
 
 
@@ -31,6 +32,8 @@ class FrameContext:
     state: FrameState
     history_valid: bool      # False on the first frame after a reset
     shadow_query: Optional[Callable] = None  # (pos, n, dir, tmax) → vis
+    # (origin, dir, ctx, depth, active) → (rgb, hit distance)
+    trace_radiance: Optional[Callable] = None
 
 
 def make_gbuffer_pass(settings):
@@ -148,9 +151,10 @@ def make_svgf_multi_pass(settings, chains):
     return fn, reads, tuple(writes), history
 
 
-def make_composition_pass(settings, shadow_name, variance_name=None):
-    """CompositionPass. Reflection and GI are not on this path; their
-    inputs are the neutral zero signals."""
+def make_composition_pass(settings, shadow_name, gi_name, refl_name,
+                          variance_name=None):
+    """CompositionPass. A signal whose pass is absent takes its neutral
+    value: unshadowed with full AO, zero GI and zero reflection."""
 
     def fn(reg, ctx: FrameContext):
         gb = reg["_GBuffer"]
@@ -160,10 +164,100 @@ def make_composition_pass(settings, shadow_name, variance_name=None):
         shadow_ao = torch.ones((H, W, 2), device=dev) if shadow_ao is None \
             else shadow_ao[..., :2]
         zeros3 = torch.zeros((H, W, 3), device=dev)
+        gi = reg.get(gi_name)
+        gi = zeros3 if gi is None else gi[..., :3]
+        refl = reg.get(refl_name)
+        refl = zeros3 if refl is None else refl[..., :3]
         var = reg.get(variance_name) if variance_name else None
-        out = comp_ops.compose(gb, shadow_ao, zeros3, zeros3, ctx.scene,
-                               ctx.cam, settings, ctx.params,
-                               svgf_variance=var)
+        out = comp_ops.compose(gb, shadow_ao, gi, refl, ctx.scene, ctx.cam,
+                               settings, ctx.params, svgf_variance=var)
         return {RS.FINAL_COLOR: out}
 
     return fn, ("_GBuffer",), (RS.FINAL_COLOR,), {}
+
+
+def make_forward_pass(settings):
+    """ForwardPass (forward.frag): single-pass PBR over the G-buffer, the
+    sun shadowed inline through the visibility hook when SHADOW is set,
+    sky-based ambient with IBL, the debug display modes, and the sky (or
+    black) behind the geometry."""
+
+    def fn(reg, ctx: FrameContext):
+        gb = reg["_GBuffer"]
+        sc, cam, params = ctx.scene, ctx.cam, ctx.params
+        flags = settings.flags
+        bg = gb.background
+        H, W = gb.depth.shape
+        dev = gb.depth.device
+
+        up = gb.normal.new_tensor([0.0, 1.0, 0.0]).expand_as(gb.normal)
+        n = maths.normalize(torch.where(bg.unsqueeze(-1), up, gb.normal))
+        v = maths.normalize(cam.position - gb.world_pos)
+        l = maths.normalize(-params.sun_direction).expand_as(v)
+        intensity = params.sun_color * params.sun_intensity \
+            if flags & RenderFlags.LIGHT else torch.zeros(3, device=dev)
+
+        if ctx.shadow_query is not None and flags & RenderFlags.SHADOW:
+            shadow = ctx.shadow_query(gb.world_pos, n, l, 1000.0, active=~bg)
+        else:
+            shadow = torch.ones_like(gb.depth)
+
+        rough = gb.material[..., 0]
+        metal = gb.material[..., 1]
+        direct = shade.eval_pbr(gb.albedo, 1.5, rough, metal, n, v, l) * \
+            shadow.unsqueeze(-1) * intensity
+
+        if flags & RenderFlags.IBL:
+            r = maths.reflect(-v, n)
+            env_spec = sky.sample_environment(r, True, sc.has_sky_texture)
+            env_diff = sky.sample_environment(n, True, sc.has_sky_texture)
+            f0 = maths.mix(torch.full_like(gb.albedo, 0.04), gb.albedo,
+                           metal.unsqueeze(-1))
+            f = shade.fresnel_schlick(f0, n, v)
+            kd = (1.0 - f) * (1.0 - metal.unsqueeze(-1))
+            ambient = (kd * env_diff * gb.albedo + f * env_spec) * \
+                params.ambient_strength
+        else:
+            ambient = params.ambient_strength * gb.albedo
+
+        color = ambient + direct + gb.emissive
+        mode = settings.display_mode
+        if mode == DisplayMode.ALBEDO:
+            color = gb.albedo
+        elif mode == DisplayMode.NORMAL:
+            color = n * 0.5 + 0.5
+        elif mode == DisplayMode.MATERIAL:
+            color = torch.stack([rough, metal, torch.ones_like(rough)], -1)
+        elif mode == DisplayMode.MOTION:
+            color = torch.cat([torch.abs(gb.motion) * 100.0,
+                               torch.zeros_like(gb.depth).unsqueeze(-1)], -1)
+        elif mode == DisplayMode.DEPTH:
+            color = gb.depth.unsqueeze(-1).expand(H, W, 3)
+
+        sky_rgb = sky.sample_environment(
+            comp_ops.view_directions(cam, H, W, dev),
+            bool(flags & RenderFlags.IBL), sc.has_sky_texture)
+        return {RS.FINAL_COLOR: torch.where(bg.unsqueeze(-1), sky_rgb, color)}
+
+    return fn, ("_GBuffer",), (RS.FINAL_COLOR,), {}
+
+
+def make_taa_pass(settings):
+    """TAAPass (taa.comp) over the G-buffer's motion and depth; the
+    history fetch is kernel K5 (ops/taa.py). With no history yet it
+    resolves against the current frame."""
+
+    def fn(reg, ctx: FrameContext):
+        gb = reg["_GBuffer"]
+        history = reg.get("History_" + RS.TAA_OUTPUT)
+        if history is None:
+            history = reg[RS.FINAL_COLOR]
+        out = taa_ops.resolve(
+            reg[RS.FINAL_COLOR], history, gb.motion, gb.depth,
+            ctx.cam.jitter, ctx.cam.prev_jitter,
+            history_valid=ctx.history_valid,
+            enabled=bool(settings.flags & RenderFlags.TAA))
+        return {RS.TAA_OUTPUT: out}
+
+    return fn, (RS.FINAL_COLOR, "History_" + RS.TAA_OUTPUT), \
+        (RS.TAA_OUTPUT,), {RS.TAA_OUTPUT: RS.TAA_OUTPUT}

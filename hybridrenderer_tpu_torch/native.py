@@ -114,8 +114,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "hr_trace_any": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P],
+    "hr_trace_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P,
+                         _P, _P],
     "hr_temporal_fetch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                           _P],
+    "hr_window_sample": [_P, _I, _I, _I, _P, _I, _P, _P],
     "hr_atrous": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
     "hr_filter_moments": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
     "hr_variance_blur": [_P, _I, _I, _P, _P],
@@ -145,7 +148,7 @@ class Kernel:
     name: str
     source: str     # path in the repository
     replaces: str   # file:line of the TPU kernel
-    # whether the hybrid frame launches it; variance_blur's output feeds
+    # whether a render path launches it; variance_blur's output feeds
     # nothing in the reference, so the frame skips it (ops/svgf.py)
     on_path: bool = True
     launches: int = 0
@@ -176,8 +179,12 @@ KERNELS = {
                _TPU + "raster_pallas.py:784"),
         Kernel("trace_any", _CSRC + "trace.cu",
                _TPU + "trace_pallas.py:869"),
+        Kernel("trace_closest", _CSRC + "trace.cu",
+               _TPU + "trace_pallas.py:869"),
         Kernel("temporal_fetch", _CSRC + "temporal.cu",
                _TPU + "temporal_pallas.py:55"),
+        Kernel("window_sample", _CSRC + "temporal.cu",
+               _TPU + "temporal_pallas.py:264"),
         Kernel("atrous", _CSRC + "stencil.cu",
                _TPU + "stencil_pallas.py:183"),
         Kernel("filter_moments", _CSRC + "stencil.cu",

@@ -15,6 +15,19 @@ def _gray(bg, value, out):
                        out)
 
 
+def view_directions(cam, H, W, device):
+    """(H, W, 3) unit direction from the camera through each pixel centre
+    at the far plane (reversed-Z z_ndc = 0)."""
+    uv = img_ops.pixel_uv_grid(H, W, device)
+    ndc = torch.cat([uv * 2.0 - 1.0, torch.zeros((H, W, 1), device=device),
+                     torch.ones((H, W, 1), device=device)], dim=-1)
+    world_h = ndc @ cam.view_proj_inverse.T
+    hw = world_h[..., 3:4]
+    far_point = world_h[..., :3] / torch.where(
+        torch.abs(hw) < 1e-12, torch.full_like(hw, 1e-12), hw)
+    return maths.normalize(far_point - cam.position)
+
+
 def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
             svgf_variance=None):
     """G-buffer + (denoised) RT signals → linear HDR (H, W, 3).
@@ -25,17 +38,9 @@ def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
     mode = settings.display_mode
     bg = gb.background
 
-    # view direction through each pixel at the far plane (z_ndc = 0)
-    uv = img_ops.pixel_uv_grid(H, W, dev)
-    ndc = torch.cat([uv * 2.0 - 1.0, torch.zeros((H, W, 1), device=dev),
-                     torch.ones((H, W, 1), device=dev)], dim=-1)
-    world_h = ndc @ cam.view_proj_inverse.T
-    hw = world_h[..., 3:4]
-    far_point = world_h[..., :3] / torch.where(
-        torch.abs(hw) < 1e-12, torch.full_like(hw, 1e-12), hw)
-    view_dir = maths.normalize(far_point - cam.position)
     sky_rgb = sky.sample_environment(
-        view_dir, ibl_enabled=bool(flags & RenderFlags.IBL),
+        view_directions(cam, H, W, dev),
+        ibl_enabled=bool(flags & RenderFlags.IBL),
         has_sky=scene.has_sky_texture)
 
     zeros3 = torch.zeros((H, W, 3), device=dev)

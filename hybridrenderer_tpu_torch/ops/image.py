@@ -13,7 +13,7 @@ def shift(img, dy: int, dx: int):
     return img[ys][:, xs]
 
 
-def pixel_uv_grid(height: int, width: int, device="cpu"):
+def pixel_uv_grid(height: int, width: int, device):
     """(H, W, 2) uv at pixel centers, ``(ipos + 0.5) / size``. The divisor
     is a full tensor: PyTorch's CUDA backend divides by a Python scalar
     as a multiply by its reciprocal, which rounds differently from the
@@ -45,3 +45,48 @@ def tri_boundary_mask(tri_id, dilate: int = 1):
         d[:, 1:] |= m[:, :-1]
         m = d
     return m
+
+
+def upsample2x_depth_aware(val_half, z_half, z_full, sigma_scale=0.1):
+    """Joint (depth-guided) bilateral 2x upsample of a half-res signal:
+    each full-res pixel blends the four nearest half-res samples with
+    bilinear x depth-similarity weights. ``z_half`` is the linear depth
+    of the pixels the half-res signal was traced from, ``z_full`` the
+    full-res linear depth. Where every tap is rejected the pixel keeps
+    its own quad's value."""
+    H, W = z_full.shape[:2]
+    dev = z_full.device
+    up = val_half.repeat_interleave(2, 0).repeat_interleave(2, 1)[:H, :W]
+    zu = z_half.repeat_interleave(2, 0).repeat_interleave(2, 1)[:H, :W]
+    odd_y = (torch.arange(H, device=dev)[:, None] & 1).bool()
+    odd_x = (torch.arange(W, device=dev)[None, :] & 1).bool()
+    chans = up.dim() == 3
+
+    def quad_neighbor(img, axis):
+        # even rows/cols sit in the top/left half of their quad: the
+        # nearest other quad is above/left; odd ones look below/right
+        par = odd_y if axis == 0 else odd_x
+        if img.dim() == 3:
+            par = par.unsqueeze(-1)
+        if axis == 0:
+            return torch.where(par, shift(img, 2, 0), shift(img, -2, 0))
+        return torch.where(par, shift(img, 0, 2), shift(img, 0, -2))
+
+    taps = (
+        (up, zu, 0.75 * 0.75),
+        (quad_neighbor(up, 1), quad_neighbor(zu, 1), 0.25 * 0.75),
+        (quad_neighbor(up, 0), quad_neighbor(zu, 0), 0.75 * 0.25),
+        (quad_neighbor(quad_neighbor(up, 0), 1),
+         quad_neighbor(quad_neighbor(zu, 0), 1), 0.25 * 0.25),
+    )
+    sigma = sigma_scale * torch.clamp(torch.abs(z_full), min=1e-3)
+    acc = torch.zeros_like(up)
+    wacc = torch.zeros_like(z_full)
+    for v, z, wb in taps:
+        w = wb * torch.exp(-torch.abs(z - z_full) / sigma)
+        acc = acc + v * (w.unsqueeze(-1) if chans else w)
+        wacc = wacc + w
+    wsafe = torch.clamp(wacc, min=1e-6)
+    norm = acc / (wsafe.unsqueeze(-1) if chans else wsafe)
+    keep = wacc > 1e-6
+    return torch.where(keep.unsqueeze(-1) if chans else keep, norm, up)

@@ -28,7 +28,7 @@ class SVGFSignalHistory:
     moments: Any  # (H, W, 4) (m1, m2, var, history length)
 
     @staticmethod
-    def create(height, width, device="cpu"):
+    def create(height, width, device):
         z = torch.zeros((height, width, 4), dtype=torch.float32, device=device)
         return SVGFSignalHistory(signal=z, moments=z.clone())
 

@@ -1,10 +1,14 @@
-"""SVGF temporal history fetch: kernel K3 and its plain version
-(hybridrenderer_tpu/ops/temporal_pallas.py; the plain version follows
-ops/svgf.py temporal_multi with gather="pixel").
+"""History fetches: the SVGF temporal fetch, kernel K3, and the TAA
+history fetch, kernel K5, each with its plain version
+(hybridrenderer_tpu/ops/temporal_pallas.py; the plain versions follow
+ops/svgf.py temporal_multi with gather="pixel" and ops/image.py
+sample_bilinear).
 
 ``temporal_fetch`` returns, per pixel, an (H, W, 8) f32 image: the
 validated bilinear history signal (4), moments m1 and m2, history
-length, and the sum of the kept tap weights.
+length, and the sum of the kept tap weights. ``reproject`` is the
+reference's single-signal entry over it. ``window_sample`` samples an
+(H, W, P) image bilinearly at uv points.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from ..core import maths
 from . import image as img_ops
 
 KERNEL = native.KERNELS["temporal_fetch"]
+KERNEL_SAMPLE = native.KERNELS["window_sample"]
 
 
 def temporal_fetch(hist_signal, hist_moments, prev_normal, prev_depth,
@@ -94,3 +99,75 @@ def temporal_fetch_plain(hist_signal, hist_moments, prev_normal, prev_depth,
             acc[c] = acc[c] + w * val
         acc[7] = acc[7] + w
     return torch.stack(acc, dim=-1)
+
+
+def reproject(hpack_pm, motion, normal, z, oid):
+    """The reference's single-signal entry (temporal_pallas.reproject)
+    over K3. ``hpack_pm`` (12, H, W) f32 is the legacy plane-major pack
+    sig0..3, m1, m2, hlen, prev nx, ny, nz, prev linear depth, prev
+    object id; ``motion`` (H, W, 2) the uv motion the footprint follows;
+    ``normal`` (H, W, 3), ``z`` (H, W) and ``oid`` (H, W) the current
+    frame's. → (hist_sig (H, W, 4), hist_mom (H, W, 2), hist_len (H, W),
+    wsum (H, W)), unnormalized as the reference returns them."""
+    H, W = z.shape
+    pm = hpack_pm.to(torch.float32)
+    hist_signal = pm[0:4].permute(1, 2, 0)
+    hist_moments = torch.stack([pm[4], pm[5], torch.zeros_like(pm[4]),
+                                pm[6]], dim=-1)
+    motion_plane = torch.cat([motion, z.unsqueeze(-1),
+                              torch.zeros_like(z).unsqueeze(-1)], dim=-1)
+    f = temporal_fetch(hist_signal.contiguous(), hist_moments.contiguous(),
+                       pm[7:10].permute(1, 2, 0).contiguous(),
+                       pm[10].contiguous(), pm[11].to(torch.int32),
+                       motion_plane.contiguous(), normal.contiguous(),
+                       oid.to(torch.int32).contiguous())
+    return f[..., 0:4], f[..., 4:6], f[..., 6], f[..., 7]
+
+
+def window_sample(image, uv):
+    """Bilinear sample of an (H, W, P) f32 image at uv (..., 2) in
+    [0, 1]^2 (pixel centres at (i + 0.5) / N), clamp-to-edge taps →
+    (..., P) f32.
+
+    CUDA tensors launch kernel K5, which replaces the TPU kernel
+    temporal_pallas._sample_kernel; CPU tensors take the plain version.
+    On the card the kernel is bound by memory; see csrc/temporal.cu."""
+    if uv.device.type == "cpu":
+        return window_sample_plain(image, uv)
+    if uv.device.type != "cuda":
+        raise ValueError(f"window_sample: unsupported device {uv.device}")
+    dev = uv.device
+    if image.dim() != 3:
+        raise ValueError(f"image: shape {tuple(image.shape)}, expected "
+                         f"(H, W, P)")
+    H, W, P = image.shape
+    native.check(image, "image", torch.float32, (H, W, P), dev)
+    native.check(uv, "uv", torch.float32, (*uv.shape[:-1], 2), dev)
+    Q = uv.numel() // 2
+    out = torch.empty((*uv.shape[:-1], P), dtype=torch.float32, device=dev)
+    KERNEL_SAMPLE.launch("hr_window_sample", native.ptr(image), H, W, P,
+                         native.ptr(uv), Q, native.ptr(out))
+    return out
+
+
+def window_sample_plain(image, uv):
+    """Plain PyTorch version of kernel K5 (ops/image.py sample_bilinear)."""
+    KERNEL_SAMPLE.note_plain(uv)
+    H, W = image.shape[:2]
+    x = uv[..., 0] * W - 0.5
+    y = uv[..., 1] * H - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0).unsqueeze(-1)
+    fy = (y - y0).unsqueeze(-1)
+
+    def tap(xi, yi):
+        return image[torch.clamp(yi, 0, H - 1).long(),
+                     torch.clamp(xi, 0, W - 1).long()]
+
+    c00 = tap(x0, y0)
+    c10 = tap(x0 + 1.0, y0)
+    c01 = tap(x0, y0 + 1.0)
+    c11 = tap(x0 + 1.0, y0 + 1.0)
+    return (c00 * (1.0 - fx) + c10 * fx) * (1.0 - fy) + \
+        (c01 * (1.0 - fx) + c11 * fx) * fy

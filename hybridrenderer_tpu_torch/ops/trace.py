@@ -1,35 +1,59 @@
 """Ray queries over the scene BVH (hybridrenderer_tpu/ops/trace.py):
-``SceneTracer.build`` and the visibility query the shadow and AO passes
-call. Closest-hit radiance tracing is not ported yet.
+``SceneTracer.build``, the visibility queries (``shadow_query`` over
+images, ``occluded`` over flat rays) through the any-hit traversal K2,
+and ``trace_radiance``, the closest-hit traversal K2c with hit shading
+(closesthit.rchit) and the sky on a miss (miss.rmiss).
+
+The reference relayouts rays tile- or pattern-major for its TPU packets;
+a relayout changes no per-ray result, so the port traces in pixel order.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
-from . import sampling
+from ..core import maths
+from ..core.types import RenderFlags
+from . import sampling, shade, sky
 from .bvh import build_sah
-from .trace_cuda import PackedBVH, intersect_any, pack_bvh
+from .trace_cuda import PackedBVH, intersect_any, intersect_closest, pack_bvh
 
 TMIN = 0.01  # shadow_query's ray start, past the normal offset
+OCCLUSION_TMIN = 1e-3   # occluded's ray start
+RADIANCE_TMIN, RADIANCE_TMAX = 0.01, 1e6
+HIT_ID_LIMIT = 1 << 29  # ids at or above it are the TPU kernel's sentinels
+# The reference's hit shading fetches the attr_rows columns below
+# (scene/schema.py _SHADE_COLS), exactly, from a u16 table of at most
+# SHADE_ROWS_MAX rows; above it, it switches to a quantized table that
+# changes the image and is not ported.
+SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
+              + list(range(45, 54)) + [66] + list(range(67, 83)))
+SHADE_ROWS_MAX = 98304
 
 
 @dataclasses.dataclass
 class SceneTracer:
     packed: PackedBVH
+    # (T, 53) hit-shading rows: vertex k's normal, tangent, uv at 9k;
+    # normal matrix at 27, material id at 36, material row at 37
+    shade_rows: Any
 
     @staticmethod
     def build(scene_data, settings=None) -> "SceneTracer":
         """Binned-SAH BVH over the scene's triangle soup, on the scene's
-        device. Alpha-tested scenes need closest-hit rounds, which are
-        not ported yet."""
+        device. Alpha-tested scenes need closest-hit rounds over cut-out
+        texels, which are not ported yet."""
         if scene_data.has_alpha_test:
             raise NotImplementedError(
                 "alpha-tested (cut-out) occlusion is not ported yet")
         soup = scene_data.triangles
         bvh = build_sah(soup.v0, soup.v1, soup.v2)
-        return SceneTracer(packed=pack_bvh(bvh, soup.v0, soup.v1, soup.v2))
+        cols = torch.tensor(SHADE_COLS, device=scene_data.device)
+        return SceneTracer(packed=pack_bvh(bvh, soup.v0, soup.v1, soup.v2),
+                           shade_rows=scene_data.attr_rows[:, cols]
+                           .contiguous())
 
     def shadow_rays(self, world_pos, normal, direction, tmax, active=None):
         """The rays of ``shadow_query`` as ``intersect_any`` takes them:
@@ -52,3 +76,137 @@ class SceneTracer:
                                         active)
         tri = intersect_any(self.packed, o, d, TMIN, t, act)
         return torch.where(tri >= 0, 0.0, 1.0).reshape(world_pos.shape[:2])
+
+    def occluded(self, origin, direction, tmax: float, active):
+        """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
+        1.0 unoccluded, 0.0 occluded or inactive."""
+        R = origin.shape[0]
+        t = torch.full((R,), float(tmax), dtype=torch.float32,
+                       device=origin.device)
+        tri = intersect_any(self.packed, origin.contiguous(),
+                            direction.contiguous(), OCCLUSION_TMIN, t,
+                            active.contiguous())
+        return torch.where(active & (tri < 0), 1.0, 0.0)
+
+    def radiance_rays(self, origin, direction, active=None):
+        """The rays of ``trace_radiance`` as ``intersect_closest`` takes
+        them: (o (R, 3), d (R, 3), tmax (R,), active (R,))."""
+        o = origin.reshape(-1, 3).contiguous()
+        d = direction.reshape(-1, 3).contiguous()
+        R = o.shape[0]
+        act = torch.ones((R,), dtype=torch.bool, device=o.device) \
+            if active is None else active.reshape(-1).contiguous()
+        t = torch.full((R,), RADIANCE_TMAX, dtype=torch.float32,
+                       device=o.device)
+        return o, d, t, act
+
+    def trace_radiance(self, scene, origin, direction, ctx, depth: int = 0,
+                       active=None):
+        """Trace and shade closest hits. origin / direction (..., 3) →
+        (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
+        rays trace nothing and take the miss value. The NEE seed of a ray
+        is its flat index, the reference's original pixel index."""
+        lead = origin.shape[:-1]
+        o, d, tmax, act = self.radiance_rays(origin, direction, active)
+        t, tri, u, v = intersect_closest(self.packed, o, d, RADIANCE_TMIN,
+                                         tmax, act)
+        hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
+        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit)
+        rgb_miss = sky.sample_environment(
+            d, bool(ctx.settings.flags & RenderFlags.IBL),
+            has_sky=scene.has_sky_texture)
+        rgb = torch.where(hit.unsqueeze(-1), rgb_hit, rgb_miss)
+        dist = torch.where(hit, t, torch.full_like(t, -1.0))
+        return rgb.reshape(*lead, 3), dist.reshape(lead)
+
+    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active):
+        """closesthit.rchit: interpolate the hit's attributes, evaluate
+        its material, sun and emissive-light NEE (both shadowed, with the
+        reference's facing gates), IBL ambient and emission. ``active``
+        (the hit mask) gates the occlusion rays."""
+        params, flags = ctx.params, ctx.settings.flags
+        R = o.shape[0]
+        dev = o.device
+        safe = torch.clamp(tri, 0, self.shade_rows.shape[0] - 1).long()
+        b0 = (1.0 - u - v).unsqueeze(-1)
+        b1 = u.unsqueeze(-1)
+        b2 = v.unsqueeze(-1)
+        world_pos = o + d * t.unsqueeze(-1)
+
+        row = self.shade_rows[safe]
+        lerp = row[:, 0:9] * b0 + row[:, 9:18] * b1 + row[:, 18:27] * b2
+        ln = lerp[:, 0:3]
+        uv = lerp[:, 7:9]
+        nmat = row[:, 27:36]
+        mrow = row[:, 37:53]
+        geo_n = maths.normalize(torch.stack(
+            [maths.dot(nmat[:, 3 * i:3 * i + 3], ln) for i in range(3)],
+            dim=-1))
+        # face the ray (closesthit.rchit:56)
+        flip = maths.dot(geo_n, d, keepdim=True) > 0.0
+        geo_n = torch.where(flip, -geo_n, geo_n)
+        mp = shade.material_point_from_row(mrow, uv, sc.textures)
+        n = shade.apply_normal_map(geo_n, sc.textures)
+
+        view = -d
+        light_on = bool(flags & RenderFlags.LIGHT)
+        sun_dir = maths.normalize(-params.sun_direction).expand(R, 3)
+        sun_int = params.sun_color * params.sun_intensity if light_on \
+            else torch.zeros(3, device=dev)
+        shadow_origin = sampling.offset_ray(world_pos, geo_n)
+        sun_brdf = shade.eval_pbr(mp.colour, 1.5, mp.roughness, mp.metallic,
+                                  n, view, sun_dir) * sun_int
+        # facing gates: a hit facing away from the sun or the sampled
+        # light gets no light from it, so its occlusion ray is not traced
+        sun_act = None
+        if light_on:
+            sun_act = (maths.dot(geo_n, sun_dir) > 0.0) & active
+
+        nee_act = None
+        if sc.lights.count > 0:
+            seed = sampling.init_random_seed(
+                torch.arange(R, dtype=torch.int64, device=dev),
+                params.frame_index)
+            ldir, sampled_inst, _ = sampling.sample_lights(sc, world_pos,
+                                                           seed)
+            has = (maths.length(ldir) > 0.001) & (maths.dot(geo_n, ldir)
+                                                  > 0.0)
+            inst_emission = sc.materials.emission[
+                sc.instances.material.long()] * 5.0
+            l_rad = inst_emission[torch.clamp(sampled_inst, min=0).long()]
+            nee = shade.eval_pbr(mp.colour, 1.5, mp.roughness, mp.metallic,
+                                 n, view, ldir) * l_rad
+            nee_act = has & active
+
+        # the sun and light rays share origins: one any-hit call of 2R
+        # rays when both are live
+        sun_shadow = torch.zeros((R,), device=dev)
+        lshadow = None
+        if sun_act is not None and nee_act is not None:
+            both = self.occluded(torch.cat([shadow_origin, shadow_origin]),
+                                 torch.cat([sun_dir, ldir]), 1000.0,
+                                 torch.cat([sun_act, nee_act]))
+            sun_shadow, lshadow = both[:R], both[R:]
+        elif sun_act is not None:
+            sun_shadow = self.occluded(shadow_origin, sun_dir, 1000.0,
+                                       sun_act)
+        elif nee_act is not None:
+            lshadow = self.occluded(shadow_origin, ldir, 1000.0, nee_act)
+        direct = sun_brdf * sun_shadow.unsqueeze(-1)
+        if nee_act is not None:
+            ok = (has & (lshadow > 0.5) & (sampled_inst >= 0)).unsqueeze(-1)
+            direct = direct + torch.where(ok, nee, torch.zeros_like(nee))
+
+        # IBL ambient (closesthit.rchit:99-113)
+        ambient = torch.zeros_like(direct)
+        if flags & RenderFlags.IBL:
+            r = maths.reflect(d, n)
+            env_spec = sky.sample_environment(r, True, sc.has_sky_texture)
+            env_diff = sky.sample_environment(n, True, sc.has_sky_texture)
+            metal = mp.metallic.unsqueeze(-1)
+            f0 = maths.mix(torch.full_like(mp.colour, 0.04), mp.colour, metal)
+            f = shade.fresnel_schlick(f0, n, view)
+            kd = (1.0 - f) * (1.0 - metal)
+            amb_str = torch.clamp(params.ambient_strength, min=0.2)
+            ambient = (kd * env_diff * mp.colour + f * env_spec) * amb_str
+        return direct + ambient + mp.emission

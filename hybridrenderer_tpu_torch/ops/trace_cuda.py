@@ -1,12 +1,15 @@
-"""Any-hit BVH traversal: kernel K2 and its plain version
-(hybridrenderer_tpu/ops/trace_pallas.py in any-hit mode; the plain
-version follows ops/trace.py intersect_bvh).
+"""BVH traversal: kernels K2 (any-hit) and K2c (closest-hit) and their
+plain version (hybridrenderer_tpu/ops/trace_pallas.py in its two modes;
+the plain version follows ops/trace.py intersect_bvh).
 
-``pack_bvh`` lays the binary BVH out for the kernel: per node two float4
+``pack_bvh`` lays the binary BVH out for the kernels: per node two float4
 (min xyz + left child id bits, max xyz + right child id bits), the leaf
 triangle ids, and the triangle corners as (T, 9) floats.
 ``intersect_any`` returns, per ray, the id of a triangle hit with
-tmin <= t <= tmax, or -1.
+tmin <= t <= tmax, or -1. ``intersect_closest`` returns (t, tri, u, v)
+of the nearest such hit, with t = +inf, tri = -1 and u = v = 0 on a miss.
+Neither caps its iterations: the reference's ``max_iters`` batch cap of
+10,000 steps is never reached on a tree the stack can hold.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ..core import maths
 TRI_EPS = 1e-9
 STACK_DEPTH = 64
 KERNEL = native.KERNELS["trace_any"]
+KERNEL_CLOSEST = native.KERNELS["trace_closest"]
 
 
 @dataclasses.dataclass
@@ -61,6 +65,19 @@ def pack_bvh(bvh, v0, v1, v2) -> PackedBVH:
                      n_internal=bvh.num_tris - 1)
 
 
+def _check_rays(bvh: PackedBVH, o, d, tmax, active):
+    dev = o.device
+    R = o.shape[0]
+    native.check(bvh.nodes, "nodes", torch.float32, (None, 8), dev)
+    native.check(bvh.node_tri, "node_tri", torch.int32, (None,), dev)
+    native.check(bvh.tri_verts, "tri_verts", torch.float32, (None, 9), dev)
+    native.check(o, "o", torch.float32, (R, 3), dev)
+    native.check(d, "d", torch.float32, (R, 3), dev)
+    native.check(tmax, "tmax", torch.float32, (R,), dev)
+    native.check(active, "active", torch.bool, (R,), dev)
+    return R
+
+
 def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active):
     """Rays (R, 3) o, d; tmax (R,) f32; active (R,) bool → tri (R,) i32.
 
@@ -72,16 +89,8 @@ def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active):
         return intersect_any_plain(bvh, o, d, tmin, tmax, active)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_any: unsupported device {o.device}")
-    dev = o.device
-    R = o.shape[0]
-    native.check(bvh.nodes, "nodes", torch.float32, (None, 8), dev)
-    native.check(bvh.node_tri, "node_tri", torch.int32, (None,), dev)
-    native.check(bvh.tri_verts, "tri_verts", torch.float32, (None, 9), dev)
-    native.check(o, "o", torch.float32, (R, 3), dev)
-    native.check(d, "d", torch.float32, (R, 3), dev)
-    native.check(tmax, "tmax", torch.float32, (R,), dev)
-    native.check(active, "active", torch.bool, (R,), dev)
-    out = torch.empty((R,), dtype=torch.int32, device=dev)
+    R = _check_rays(bvh, o, d, tmax, active)
+    out = torch.empty((R,), dtype=torch.int32, device=o.device)
     KERNEL.launch("hr_trace_any", native.ptr(bvh.nodes),
                   native.ptr(bvh.node_tri), native.ptr(bvh.tri_verts),
                   bvh.n_internal, native.ptr(o), native.ptr(d),
@@ -90,8 +99,31 @@ def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active):
     return out
 
 
+def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active):
+    """Rays (R, 3) o, d; tmax (R,) f32; active (R,) bool → (t, tri, u, v)
+    of the nearest hit, each (R,), tri i32.
+
+    CUDA tensors launch kernel K2c, which replaces the TPU kernel
+    trace_pallas._wide_direct_kernel (closest-hit); CPU tensors take the
+    plain version. Bound on the card like K2; see csrc/trace.cu."""
+    if o.device.type == "cpu":
+        return intersect_closest_plain(bvh, o, d, tmin, tmax, active)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_closest: unsupported device {o.device}")
+    R = _check_rays(bvh, o, d, tmax, active)
+    t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
+               for _ in range(3))
+    tri = torch.empty((R,), dtype=torch.int32, device=o.device)
+    KERNEL_CLOSEST.launch(
+        "hr_trace_closest", native.ptr(bvh.nodes), native.ptr(bvh.node_tri),
+        native.ptr(bvh.tri_verts), bvh.n_internal, native.ptr(o),
+        native.ptr(d), native.ptr(tmax), native.ptr(active), float(tmin), R,
+        native.ptr(t), native.ptr(tri), native.ptr(u), native.ptr(v))
+    return t, tri, u, v
+
+
 def ray_triangle(o, d, p0, p1, p2, tmin, tmax):
-    """Möller–Trumbore, both-faced → (hit, t)."""
+    """Möller–Trumbore, both-faced → (hit, t, u, v)."""
     e1 = p1 - p0
     e2 = p2 - p0
     pvec = maths.cross(d, e2)
@@ -105,7 +137,7 @@ def ray_triangle(o, d, p0, p1, p2, tmin, tmax):
     t = maths.dot(e2, qvec) * inv_det
     hit = ((torch.abs(det) >= TRI_EPS) & (u >= 0.0) & (v >= 0.0)
            & (u + v <= 1.0) & (t >= tmin) & (t <= tmax))
-    return hit, t
+    return hit, t, u, v
 
 
 def ray_aabb(o, inv_d, bmin, bmax, tmin, tmax):
@@ -117,11 +149,30 @@ def ray_aabb(o, inv_d, bmin, bmax, tmin, tmax):
     return (tn <= tf) & (tf >= tmin) & (tn <= tmax), tn
 
 
-def intersect_any_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active):
-    """Plain PyTorch version of kernel K2: every ray keeps its own stack
-    and all rays step together, one node per ray per step, in the
-    kernel's visiting order."""
+def intersect_any_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
+                        visits=None):
+    """Plain PyTorch version of kernel K2. ``visits``, a dict, receives
+    the number of internal and leaf nodes the rays visit."""
     KERNEL.note_plain(o)
+    return _traverse_plain(bvh, o, d, tmin, tmax, active, True, visits)[1]
+
+
+def intersect_closest_plain(bvh: PackedBVH, o, d, tmin: float, tmax,
+                            active, visits=None):
+    """Plain PyTorch version of kernel K2c; ``visits`` as for K2."""
+    KERNEL_CLOSEST.note_plain(o)
+    t, tri, u, v = _traverse_plain(bvh, o, d, tmin, tmax, active, False,
+                                   visits)
+    return torch.where(tri < 0, torch.full_like(t, float("inf")), t), tri, \
+        u, v
+
+
+def _traverse_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
+                    any_hit: bool, visits=None):
+    """Every ray keeps its own stack and all rays step together, one node
+    per ray per step, in the kernels' visiting order. Child boxes are
+    tested against each ray's best t so far; a leaf hit with t <= best
+    replaces it (any-hit: ends the ray). → (best t, tri, u, v)."""
     dev = o.device
     R = o.shape[0]
     node_min = bvh.nodes[:, 0:3]
@@ -136,7 +187,11 @@ def intersect_any_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active):
     rows = torch.arange(R, device=dev)
     stack = torch.zeros((R, STACK_DEPTH), dtype=torch.long, device=dev)
     sp = active.long()                       # inactive rays start empty
+    best = tmax.clone()
     out = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros((R,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((R,), dtype=torch.float32, device=dev)
+    n_inner = n_leaf = torch.zeros((), dtype=torch.int64, device=dev)
     while bool((sp > 0).any()):
         live = sp > 0
         sp = torch.where(live, sp - 1, sp)
@@ -145,19 +200,26 @@ def intersect_any_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active):
         is_leaf = node >= bvh.n_internal
         tri = bvh.node_tri[node]
         safe = torch.clamp(tri, 0, T - 1).long()
-        hit, _ = ray_triangle(o, d, tv[safe, 0:3], tv[safe, 3:6],
-                              tv[safe, 6:9], tmin, tmax)
+        hit, t, u, v = ray_triangle(o, d, tv[safe, 0:3], tv[safe, 3:6],
+                                    tv[safe, 6:9], tmin, best)
         take = live & is_leaf & hit & (tri >= 0)
         out = torch.where(take, tri, out)
-        sp = torch.where(take, 0, sp)
+        best = torch.where(take, t, best)
+        bu = torch.where(take, u, bu)
+        bv = torch.where(take, v, bv)
+        if any_hit:
+            sp = torch.where(take, 0, sp)
 
         inner = live & ~is_leaf
+        if visits is not None:
+            n_inner = n_inner + inner.sum()
+            n_leaf = n_leaf + (live & is_leaf).sum()
         left = torch.where(inner, left_of[node], 0)
         right = torch.where(inner, right_of[node], 0)
         lhit, lt = ray_aabb(o, inv_d, node_min[left], node_max[left], tmin,
-                            tmax)
+                            best)
         rhit, rt = ray_aabb(o, inv_d, node_min[right], node_max[right], tmin,
-                            tmax)
+                            best)
         lhit, rhit = lhit & inner, rhit & inner
         l_nearer = lt <= rt
         for child, ok in ((torch.where(l_nearer, right, left),
@@ -168,4 +230,7 @@ def intersect_any_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active):
             slot = torch.clamp(sp, max=STACK_DEPTH - 1)
             stack[rows, slot] = torch.where(push, child, stack[rows, slot])
             sp = sp + push.long()
-    return out
+    if visits is not None:
+        visits["internal"] = visits.get("internal", 0) + int(n_inner)
+        visits["leaf"] = visits.get("leaf", 0) + int(n_leaf)
+    return best, out, bu, bv

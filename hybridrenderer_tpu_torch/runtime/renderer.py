@@ -32,15 +32,22 @@ class Renderer:
     @classmethod
     def for_scene(cls, settings, scene_data):
         """Renderer with the ray tracer attached when the flags ask for
-        ray-traced passes."""
+        ray-traced passes. Radiance rays on a scene above SHADE_ROWS_MAX
+        triangles raise before the BVH is built: there the reference
+        shades from a quantized table, which is not ported."""
+        from ..ops import trace
+
         needs_rt = settings.path == RenderPathType.RAYTRACED or bool(
             settings.flags & (RenderFlags.SHADOW | RenderFlags.AO
                               | RenderFlags.REFLECTION | RenderFlags.GI))
-        tracer = None
-        if needs_rt:
-            from ..ops.trace import SceneTracer
-
-            tracer = SceneTracer.build(scene_data, settings)
+        radiance = bool(settings.flags & (RenderFlags.REFLECTION
+                                          | RenderFlags.GI))
+        if radiance and scene_data.num_triangles > trace.SHADE_ROWS_MAX:
+            raise NotImplementedError(
+                f"reflection and GI above {trace.SHADE_ROWS_MAX} triangles "
+                f"(the quantized shade_rows_q fetch) are not ported yet")
+        tracer = trace.SceneTracer.build(scene_data, settings) \
+            if needs_rt else None
         return cls(settings, scene_data, tracer=tracer)
 
     @torch.no_grad()
@@ -50,13 +57,19 @@ class Renderer:
         params = FrameParams.create(self.scene, exposure=exposure,
                                     frame_index=self.frame_count,
                                     svgf_phi=svgf_phi)
-        shadow_query = None
+        shadow_query = trace_radiance = None
         if self.tracer is not None:
-            shadow_query = self.tracer.shadow_query
+            tracer, scene = self.tracer, self.scene
+            shadow_query = tracer.shadow_query
+
+            def trace_radiance(o, d, ctx, depth, active=None):
+                return tracer.trace_radiance(scene, o, d, ctx, depth,
+                                             active=active)
         ctx = FrameContext(
             scene=self.scene, cam=cam_state.to(self.device), params=params,
             settings=self.settings, state=self.state,
-            history_valid=self.frame_count > 0, shadow_query=shadow_query)
+            history_valid=self.frame_count > 0, shadow_query=shadow_query,
+            trace_radiance=trace_radiance)
         out, self.state, registry = self.path.run(ctx, self.state)
         self._stats = registry.get("_FrameStats")
         self.frame_count += 1

@@ -3,8 +3,9 @@
 ``scene_from_numpy`` takes the JAX ``SceneData`` flattened to nested
 dicts of numpy arrays (field name → array, one dict per sub-table; the
 caller does the flattening) and gives the port's ``SceneData`` on a
-stated device, so both packages render from identical arrays. Fields the
-port does not use (the reference's TPU gather tables) are ignored.
+device, the card unless the caller asks for the CPU, so both packages
+render from identical arrays. Fields the port does not use (the
+reference's TPU gather tables) are ignored.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ def _table(cls, d):
                   for f in dataclasses.fields(cls)})
 
 
-def scene_from_numpy(tree, device="cpu") -> schema.SceneData:
+def scene_from_numpy(tree, device="cuda") -> schema.SceneData:
     data = schema.SceneData(
         materials=_table(schema.MaterialTable, tree["materials"]),
         instances=_table(schema.InstanceTable, tree["instances"]),

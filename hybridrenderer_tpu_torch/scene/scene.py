@@ -84,7 +84,9 @@ class Scene:
                             intensity=torch.tensor(np.float32(intensity)),
                             ambient=torch.tensor(np.float32(ambient)))
 
-    def build(self, device="cpu") -> SceneData:
+    def build(self, device="cuda") -> SceneData:
+        """The scene's tensors on ``device``: the card unless the caller
+        asks for the CPU; raises where there is no CUDA device."""
         if not self.materials:
             self.materials = [Material()]
 

@@ -215,7 +215,11 @@ class SceneData:
         return self.triangles.v0.device
 
     def to(self, device) -> "SceneData":
-        return _to(self, torch.device(device))
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: build the scene with "
+                               "device='cpu' to render on the CPU")
+        return _to(self, device)
 
 
 # attr_rows layout: vertex k at 15*k — [0:3] world position, [3:6] local

@@ -8,8 +8,8 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
-(compiled with -fmad=false), so K1-K3 agree exactly; K4's exp and pow
-may differ in the last ulp."""
+(compiled with -fmad=false), so K1-K3 and K5 agree exactly; K4's exp and
+pow may differ in the last ulp."""
 import numpy as np
 import pytest
 import torch
@@ -76,6 +76,39 @@ def test_trace_kernel_matches_plain(dev):
     assert (k[~active] == -1).all()
 
 
+def test_closest_hit_kernel_matches_plain(dev):
+    tracer = SceneTracer.build(scenes.stress_scene(num_objects=12).build(dev))
+    g = np.random.default_rng(3)
+    R = 8192
+    o = _t(g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3)).astype(
+        np.float32), dev)
+    d = g.standard_normal((R, 3)).astype(np.float32)
+    d = _t(d / np.linalg.norm(d, axis=-1, keepdims=True), dev)
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = _t(g.random(R) < 0.9, dev)
+    args = (tracer.packed, o, d, 0.01, tmax, active)
+    before = native.KERNELS["trace_closest"].launches
+    tk, trik, uk, vk = trace_cuda.intersect_closest(*args)
+    assert native.KERNELS["trace_closest"].launches == before + 1
+    tp, trip, up, vp = trace_cuda.intersect_closest_plain(*args)
+    assert (trik != trip).float().mean().item() <= 1e-3
+    same = trik == trip
+    for a, b in ((tk, tp), (uk, up), (vk, vp)):
+        torch.testing.assert_close(a[same], b[same], rtol=0, atol=0)
+    assert (trik[~active] == -1).all() and torch.isinf(tk[trik < 0]).all()
+
+
+def test_window_sample_kernel_matches_plain(dev):
+    g = np.random.default_rng(4)
+    img = _t(g.random((45, 70, 3)).astype(np.float32), dev)
+    uv = _t(g.uniform(-0.1, 1.1, (45, 70, 2)).astype(np.float32), dev)
+    before = native.KERNELS["window_sample"].launches
+    k = temporal_cuda.window_sample(img, uv)
+    assert native.KERNELS["window_sample"].launches == before + 1
+    torch.testing.assert_close(k, temporal_cuda.window_sample_plain(img, uv),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_temporal_kernel_matches_plain(dev, dtype):
     g = np.random.default_rng(1)
@@ -121,26 +154,76 @@ def test_stencil_kernels_match_plain(dev):
             torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-6)
 
 
-def test_cuda_frame_matches_cpu_frame(dev):
-    """The hybrid frame on the card (kernels) against the same frame on
-    the CPU (plain versions), off triangle edges."""
+CORNELL_KW = dict(distance=13.0, focal_point=(0, 2.5, 0))
+CUBE_KW = dict(distance=7.0, pitch=0.45, yaw=0.6, focal_point=(0, 0.7, 0))
+# the share of pixels off edges whose reflection or GI ray may hit another
+# triangle on the card than on the CPU (the last-ulp differences of the
+# G-buffer glue move a grazing ray's origin)
+SECONDARY_FLIP_MAX = 2e-3
+
+
+@pytest.mark.parametrize("path,flags,cam_kw,max_off,max_p99", [
+    # readings on an H100 (off-edge max / p99): 0 / 0, 0 / 0, 1 / 0, 1 / 0
+    ("HYBRID", "default", CORNELL_KW, 4, 2.0),
+    ("HYBRID", "full_raw", CORNELL_KW, 2, 1.0),
+    ("HYBRID", "full", CORNELL_KW, 5, 2.0),
+    ("FORWARD", "taa", CUBE_KW, 5, 2.0),
+])
+def test_cuda_frame_matches_cpu_frame(dev, path, flags, cam_kw, max_off,
+                                      max_p99):
+    """A frame on the card (kernels) against the same frame on the CPU
+    (plain versions), 3 frames at 64x64, off edges (object boundaries,
+    and for the full graph the pixels whose reflection or GI ray hit
+    another triangle on the two devices): the hybrid frame, the full
+    graph with SVGF off (no chaos: every shading term held tight) and
+    on, on cornell; forward + TAA on the cube. The SVGF chains can
+    amplify last-ulp differences, as between the reference's own jit and
+    eager renders (tests/test_torch_full_graph.py), so each gate but
+    the SVGF-off one stands at the card-vs-CPU reading plus 4 / 2, as
+    the reference's gates do; the SVGF-off frame is held to 2 / 1."""
     from hybridrenderer_tpu_torch.core.config import RenderSettings
     from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
     from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
     from hybridrenderer_tpu_torch.runtime.output import to_u8
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
+    from .torch_parity import record_secondary_hits
+
     size = 64
-    s = RenderSettings(width=size, height=size, path=RenderPathType.HYBRID,
-                       flags=RenderFlags.default_hybrid(), ao_block=8)
-    imgs = []
+    full = RenderFlags.default_hybrid() | RenderFlags.REFLECTION \
+        | RenderFlags.GI
+    f = {"default": RenderFlags.default_hybrid(),
+         "full": full,
+         "full_raw": full & ~(RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
+                              | RenderFlags.SVGF_SPATIAL),
+         "taa": RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.TAA}[flags]
+    s = RenderSettings(width=size, height=size, path=RenderPathType[path],
+                       flags=f, ao_block=8, gi_block=8)
+    scene = scenes.cornell_scene if path == "HYBRID" else scenes.cube_scene
+    imgs, hits = [], []
     for d in (torch.device("cpu"), dev):
-        r = Renderer.for_scene(s, scenes.cornell_scene().build(d))
-        cam = OrbitCamera(width=size, height=size, distance=13.0,
-                          focal_point=(0, 2.5, 0))
+        native.reset_counts()
+        r = Renderer.for_scene(s, scene().build(d))
+        take = record_secondary_hits(r) if r.tracer is not None else list
+        cam = OrbitCamera(width=size, height=size, **cam_kw)
         for _ in range(3):
-            img = r.render(cam.step())
+            take()
+            img = r.render(cam.step(taa_enabled=flags == "taa"))
         imgs.append(to_u8(img.cpu().numpy()))
+        hits.append(take())
         tri = r.state.history["ObjectID"].cpu().numpy()
-    err = np.abs(imgs[0].astype(int) - imgs[1].astype(int)).max(-1)
-    assert err[~tri_boundary_mask(tri)].max() <= 16
+    assert not any(k.plain_cuda_calls for k in native.KERNELS.values())
+    want = {"full": ("trace_closest",), "full_raw": ("trace_closest",),
+            "taa": ("window_sample",)}.get(flags, ("trace_any",))
+    assert all(native.KERNELS[k].launches > 0 for k in want)
+    edges = tri_boundary_mask(tri)
+    flips = np.zeros_like(edges)
+    for mine, theirs in zip(*hits):
+        flips |= (mine != theirs) & ~edges
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    off_max = int(diff.max(-1)[~(edges | flips)].max())
+    p99 = float(np.percentile(diff, 99))
+    print(f"card vs CPU, {path} {flags}: off-edge max {off_max} u8, p99 "
+          f"{p99}, secondary flips {int(flips.sum())} px")
+    assert flips.mean() <= SECONDARY_FLIP_MAX
+    assert off_max <= max_off and p99 <= max_p99, (off_max, p99)

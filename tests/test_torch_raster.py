@@ -53,7 +53,7 @@ def _port_raster(data, cam, W, H, cull=False):
 def _case(scene_fn, W, H, cam_kw):
     ref_data = scene_fn().build()
     ref_cam = RefCamera(width=W, height=H, **cam_kw).step()
-    data = scene_from_numpy(flatten(ref_data))
+    data = scene_from_numpy(flatten(ref_data), "cpu")
     return ref_data, ref_cam, data, _port_cam(ref_cam)
 
 

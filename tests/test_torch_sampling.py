@@ -99,7 +99,7 @@ def test_cos_hemisphere_and_blue_noise():
 def test_sample_lights_cornell():
     """Light CDF sampling on the cornell box (one emissive quad)."""
     data = ref_scenes.cornell_scene().build()
-    tdata = scene_from_numpy(flatten(data))
+    tdata = scene_from_numpy(flatten(data), "cpu")
     g = np.random.default_rng(4)
     pos = g.uniform([-2, 0.1, -2], [2, 4, 2], (512, 3)).astype(np.float32)
     seeds = U32[1, :512]

@@ -49,7 +49,7 @@ def _lookup(tree, name):
 def test_scene_from_numpy_round_trip(name):
     ref_data = SCENES[name][0]().build()
     tree = flatten(ref_data)
-    data = scene_from_numpy(tree)
+    data = scene_from_numpy(tree, "cpu")
     names = [n for n, _ in _fields(data)]
     assert "triangles.v0" in names and "raster_rows" in names
     for n, arr in _fields(data):
@@ -61,7 +61,7 @@ def test_scene_from_numpy_round_trip(name):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_port_built_scene_equals_reference(name):
     tree = flatten(SCENES[name][0]().build())
-    data = SCENES[name][1]().build()
+    data = SCENES[name][1]().build("cpu")
     for n, arr in _fields(data):
         ref_arr = _lookup(tree, n)
         assert arr.dtype == ref_arr.dtype, n
@@ -119,3 +119,31 @@ def test_settings_keep_reference_defaults_and_reject_unported():
             RenderSettings(**kw)
     with pytest.raises(ValueError):
         RenderSettings(raster_attr_bits=16)
+
+
+def test_entry_points_ask_for_the_card(monkeypatch):
+    """Scenes are built on CUDA unless the caller asks for the CPU; with
+    no CUDA device that default raises instead of falling back."""
+    import inspect
+
+    for fn in (port_scenes.Scene.build, scene_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_scenes.cube_scene().build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scene_from_numpy(flatten(ref_scenes.cube_scene().build()))
+    assert port_scenes.cube_scene().build("cpu").device == torch.device("cpu")
+
+
+def test_full_graph_settings_keep_reference_defaults():
+    s = RenderSettings()
+    assert (s.gi_interleaved, s.gi_block, s.reflection_roughness_cutoff,
+            s.reflection_half_res, s.gi_half_res) == (True, 64, 0.6, False,
+                                                     False)
+    # packet relayouts, an A/B switch and a diagnostic cut of the
+    # reference are not settings of the port
+    for kw in (dict(gi_layout="pattern"), dict(ao_layout="tile"),
+               dict(shade_fetch="attr"), dict(debug_radiance_stage="noocc")):
+        with pytest.raises(TypeError):
+            RenderSettings(**kw)

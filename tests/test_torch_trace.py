@@ -39,7 +39,7 @@ def test_visibility_matches_reference():
     _, ref_tri, _, _ = ref_trace.intersect_bvh(
         tree, soup.v0, soup.v1, soup.v2, jnp.asarray(o), jnp.asarray(d),
         0.01, jnp.asarray(np.where(active, tmax, 0.0)), any_hit=True)
-    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data)))
+    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data), "cpu"))
     tri = trace_cuda.intersect_any(
         tracer.packed, torch.from_numpy(o), torch.from_numpy(d), 0.01,
         torch.from_numpy(tmax), torch.from_numpy(active)).numpy()
@@ -55,7 +55,7 @@ def test_shadow_query_matches_reference():
     tmax capped at 10000, background pixels masked out."""
     ref_data = ref_scenes.cube_scene().build()
     ref_tracer = ref_trace.SceneTracer.build(ref_data)
-    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data)))
+    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data), "cpu"))
     g = np.random.default_rng(7)
     H, W = 24, 40
     pos = np.zeros((H, W, 3), np.float32)
@@ -99,7 +99,7 @@ def test_stack_covers_tree_depth():
     with pytest.raises(ValueError, match="stack"):
         trace_cuda.pack_bvh(deep, None, None, None)
     ref_data = ref_scenes.stress_scene(num_objects=8, seed=3).build()
-    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data)))
+    tracer = SceneTracer.build(scene_from_numpy(flatten(ref_data), "cpu"))
     left = tracer.packed.nodes[:, 3].contiguous().view(torch.int32)
     right = tracer.packed.nodes[:, 7].contiguous().view(torch.int32)
     assert 10 < trace_cuda.tree_depth(left, right) < trace_cuda.STACK_DEPTH

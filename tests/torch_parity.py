@@ -13,6 +13,7 @@ REFERENCE_KNOBS = (
     "RT_FUSE_SHADOW_AO", "SVGF_CHAIN_ORDER", "SVGF_TILE", "SHADE_FETCH",
     "SHADE_OCC_GATE", "GRAPH_NO_HISTORY", "WIDE_LEAF_TRIS", "WIDE_WIDTH",
     "HR_SLOT_MASK", "HR_TEX_BITS", "HR_TEX_SAMPLER", "HR_TEX_STUB",
+    "FWD_STAGE", "OCC_LUM_EPS", "SHADE_OCC_FUSE", "RT_CLOSEST_PKT_ROWS",
 )
 
 
@@ -41,3 +42,35 @@ def off_edge_errors(img_a, img_b, tri_id):
     err = diff.max(axis=-1)
     off = err[~tri_boundary_mask(tri_id, dilate=1)]
     return (int(off.max()) if off.size else 0), float(np.percentile(diff, 99))
+
+
+def record_secondary_hits(renderer):
+    """Wrap a port renderer's tracer so that each full-resolution
+    radiance query (reflection, GI) records the triangle its rays hit,
+    as an (H, W) numpy image: -1 on a miss, -2 where the ray is
+    inactive. The returned function hands out the images recorded since
+    its last call, in query order."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
+
+    tracer, trace = renderer.tracer, renderer.tracer.trace_radiance
+    H, W = renderer.settings.height, renderer.settings.width
+    hits = []
+
+    def recording(scene, origin, direction, ctx, depth=0, active=None):
+        if origin.shape[:2] == (H, W):
+            o, d, tmax, act = tracer.radiance_rays(origin, direction, active)
+            _, tri, _, _ = trace_cuda.intersect_closest(
+                tracer.packed, o, d, RADIANCE_TMIN, tmax, act)
+            hits.append(np.where(act.cpu().numpy(), tri.cpu().numpy(),
+                                 -2).reshape(H, W))
+        return trace(scene, origin, direction, ctx, depth, active=active)
+
+    tracer.trace_radiance = recording
+
+    def take():
+        out = hits[:]
+        hits.clear()
+        return out
+
+    return take
