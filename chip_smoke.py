@@ -15,16 +15,21 @@ non-zero without printing a result):
    tolerance stated, timed with CUDA events beside the least time the
    card could take (bound) and, where one PyTorch call computes the
    same function, that call's time (library);
-4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png and
-   cube_forward_64.png rendered on the card, held to the goldens off
-   triangle edges;
+4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
+   cube_forward_64.png and cube_raytraced_128.png rendered on the card,
+   held to the goldens off triangle edges;
 5. renders, each of 8 frames on the stress scene (250 objects) at
    1920x1080 from bench.py's camera, with the launch count of every
    kernel it runs (counts set to 0 just before it) and a check that
    no plain version ran on the card:
    a. the headline, bench.py's hybrid frame (shadow + AO + SVGF);
    b. the full graph, the headline plus reflections and diffuse GI;
-   c. forward + TAA (LIGHT | IBL | TAA).
+   c. forward + TAA (LIGHT | IBL | TAA);
+   d. the ray-traced path (LIGHT | IBL | EMISSIVE | TAA, the golden's
+      flags): depth prepass (K1 vis-only), primary rays (K2c) with their
+      sun occlusion (K2), TAA (K5);
+   e. the ray-traced path with raster_eval="v2" and
+      trace_backend="pallas": K1v, the packet traversal K2b, K5.
    variance_blur is checked in phase 3 but launched by no path: its
    output feeds nothing (ops/svgf.py).
 
@@ -67,9 +72,11 @@ CORNELL_CAM = dict(distance=13.0, pitch=0.0, yaw=0.0, focal_point=(0, 2.5, 0))
 # plus the margin above; tests/test_torch_full_graph.py holds the same
 FULL_GOLDEN_OFF_EDGE_MAX = 131
 FULL_GOLDEN_P99_MAX = 33
-# the forward golden's gate of tests/test_golden.py
+# the forward and ray-traced goldens' gate, bench.py's
 FORWARD_GOLDEN_OFF_EDGE_MAX = 16
 FORWARD_GOLDEN_P99_MAX = 2
+# the ray-traced path's flags, as its golden (tests/test_golden_ladder.py)
+RAYTRACED_FLAGS = ("LIGHT", "IBL", "EMISSIVE", "TAA")
 # the least time the card could take: bytes over the HBM rate, float32
 # operations over the rate outside the tensor cores (NVIDIA's H100 SXM
 # data sheet, at its 700 W limit)
@@ -217,8 +224,6 @@ def check_trace(dev):
     """K2 on the rays of one headline frame: RTShadowPass's shadow query
     (tmax 10000) and AO query (tmax 10), 2 x 1920*1080 rays, recorded as
     the renderer hands them to the tracer."""
-    import torch
-
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.ops import trace_cuda
     from hybridrenderer_tpu_torch.ops.trace import TMIN
@@ -259,9 +264,7 @@ def check_trace(dev):
     if max(mismatch) > 1e-3:
         raise AssertionError(f"K2 visibility mismatch (shadow, AO) "
                              f"{mismatch}")
-    nodes = tracer.packed.nodes
-    depth = trace_cuda.tree_depth(nodes[:, 3].contiguous().view(torch.int32),
-                                  nodes[:, 7].contiguous().view(torch.int32))
+    depth = tracer.packed.depth
     R = batches[0][0].shape[0]
     active = [int(a.sum()) for *_, a in batches]
     return dict(err=max(mismatch), ms=cuda_time(kern, 20),
@@ -357,6 +360,166 @@ def check_trace_closest(dev):
                       f" triangle mismatch {mismatch}; ms for both",
                 tol="triangle mismatch <= 1e-3 of active rays per query; "
                     "t, u, v exact where the triangle agrees")
+
+
+def _raytraced_settings(width, height, **kw):
+    """The ray-traced path with the golden's flags."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+
+    flags = RenderFlags(0)
+    for f in RAYTRACED_FLAGS:
+        flags |= RenderFlags[f]
+    return RenderSettings(width=width, height=height,
+                          path=RenderPathType.RAYTRACED, flags=flags, **kw)
+
+
+def packet_frame(dev):
+    """One 1920x1080 frame of the ray-traced path with raster_eval "v2"
+    and trace_backend "pallas" on the headline camera, recording what
+    the depth prepass hands K1v (bins of the jittered clip) and what the
+    tracer hands K2b: the primary rays (closest-hit, 8x4 tile order)
+    and their sun-occlusion rays (any-hit)."""
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import raster_cuda, trace
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    r = Renderer.for_scene(_raytraced_settings(W, H, raster_eval="v2",
+                                               trace_backend="pallas"), data)
+    vis_calls, ray_calls = [], []
+    vis, packet = raster_cuda.raster_vis, trace.intersect_packet
+
+    def recording_vis(*a):
+        vis_calls.append(a)
+        return vis(*a)
+
+    def recording_packet(*a, **kw):
+        ray_calls.append((a, kw))
+        return packet(*a, **kw)
+
+    raster_cuda.raster_vis, trace.intersect_packet = recording_vis, \
+        recording_packet
+    try:
+        r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
+            taa_enabled=True))
+    finally:
+        raster_cuda.raster_vis, trace.intersect_packet = vis, packet
+    if len(vis_calls) != 1 or len(ray_calls) != 2:
+        raise AssertionError(f"expected one K1v call and two K2b queries, "
+                             f"got {len(vis_calls)} and {len(ray_calls)}")
+    return dict(tracer=r.tracer, vis=vis_calls[0], rays=ray_calls,
+                triangles=data.num_triangles)
+
+
+def check_packet_path(dev):
+    """K1v and K2b on the inputs of one ray-traced packet frame."""
+    frame = packet_frame(dev)
+    return {"raster_vis": check_raster_vis(frame),
+            "trace_packet": check_trace_packet(frame)}
+
+
+def check_raster_vis(frame):
+    """K1v on the 1080p ray-traced depth prepass's bins."""
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    args = frame["vis"]
+    rec, ts, ec, W, H = args
+    k = rc.raster_vis(*args)
+    p = rc.raster_vis_plain(*args)
+    mismatch = (k.tri_id != p.tri_id).sum().item()
+    err = max((a - b).abs().max().item() for a, b in (
+        (k.depth, p.depth), (k.bary1, p.bary1), (k.bary2, p.bary2)))
+    # same float operations in the same order (-fmad=false): exact
+    if mismatch or err > 0.0:
+        raise AssertionError(f"K1v disagrees with its plain version: "
+                             f"{mismatch} pixels, max err {err}")
+    k1, _ = rc.raster_tiles(rec, ts, ec, None, W, H)
+    ties = (k1.tri_id != k.tri_id).float().mean().item()
+    ms = cuda_time(lambda: rc.raster_vis(*args), 20)
+    k1_ms = cuda_time(lambda: rc.raster_tiles(rec, ts, ec, None, W, H), 20)
+    # K1's ~20 FLOP per (candidate, pixel) coverage test and key
+    b = bound(nbytes(rec, ts, ec, k.tri_id, k.depth, k.bary1, k.bary2),
+              20.0 * ec.shape[0] * rc.TILE * rc.TILE)
+    return dict(err=err, ms=ms, plain_ms=cuda_time(
+                    lambda: rc.raster_vis_plain(*args), 2), bound=b,
+                shape=f"{W}x{H} depth prepass, {ec.shape[0]} tile entries, "
+                      f"{rec.shape[0]} candidates; K1 vis-only on the same "
+                      f"bins {k1_ms:.4f} ms, winner differs from K1's on "
+                      f"{ties:.2e} of pixels (2^-17 near-ties)",
+                tol="exact (tri ids and all outputs)")
+
+
+def check_trace_packet(frame):
+    """K2b on the ray-traced packet frame's two queries, each against
+    its plain version (exact: the same packets take the same path with
+    the same arithmetic), then against the per-ray K2c (primary rays)
+    and K2 (occlusion rays) on the same rays in the same order."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda as tc
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    packed = frame["tracer"].packed
+    # (o, d, tmin, tmax, active) and the mode of each recorded query
+    queries = [a[1:] for a, _ in frame["rays"]]
+    modes = [kw["any_hit"] for _, kw in frame["rays"]]
+    if modes != [False, True]:
+        raise AssertionError(f"expected closest-hit then any-hit, {modes}")
+    kern = lambda: [tc.intersect_packet(packed, *q, any_hit=m)
+                    for q, m in zip(queries, modes)]
+    plain = lambda visits=None: [
+        tc.intersect_packet_plain(packed, *q, any_hit=m, visits=visits)
+        for q, m in zip(queries, modes)]
+    packet_visits = {}
+    ks, ps = kern(), plain(packet_visits)
+    errs = []
+    for k, p in zip(ks, ps):
+        if bool((k[1] != p[1]).any()):
+            raise AssertionError(f"K2b triangle mismatch: "
+                                 f"{(k[1] != p[1]).sum().item()} rays")
+        hit = p[1] >= 0
+        errs.append(max((a - b).abs()[hit].max().item() if bool(hit.any())
+                        else 0.0 for a, b in zip(k[::2], p[::2])))
+    if max(errs) > 0.0:
+        raise AssertionError(f"K2b t, u, v differ from the plain version: "
+                             f"{errs}")
+    # the per-ray kernels on the same rays; the bound counts the nodes
+    # and triangles the per-ray plain versions visit, as for K2 and K2c
+    (o, d, tmin, tmax, act), (o2, d2, tmin2, tmax2, act2) = queries
+    closest = lambda: tc.intersect_closest(packed, o, d, tmin, tmax, act)
+    anyhit = lambda: tc.intersect_any(packed, o2, d2, tmin2, tmax2, act2)
+    c, a = closest(), anyhit()
+    visits = {}
+    tc.intersect_closest_plain(packed, o, d, tmin, tmax, act, visits=visits)
+    tc.intersect_any_plain(packed, o2, d2, tmin2, tmax2, act2, visits=visits)
+    flips = ((a >= 0) != (ks[1][1] >= 0)).sum().item()
+    t_diff = (c[0] - ks[0][0]).abs().nan_to_num().max().item()
+    if flips or t_diff > 0.0:
+        raise AssertionError(f"K2b against K2 / K2c: {flips} visibility "
+                             f"flips, closest t differs by {t_diff}")
+    tri_diff = ((c[1] != ks[0][1]) & act).sum().item()
+    times = [cuda_time(lambda q=q, m=m: tc.intersect_packet(
+        packed, *q, any_hit=m), 10) for q, m in zip(queries, modes)]
+    per_ray_ms = cuda_time(closest, 10), cuda_time(anyhit, 10)
+    active = [int(q[4].sum()) for q in queries]
+    hit = [(p[1] >= 0)[q[4]].float().mean().item()
+           for p, q in zip(ps, queries)]
+    return dict(err=max(errs), ms=sum(times), plain_ms=cuda_time(plain, 1),
+                bound=trace_bound(packed, [(q[0], q[1], q[3], q[4])
+                                           for q in queries],
+                                  [ks[0], ks[1][1]], visits),
+                shape=f"primary rays (closest-hit, tmax 1e6) and their sun "
+                      f"occlusion rays (any-hit, tmax 1000) of one {W}x{H} "
+                      f"ray-traced frame, {queries[0][0].shape[0]} rays "
+                      f"each, {active} active, hit {hit[0]:.3f} / "
+                      f"{hit[1]:.3f}, {frame['triangles']} triangles; K2b "
+                      f"{times[0]:.4f} + {times[1]:.4f} ms vs per-ray K2c "
+                      f"{per_ray_ms[0]:.4f} ms and K2 {per_ray_ms[1]:.4f} ms "
+                      f"on the same rays (closest t equal, {tri_diff} "
+                      f"equal-t triangle ties, no visibility flip); nodes "
+                      f"visited by packets {packet_visits} (one a step) vs "
+                      f"by rays {visits}; ms for both",
+                tol="exact (tri, t, u, v)")
 
 
 def _frame_planes(dev, H, W, seed):
@@ -619,6 +782,9 @@ def phase_golden(dev):
         _golden(dev, "cube_forward_64", _forward_settings(64, 64, taa=False),
                 scenes.cube_scene, GOLDEN_CAM, 1, False,
                 (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
+        _golden(dev, "cube_raytraced_128", _raytraced_settings(128, 128),
+                scenes.cube_scene, GOLDEN_CAM, 2, True,
+                (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
     ]
     if not all(ok):
         raise AssertionError(f"golden gate failed: {ok}")
@@ -679,13 +845,14 @@ def frame_breakdown(name, r, cam):
             f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
 
 
-def phase_render(dev, out_dir, name, settings, kernels):
+def phase_render(dev, out_dir, name, settings, kernels, absent=()):
     """8 frames at 1920x1080 with the counts set to 0 just before and read
-    just after; ``kernels`` must each have launched."""
+    just after; ``kernels`` must each have launched, ``absent`` none."""
     import torch
 
     from hybridrenderer_tpu_torch import native
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import RenderPathType
     from hybridrenderer_tpu_torch.runtime.output import write_png
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
@@ -714,12 +881,17 @@ def phase_render(dev, out_dir, name, settings, kernels):
     img = out.cpu().numpy()
     if img.shape != (H, W, 3) or not np.isfinite(img).all():
         raise AssertionError(f"{name} output {img.shape} not finite")
-    if img.max() <= 0.0 or stats["covered_pixels"] <= 0:
+    # the ray-traced path has no G-buffer, so no frame stats (as in the
+    # reference)
+    rt = settings.path == RenderPathType.RAYTRACED
+    if img.max() <= 0.0 or (stats["covered_pixels"] <= 0 and not rt):
         raise AssertionError(f"{name} frame black or empty: {stats}")
     missing = [k for k in kernels if not launches.get(k)]
-    if missing:
+    stray = [k for k in absent if launches.get(k)]
+    if missing or stray:
         raise AssertionError(f"{name}: kernels of the path never launched: "
-                             f"{missing} ({launches})")
+                             f"{missing}; other kernels launched: {stray} "
+                             f"({launches})")
     if any(plain.values()):
         raise AssertionError(f"{name}: plain versions ran on the card: "
                              f"{plain}")
@@ -763,6 +935,7 @@ def main(argv=None):
     for name, check in (("raster_tiles", check_raster),
                         ("trace_any", check_trace),
                         ("trace_closest", check_trace_closest),
+                        ("packet_path", check_packet_path),
                         ("temporal_fetch", check_temporal),
                         ("window_sample", check_window_sample),
                         ("stencils", check_stencils)):
@@ -772,7 +945,8 @@ def main(argv=None):
             log(f"[kernel] {name} FAILED: {e}")
             failures.append(name)
             continue
-        results.update(res if name == "stencils" else {name: res})
+        results.update(res if name in ("packet_path", "stencils")
+                       else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
             " (checked only: no path launches it)"
@@ -798,6 +972,15 @@ def main(argv=None):
         "forward_taa": phase_render(dev, args.out, "forward_taa",
                                     _forward_settings(W, H),
                                     ["raster_tiles", "window_sample"]),
+        "raytraced": phase_render(
+            dev, args.out, "raytraced", _raytraced_settings(W, H),
+            ["raster_tiles", "trace_closest", "trace_any", "window_sample"],
+            absent=["raster_vis", "trace_packet"]),
+        "raytraced_packet": phase_render(
+            dev, args.out, "raytraced_packet", _raytraced_settings(
+                W, H, raster_eval="v2", trace_backend="pallas"),
+            ["raster_vis", "trace_packet", "window_sample"],
+            absent=["raster_tiles", "trace_closest", "trace_any"]),
     }
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")

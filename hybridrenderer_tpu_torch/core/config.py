@@ -2,19 +2,24 @@
 
 Only the fields the ported paths read are ported, with the reference's
 defaults. The reference's kernel-backend fields (raster_backend,
-trace_backend, svgf_backend, svgf_temporal_gather, bvh_builder) pick
-Pallas or jnp by platform; here the device of the tensors picks the
-kernel or its plain version, so they are not fields and passing one
-raises TypeError. So does passing gi_layout or ao_layout (relayouts of
-the TPU's ray packets that change no result), shade_fetch (an A/B
-switch of the hit-shading fetch) or debug_radiance_stage (a diagnostic
-cut of the radiance pass). Nothing is read from the environment.
+svgf_backend, svgf_temporal_gather, bvh_builder) pick Pallas or jnp by
+platform; here the device of the tensors picks the kernel or its plain
+version, so they are not fields and passing one raises TypeError. So
+does passing gi_layout or ao_layout (relayouts of the TPU's ray packets
+that change no result), shade_fetch (an A/B switch of the hit-shading
+fetch) or debug_radiance_stage (a diagnostic cut of the radiance pass).
+Two kernel choices are settings, because they pick between two kernels
+of the port: ``trace_backend`` and ``raster_eval`` (below). Nothing is
+read from the environment.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from .types import DisplayMode, RenderFlags, RenderPathType
+
+TRACE_BACKENDS = ("auto", "pallas-wide", "jnp", "pallas")
+RASTER_EVALS = (None, "v1", "v2", "v3", "v4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +56,28 @@ class RenderSettings:
     reflection_half_res: bool = False
     gi_half_res: bool = False
 
+    # BVH traversal: "pallas" is the packet traversal K2b (one warp of
+    # 32 rays shares a stack); "auto", "pallas-wide" and "jnp" are the
+    # per-ray K2 / K2c, which compute the reference's intersect_bvh
+    trace_backend: str = "auto"
+    # raster winner rule of the ray-traced path's depth prepass: "v2" and
+    # "v3" are K1v's 17-bit integer depth keys per 128 candidates; None,
+    # "v1" and "v4" are K1's exact depth. The G-buffer pass always runs
+    # K1: the reference downgrades v2 / v3 to v1 where attributes ride
+    raster_eval: "str | None" = None
+
     def __post_init__(self):
         if self.svgf_bits not in (16, 32):
             raise ValueError(f"svgf_bits must be 16 or 32, got "
                              f"{self.svgf_bits}")
         if self.raster_attr_bits != 32:
             raise ValueError("raster_attr_bits=16 is not ported")
+        if self.trace_backend not in TRACE_BACKENDS:
+            raise ValueError(f"trace_backend must be one of "
+                             f"{TRACE_BACKENDS}, got {self.trace_backend!r}")
+        if self.raster_eval not in RASTER_EVALS:
+            raise ValueError(f"raster_eval must be one of {RASTER_EVALS}, "
+                             f"got {self.raster_eval!r}")
         if self.raster_cull not in ("back", "none"):
             raise ValueError(f"raster_cull must be 'back' or 'none', got "
                              f"{self.raster_cull!r}")

@@ -1,12 +1,23 @@
-// K1: binned tile rasterizer with the G-buffer attribute ride-along.
+// K1 and K1v: binned tile rasterizers.
 //
-// Replaces hybridrenderer_tpu/ops/raster_pallas.py _raster_kernel_t
-// (:784, with _tile_body :842). Same contract: for every pixel the
-// covering candidate of largest reversed-Z depth wins; the kernel writes
-// its depth, triangle id, perspective-correct barycentrics of the
-// original triangle, and the 40 attribute channels (16 vertex
-// attributes interpolated with those barycentrics + the triangle's 24
-// constants, from scene raster_rows).
+// K1 (raster_tiles) replaces hybridrenderer_tpu/ops/raster_pallas.py
+// _raster_kernel_t (:784, with _tile_body :842). Same contract: for every
+// pixel the covering candidate of largest reversed-Z depth wins; the
+// kernel writes its depth, triangle id, perspective-correct barycentrics
+// of the original triangle and, unless it runs vis-only (the ray-traced
+// path's depth prepass, the Pallas kernel's has_attrs=False), the 40
+// attribute channels (16 vertex attributes interpolated with those
+// barycentrics + the triangle's 24 constants, from scene raster_rows).
+//
+// K1v (raster_vis) replaces raster_pallas.py _raster_kernel (:519) in its
+// vis-only eval modes v2 / v3 (eval_block_v2 :621, eval_block_v3 :682):
+// the tile's candidate list is cut into groups of 128 consecutive
+// entries (the Pallas kernel's 128-lane record blocks). Inside a group
+// the largest integer key (clip(Z * 131071, 0, 131071) << 7 | position)
+// wins, so a near-tie within 2^-17 of depth goes to the later entry;
+// across groups, in list order, a group's winner replaces the running
+// one only with a strictly larger exact depth. Where the winner is the
+// same, every output is K1's.
 //
 // The arithmetic is that of the reference's jnp resolve
 // (hybridrenderer_tpu/ops/raster.py rasterize), the correctness baseline
@@ -21,15 +32,18 @@
 //
 // Design: one 16x16 pixel tile per block, one thread per pixel. The
 // block walks its tile's candidate list (ops/raster_cuda.bin_candidates:
-// every candidate whose screen bbox touches the tile; nothing is capped
-// or dropped) in chunks of 256 records staged through shared memory, and
-// each thread keeps only its running winner. Ties in depth go to the
-// lowest candidate index, so the result does not depend on list order.
-// Barycentrics and attributes are evaluated once, for the winner only.
-// Bound on the card: the candidate loop, ~20 FLOP per candidate per
-// pixel out of shared memory (broadcast reads); output writes are
-// 176 B per pixel. The TPU kernel's 128-lane record blocks, one-hot MXU
-// picks and quantized depth keys were TPU workarounds and are not kept.
+// every candidate whose screen bbox touches the tile, in ascending
+// candidate order; nothing is capped or dropped) in chunks staged
+// through shared memory (256 records for K1, one group of 128 for K1v),
+// and each thread keeps only its running winner. K1 breaks depth ties
+// to the lowest candidate index, so its result does not depend on list
+// order. Barycentrics and attributes are evaluated once, for the winner
+// only. Bound on the card: the candidate loop, ~20 FLOP per candidate
+// per pixel out of shared memory (broadcast reads); output writes are
+// 16 B per pixel (176 B with attributes). The TPU kernels' 128-lane
+// record blocks, one-hot MXU picks and quantized depth keys were TPU
+// workarounds; K1 does not keep them, K1v keeps only the key's winner
+// rule, which is its contract.
 #include "common.cuh"
 
 namespace {
@@ -39,6 +53,7 @@ constexpr int kThreads = kTile * kTile;   // one thread per pixel
 constexpr int kRec = 24;                  // floats per candidate record
 constexpr int kAttrRow = 72;              // raster_rows width
 constexpr int kAttrOut = 40;              // 16 interpolated + 24 constant
+constexpr int kGroup = 128;               // K1v's candidates per key group
 
 // record layout (ops/raster_cuda.pack_candidates):
 //   [0:3] [3:6] [6:9] edge functions (alpha, beta, gamma) opposite
@@ -51,6 +66,66 @@ __device__ __forceinline__ float edge(const float* r, float sgn, float px,
   return sgn * (r[0] * px + r[1] * py + r[2]);
 }
 
+// Depth at the pixel of a covering record, K1's order; false if the
+// pixel is not covered or the depth lies outside [0, 1].
+__device__ __forceinline__ bool cover_depth(const float* r, float px,
+                                            float py, float* z) {
+  const float sgn = r[9];
+  const float e0 = edge(r, sgn, px, py);
+  const float e1 = edge(r + 3, sgn, px, py);
+  const float e2 = edge(r + 6, sgn, px, py);
+  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) return false;
+  const float inv_area = r[10];
+  *z = (e0 * inv_area) * r[11] + (e1 * inv_area) * r[12] +
+       (e2 * inv_area) * r[13];
+  return *z >= 0.0f && *z <= 1.0f;
+}
+
+// The winner's visibility outputs (and K1's attributes) at pixel p.
+template <bool kAttrs>
+__device__ __forceinline__ void write_winner(
+    const float* __restrict__ rec, const float* __restrict__ attr_table,
+    int best, float best_z, float px, float py, size_t p,
+    float* __restrict__ depth_out, int* __restrict__ tri_out,
+    float* __restrict__ bary_out, float* __restrict__ attr_out) {
+  if (best < 0) {
+    depth_out[p] = 0.0f;
+    tri_out[p] = -1;
+    bary_out[2 * p] = 0.0f;
+    bary_out[2 * p + 1] = 0.0f;
+    if (kAttrs) {
+      for (int c = 0; c < kAttrOut; ++c) attr_out[p * kAttrOut + c] = 0.0f;
+    }
+    return;
+  }
+  const float* r = rec + static_cast<size_t>(best) * kRec;
+  const float sgn = r[9];
+  const float inv_area = r[10];
+  const float l0 = edge(r, sgn, px, py) * inv_area;
+  const float l1 = edge(r + 3, sgn, px, py) * inv_area;
+  const float l2 = edge(r + 6, sgn, px, py) * inv_area;
+  const float u0 = l0 * r[14], u1 = l1 * r[15], u2 = l2 * r[16];
+  const float s = fmaxf(u0 + u1 + u2, 1e-20f);
+  const float pc0 = u0 / s, pc1 = u1 / s, pc2 = u2 / s;
+  const float b1 = pc0 * r[17] + pc1 * r[18] + pc2 * r[19];
+  const float b2 = pc0 * r[20] + pc1 * r[21] + pc2 * r[22];
+  const int tri = static_cast<int>(r[23]);
+  depth_out[p] = best_z;
+  tri_out[p] = tri;
+  bary_out[2 * p] = b1;
+  bary_out[2 * p + 1] = b2;
+  if (!kAttrs) return;
+
+  float* a = attr_out + p * kAttrOut;
+  const float b0 = 1.0f - b1 - b2;
+  const float* row = attr_table + static_cast<size_t>(tri) * kAttrRow;
+  for (int c = 0; c < 16; ++c) {
+    a[c] = row[c] * b0 + row[16 + c] * b1 + row[32 + c] * b2;
+  }
+  for (int c = 0; c < 24; ++c) a[16 + c] = row[48 + c];
+}
+
+template <bool kAttrs>
 __global__ void __launch_bounds__(kThreads)
 raster_tiles_kernel(const float* __restrict__ rec,
                     const int* __restrict__ tile_start,
@@ -84,18 +159,10 @@ raster_tiles_kernel(const float* __restrict__ rec,
     if (threadIdx.x < n) scand[threadIdx.x] = entry_cand[base + threadIdx.x];
     __syncthreads();
     for (int e = 0; e < n; ++e) {
-      const float* r = &srec[e * kRec];
-      const float sgn = r[9];
-      const float e0 = edge(r, sgn, px, py);
-      const float e1 = edge(r + 3, sgn, px, py);
-      const float e2 = edge(r + 6, sgn, px, py);
-      if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-        const float inv_area = r[10];
-        const float z = (e0 * inv_area) * r[11] + (e1 * inv_area) * r[12] +
-                        (e2 * inv_area) * r[13];
+      float z;
+      if (cover_depth(&srec[e * kRec], px, py, &z)) {
         const int c = scand[e];
-        if (z >= 0.0f && z <= 1.0f &&
-            (z > best_z || (z == best_z && best >= 0 && c < best))) {
+        if (z > best_z || (z == best_z && best >= 0 && c < best)) {
           best_z = z;
           best = c;
         }
@@ -103,57 +170,98 @@ raster_tiles_kernel(const float* __restrict__ rec,
     }
   }
   if (x >= width || y >= height) return;
+  write_winner<kAttrs>(rec, attr_table, best, best_z, px, py,
+                       static_cast<size_t>(y) * width + x, depth_out,
+                       tri_out, bary_out, attr_out);
+}
 
-  const size_t p = static_cast<size_t>(y) * width + x;
-  float* a = attr_out + p * kAttrOut;
-  if (best < 0) {
-    depth_out[p] = 0.0f;
-    tri_out[p] = -1;
-    bary_out[2 * p] = 0.0f;
-    bary_out[2 * p + 1] = 0.0f;
-    for (int c = 0; c < kAttrOut; ++c) a[c] = 0.0f;
-    return;
-  }
-  const float* r = rec + static_cast<size_t>(best) * kRec;
-  const float sgn = r[9];
-  const float inv_area = r[10];
-  const float l0 = edge(r, sgn, px, py) * inv_area;
-  const float l1 = edge(r + 3, sgn, px, py) * inv_area;
-  const float l2 = edge(r + 6, sgn, px, py) * inv_area;
-  const float u0 = l0 * r[14], u1 = l1 * r[15], u2 = l2 * r[16];
-  const float s = fmaxf(u0 + u1 + u2, 1e-20f);
-  const float pc0 = u0 / s, pc1 = u1 / s, pc2 = u2 / s;
-  const float b1 = pc0 * r[17] + pc1 * r[18] + pc2 * r[19];
-  const float b2 = pc0 * r[20] + pc1 * r[21] + pc2 * r[22];
-  const int tri = static_cast<int>(r[23]);
-  depth_out[p] = best_z;
-  tri_out[p] = tri;
-  bary_out[2 * p] = b1;
-  bary_out[2 * p + 1] = b2;
+__global__ void __launch_bounds__(kThreads)
+raster_vis_kernel(const float* __restrict__ rec,
+                  const int* __restrict__ tile_start,
+                  const int* __restrict__ entry_cand, int width, int height,
+                  int ntx, float* __restrict__ depth_out,
+                  int* __restrict__ tri_out, float* __restrict__ bary_out) {
+  __shared__ float srec[kGroup * kRec];
+  __shared__ int scand[kGroup];
 
-  const float b0 = 1.0f - b1 - b2;
-  const float* row = attr_table + static_cast<size_t>(tri) * kAttrRow;
-  for (int c = 0; c < 16; ++c) {
-    a[c] = row[c] * b0 + row[16 + c] * b1 + row[32 + c] * b2;
+  const int tile = blockIdx.x;
+  const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
+  const int y = (tile / ntx) * kTile + threadIdx.x / kTile;
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y) + 0.5f;
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+
+  float best_z = 0.0f;
+  int best = -1;
+  for (int base = start; base < end; base += kGroup) {
+    const int n = min(kGroup, end - base);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * kRec; i += kThreads) {
+      const int e = i / kRec;
+      srec[i] = rec[static_cast<size_t>(entry_cand[base + e]) * kRec +
+                    (i - e * kRec)];
+    }
+    if (threadIdx.x < n) scand[threadIdx.x] = entry_cand[base + threadIdx.x];
+    __syncthreads();
+    // the group's winner: the largest key; positions make keys unique
+    int key = -1, win = -1;
+    float win_z = 0.0f;
+    for (int e = 0; e < n; ++e) {
+      float z;
+      if (cover_depth(&srec[e * kRec], px, py, &z)) {
+        const int k = (static_cast<int>(
+                          fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
+                      << 7) | e;
+        if (k > key) {
+          key = k;
+          win = scand[e];
+          win_z = z;
+        }
+      }
+    }
+    if (win >= 0 && win_z > best_z) {
+      best_z = win_z;
+      best = win;
+    }
   }
-  for (int c = 0; c < 24; ++c) a[16 + c] = row[48 + c];
+  if (x >= width || y >= height) return;
+  write_winner<false>(rec, nullptr, best, best_z, px, py,
+                      static_cast<size_t>(y) * width + x, depth_out,
+                      tri_out, bary_out, nullptr);
 }
 
 }  // namespace
 
+// attr_table and attrs null: vis-only
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
                               int width, int height, int ntx, void* depth,
                               void* tri, void* bary, void* attrs,
                               void* stream) {
   const int nty = (height + kTile - 1) / kTile;
-  raster_tiles_kernel<<<ntx * nty, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = attr_table ? raster_tiles_kernel<true>
+                           : raster_tiles_kernel<false>;
+  kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
       static_cast<const float*>(attr_table), width, height, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(bary), static_cast<float*>(attrs));
+  HR_RETURN_LAUNCH_STATUS();
+}
+
+HR_EXPORT int hr_raster_vis(const void* rec, const void* tile_start,
+                            const void* entry_cand, int width, int height,
+                            int ntx, void* depth, void* tri, void* bary,
+                            void* stream) {
+  const int nty = (height + kTile - 1) / kTile;
+  raster_vis_kernel<<<ntx * nty, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rec), static_cast<const int*>(tile_start),
+      static_cast<const int*>(entry_cand), width, height, ntx,
+      static_cast<float*>(depth), static_cast<int*>(tri),
+      static_cast<float*>(bary));
   HR_RETURN_LAUNCH_STATUS();
 }
 

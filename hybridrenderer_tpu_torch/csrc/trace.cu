@@ -1,5 +1,7 @@
 // K2 and K2c: ray / BVH traversal, any-hit (shadow, AO and shading
 // occlusion rays) and closest-hit (reflection and GI radiance rays).
+// K2b (trace_packet, at the end of the file): the same queries as packet
+// traversal, one warp per packet of 32 rays.
 //
 // Replaces hybridrenderer_tpu/ops/trace_pallas.py _wide_direct_kernel
 // (:869) in both its modes. Same contracts:
@@ -186,6 +188,128 @@ __global__ void trace_closest_kernel(
 
 constexpr int kBlock = 128;
 
+// ---------------------------------------------------------------------------
+// K2b: packet traversal.
+//
+// Replaces hybridrenderer_tpu/ops/trace_pallas.py _traverse_kernel (:132,
+// entry intersect_packed :338), the binary-BVH packet traversal of
+// trace_backend="pallas". The TPU kernel's packet is 8x128 rays sharing
+// one scalar stack of 96 entries; here a packet is one warp of 32
+// consecutive rays (the caller orders coherent rays in 8x4 pixel tiles)
+// sharing one 96-entry stack in shared memory. Same rules:
+// * the warp pops one node at a time;
+// * at an internal node each live lane slab-tests both child boxes
+//   against its own best t (any-hit: only lanes without a hit yet); a
+//   child is pushed if any lane hits it (__ballot_sync), the far one
+//   first; near and far come from the warp's sums of entry distances
+//   over the lanes that hit each box (trace_pallas.py:281-290), summed
+//   in the xor-butterfly order the plain version repeats;
+// * at a leaf each live lane runs K2's Moller-Trumbore with the
+//   t <= best replacement (:244), in any-hit mode too;
+// * any-hit: the warp stops once every live lane has a hit;
+// * tmax is clamped to 1e6 (:359-360). Inactive rays do no work, take
+//   no part in the warp's votes and report a miss (the TPU kernel has
+//   no active mask: inactive rays there get tmax 0).
+// A tree of depth D needs D + 1 entries (ops/trace_cuda.pack_bvh raises
+// above 96), so no child is dropped.
+// Bound on the card: as K2, the latency of dependent node loads, now
+// shared by the warp: one node load serves 32 rays, and lanes of a
+// coherent packet agree on most boxes; an incoherent packet visits the
+// union of its rays' nodes.
+constexpr int kPacketStack = 96;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kFull, v, off);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kBlock)
+trace_packet_kernel(const float4* __restrict__ nodes,
+                    const int* __restrict__ node_tri,
+                    const float* __restrict__ tri_verts, int n_internal,
+                    const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ tmax_in,
+                    const uint8_t* __restrict__ active_in, float tmin, int R,
+                    int any_hit, float* __restrict__ t_out,
+                    int* __restrict__ tri_out, float* __restrict__ u_out,
+                    float* __restrict__ v_out) {
+  __shared__ int stacks[kBlock / kWarp][kPacketStack];
+  const int lane = threadIdx.x % kWarp;
+  int* stack = stacks[threadIdx.x / kWarp];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < R && active_in[i];
+
+  V3 org = {0.0f, 0.0f, 0.0f}, dir = {0.0f, 0.0f, 1.0f};
+  float best_t = 0.0f;
+  if (active) {
+    org = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+    dir = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    best_t = fminf(tmax_in[i], 1e6f);
+  }
+  const V3 inv_d = {safe_inv(dir.x), safe_inv(dir.y), safe_inv(dir.z)};
+  int best_tri = -1;
+  float best_u = 0.0f, best_v = 0.0f;
+
+  // sp is the same in every lane; only lane 0 writes the stack
+  int sp = __any_sync(kFull, active) ? 1 : 0;
+  if (lane == 0) stack[0] = 0;
+  __syncwarp();
+  while (sp > 0) {
+    if (any_hit && __all_sync(kFull, !active || best_tri >= 0)) break;
+    const int node = stack[--sp];
+    __syncwarp();  // every lane has read the top before it is rewritten
+    if (node >= n_internal) {
+      const int tri = node_tri[node];
+      float t, u, v;
+      if (tri >= 0 && active &&
+          tri_hit(tri_verts + 9 * static_cast<size_t>(tri), org, dir, tmin,
+                  best_t, &t, &u, &v)) {
+        best_tri = tri;
+        best_t = t;
+        best_u = u;
+        best_v = v;
+      }
+      continue;
+    }
+    const float4 nlo = nodes[2 * node];
+    const float4 nhi = nodes[2 * node + 1];
+    const int left = __float_as_int(nlo.w);
+    const int right = __float_as_int(nhi.w);
+    const bool live = active && !(any_hit && best_tri >= 0);
+    float lt = 0.0f, rt = 0.0f;
+    const bool lhit = live && box_hit(nodes[2 * left], nodes[2 * left + 1],
+                                      org, inv_d, tmin, best_t, &lt);
+    const bool rhit = live && box_hit(nodes[2 * right],
+                                      nodes[2 * right + 1], org, inv_d,
+                                      tmin, best_t, &rt);
+    const bool l_any = __any_sync(kFull, lhit);
+    const bool r_any = __any_sync(kFull, rhit);
+    const float l_sum = warp_sum(lhit ? lt : 0.0f);
+    const float r_sum = warp_sum(rhit ? rt : 0.0f);
+    const bool l_nearer = l_sum <= r_sum;
+    // far child first, so the near one is popped next
+    const int first = l_nearer ? right : left;
+    const bool first_ok = l_nearer ? r_any : l_any;
+    const int second = l_nearer ? left : right;
+    const bool second_ok = l_nearer ? l_any : r_any;
+    if (lane == 0) {
+      if (first_ok) stack[sp] = first;
+      if (second_ok) stack[sp + first_ok] = second;
+    }
+    sp += first_ok + second_ok;
+    __syncwarp();
+  }
+  if (i >= R) return;
+  t_out[i] = best_tri < 0 ? __int_as_float(0x7f800000) : best_t;
+  tri_out[i] = best_tri;
+  u_out[i] = best_u;
+  v_out[i] = best_v;
+}
+
 }  // namespace
 
 HR_EXPORT int hr_trace_any(const void* nodes, const void* node_tri,
@@ -220,6 +344,27 @@ HR_EXPORT int hr_trace_closest(const void* nodes, const void* node_tri,
         static_cast<const float*>(o), static_cast<const float*>(d),
         static_cast<const float*>(tmax),
         static_cast<const uint8_t*>(active), tmin, R,
+        static_cast<float*>(t_out), static_cast<int*>(tri_out),
+        static_cast<float*>(u_out), static_cast<float*>(v_out));
+  }
+  HR_RETURN_LAUNCH_STATUS();
+}
+
+// any_hit 0 or 1; for any-hit the caller may ignore t, u and v
+HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
+                              const void* tri_verts, int n_internal,
+                              const void* o, const void* d, const void* tmax,
+                              const void* active, float tmin, int R,
+                              int any_hit, void* t_out, void* tri_out,
+                              void* u_out, void* v_out, void* stream) {
+  if (R > 0) {
+    trace_packet_kernel<<<(R + kBlock - 1) / kBlock, kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(nodes), static_cast<const int*>(node_tri),
+        static_cast<const float*>(tri_verts), n_internal,
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(tmax),
+        static_cast<const uint8_t*>(active), tmin, R, any_hit,
         static_cast<float*>(t_out), static_cast<int*>(tri_out),
         static_cast<float*>(u_out), static_cast<float*>(v_out));
   }

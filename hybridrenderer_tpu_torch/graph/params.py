@@ -60,6 +60,7 @@ class RS:
     EMISSIVE = "Emissive"
     DEPTH = "Depth"
     CUR_COLOR = "ShadowAO"       # packed shadow + AO signal
+    AO_RAW = "AORaw"             # the RTAOPass demo's output
     REFLECTION_RAW = "ReflectionRaw"
     GI_RAW = "GIRaw"
     FINAL_COLOR = "FinalColor"

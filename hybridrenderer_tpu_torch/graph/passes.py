@@ -1,5 +1,5 @@
-"""Render passes of the hybrid and forward paths as functions over the
-graph registry (hybridrenderer_tpu/graph/passes.py).
+"""Render passes of the hybrid, forward and ray-traced paths as
+functions over the graph registry (hybridrenderer_tpu/graph/passes.py).
 
 Each ``make_*_pass(settings)`` returns (fn, reads, writes, history) for
 ``RenderGraph.add_pass``. ``ctx`` is the FrameContext below.
@@ -36,6 +36,41 @@ class FrameContext:
     trace_radiance: Optional[Callable] = None
 
 
+def _clip_scene(settings, sc, cam, jitter_on):
+    """Instance frustum cull, world → clip (jittered when ``jitter_on``),
+    near-plane clip and back-face cull → (ClippedTriangles, culled)."""
+    vp = cam.proj @ cam.view
+    culled = maths.aabb_outside_frustum(
+        sc.instances.aabb_min, sc.instances.aabb_max,
+        maths.frustum_from_viewproj(vp))
+    tri_mask = ~culled[sc.triangles.instance.long()]
+    jit2 = cam.jitter if jitter_on else None
+    soup = sc.triangles
+    corners = torch.stack([raster_ops.transform_to_clip(v, vp, jit2)
+                           for v in (soup.v0, soup.v1, soup.v2)], dim=1)
+    single = soup.single_sided if settings.raster_cull == "back" else None
+    return raster_ops.clip_triangles(corners, settings.width,
+                                     settings.height, tri_mask,
+                                     single), culled
+
+
+def make_depth_prepass(settings):
+    """DepthPrepass: the visibility raster without the attribute stage,
+    for the ray-traced path: K1 vis-only, or K1v under raster_eval "v2" /
+    "v3". Jittered under TAA only. Like the reference's prepass it draws
+    no alpha test."""
+    jitter_on = bool(settings.flags & RenderFlags.TAA)
+
+    def fn(reg, ctx: FrameContext):
+        tris, _ = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on)
+        vis, _ = raster_cuda.rasterize_binned(
+            tris, settings.width, settings.height, None,
+            vis_eval=settings.raster_eval)
+        return {RS.DEPTH: vis.depth}
+
+    return fn, (), (RS.DEPTH,), {}
+
+
 def make_gbuffer_pass(settings):
     """GBufferPass: instance frustum cull, clip, binned tile raster with
     the attribute ride-along (kernel K1), then the G-buffer planes. The
@@ -47,19 +82,7 @@ def make_gbuffer_pass(settings):
         if sc.has_alpha_test:
             raise NotImplementedError(
                 "the alpha-tested G-buffer layer is not ported yet")
-        vp = cam.proj @ cam.view
-        culled = maths.aabb_outside_frustum(
-            sc.instances.aabb_min, sc.instances.aabb_max,
-            maths.frustum_from_viewproj(vp))
-        tri_mask = ~culled[sc.triangles.instance.long()]
-        jit2 = cam.jitter if jitter_on else None
-        soup = sc.triangles
-        corners = torch.stack(
-            [raster_ops.transform_to_clip(v, vp, jit2)
-             for v in (soup.v0, soup.v1, soup.v2)], dim=1)
-        single = soup.single_sided if settings.raster_cull == "back" else None
-        tris = raster_ops.clip_triangles(corners, settings.width,
-                                         settings.height, tri_mask, single)
+        tris, culled = _clip_scene(settings, sc, cam, jitter_on)
         vis, attrs = raster_cuda.rasterize_binned(
             tris, settings.width, settings.height, sc.raster_rows)
         gb = gbuffer_ops.build_gbuffer(vis, sc, cam, attrs)
@@ -242,22 +265,29 @@ def make_forward_pass(settings):
     return fn, ("_GBuffer",), (RS.FINAL_COLOR,), {}
 
 
-def make_taa_pass(settings):
-    """TAAPass (taa.comp) over the G-buffer's motion and depth; the
-    history fetch is kernel K5 (ops/taa.py). With no history yet it
+def make_taa_pass(settings, use_gbuffer: bool = True):
+    """TAAPass (taa.comp) over the G-buffer's motion and depth, or with
+    ``use_gbuffer=False`` over the named Motion and Depth resources (the
+    ray-traced path: the primary pass's motion, the prepass's depth);
+    the history fetch is kernel K5 (ops/taa.py). With no history yet it
     resolves against the current frame."""
 
     def fn(reg, ctx: FrameContext):
-        gb = reg["_GBuffer"]
+        if use_gbuffer:
+            gb = reg["_GBuffer"]
+            motion, depth = gb.motion, gb.depth
+        else:
+            motion, depth = reg[RS.MOTION][..., :2], reg[RS.DEPTH]
         history = reg.get("History_" + RS.TAA_OUTPUT)
         if history is None:
             history = reg[RS.FINAL_COLOR]
         out = taa_ops.resolve(
-            reg[RS.FINAL_COLOR], history, gb.motion, gb.depth,
+            reg[RS.FINAL_COLOR], history, motion, depth,
             ctx.cam.jitter, ctx.cam.prev_jitter,
             history_valid=ctx.history_valid,
             enabled=bool(settings.flags & RenderFlags.TAA))
         return {RS.TAA_OUTPUT: out}
 
-    return fn, (RS.FINAL_COLOR, "History_" + RS.TAA_OUTPUT), \
-        (RS.TAA_OUTPUT,), {RS.TAA_OUTPUT: RS.TAA_OUTPUT}
+    reads = (RS.FINAL_COLOR, "History_" + RS.TAA_OUTPUT) if use_gbuffer \
+        else (RS.FINAL_COLOR, RS.MOTION, RS.DEPTH, "History_" + RS.TAA_OUTPUT)
+    return fn, reads, (RS.TAA_OUTPUT,), {RS.TAA_OUTPUT: RS.TAA_OUTPUT}

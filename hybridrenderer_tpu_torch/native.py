@@ -113,6 +113,9 @@ _F = ctypes.c_float
 # C entry points: name → argument types (every one ends with the stream)
 _SIGNATURES = {
     "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hr_raster_vis": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "hr_trace_packet": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P,
+                        _P, _P, _P],
     "hr_trace_any": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P],
     "hr_trace_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                          _P, _P],
@@ -177,10 +180,14 @@ KERNELS = {
     k.name: k for k in (
         Kernel("raster_tiles", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:784"),
+        Kernel("raster_vis", _CSRC + "raster.cu",
+               _TPU + "raster_pallas.py:519"),
         Kernel("trace_any", _CSRC + "trace.cu",
                _TPU + "trace_pallas.py:869"),
         Kernel("trace_closest", _CSRC + "trace.cu",
                _TPU + "trace_pallas.py:869"),
+        Kernel("trace_packet", _CSRC + "trace.cu",
+               _TPU + "trace_pallas.py:132"),
         Kernel("temporal_fetch", _CSRC + "temporal.cu",
                _TPU + "temporal_pallas.py:55"),
         Kernel("window_sample", _CSRC + "temporal.cu",

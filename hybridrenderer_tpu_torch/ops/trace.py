@@ -2,10 +2,14 @@
 ``SceneTracer.build``, the visibility queries (``shadow_query`` over
 images, ``occluded`` over flat rays) through the any-hit traversal K2,
 and ``trace_radiance``, the closest-hit traversal K2c with hit shading
-(closesthit.rchit) and the sky on a miss (miss.rmiss).
+(closesthit.rchit) and the sky on a miss (miss.rmiss). With
+``trace_backend="pallas"`` all three go through the packet traversal
+K2b instead.
 
 The reference relayouts rays tile- or pattern-major for its TPU packets;
-a relayout changes no per-ray result, so the port traces in pixel order.
+a relayout changes no per-ray result, so the per-ray kernels trace in
+pixel order. K2b's packets are 32 consecutive rays, so image queries
+are relayouted into 8x4 pixel tiles for it, one tile a packet.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ from ..core import maths
 from ..core.types import RenderFlags
 from . import sampling, shade, sky
 from .bvh import build_sah
-from .trace_cuda import PackedBVH, intersect_any, intersect_closest, pack_bvh
+from .trace_cuda import (PACKET_STACK_DEPTH, STACK_DEPTH, PackedBVH,
+                         intersect_any, intersect_closest, intersect_packet,
+                         pack_bvh)
 
 TMIN = 0.01  # shadow_query's ray start, past the normal offset
 OCCLUSION_TMIN = 1e-3   # occluded's ray start
@@ -31,6 +37,29 @@ HIT_ID_LIMIT = 1 << 29  # ids at or above it are the TPU kernel's sentinels
 SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
               + list(range(45, 54)) + [66] + list(range(67, 83)))
 SHADE_ROWS_MAX = 98304
+TILE_W, TILE_H = 8, 4   # K2b's packet of 32 image rays
+
+
+def tile_order(H, W, device):
+    """Permutation of the H * W pixel indices into 8x4 tiles, row-major
+    within a tile and tile-major across the image; ragged edge tiles are
+    shorter, so a packet may span two of them."""
+    y = torch.arange(H, device=device).unsqueeze(1)
+    x = torch.arange(W, device=device).unsqueeze(0)
+    ntx = -(-W // TILE_W)
+    key = ((y // TILE_H) * ntx + x // TILE_W) * (TILE_W * TILE_H) \
+        + (y % TILE_H) * TILE_W + x % TILE_W
+    return torch.argsort(key.reshape(-1))
+
+
+def _pixel_order(perm, x, lead):
+    """Flat results in ``perm`` order (None: pixel order) → (*lead, ...)
+    in pixel order."""
+    if perm is not None:
+        out = torch.empty_like(x)
+        out[perm] = x
+        x = out
+    return x.reshape(*lead, *x.shape[1:])
 
 
 @dataclasses.dataclass
@@ -39,21 +68,47 @@ class SceneTracer:
     # (T, 53) hit-shading rows: vertex k's normal, tangent, uv at 9k;
     # normal matrix at 27, material id at 36, material row at 37
     shade_rows: Any
+    # trace_backend "pallas": every query through the packet kernel K2b
+    packet: bool = False
 
     @staticmethod
     def build(scene_data, settings=None) -> "SceneTracer":
         """Binned-SAH BVH over the scene's triangle soup, on the scene's
-        device. Alpha-tested scenes need closest-hit rounds over cut-out
-        texels, which are not ported yet."""
+        device, for the traversal ``settings.trace_backend`` picks.
+        Alpha-tested scenes need closest-hit rounds over cut-out texels,
+        which are not ported yet."""
         if scene_data.has_alpha_test:
             raise NotImplementedError(
                 "alpha-tested (cut-out) occlusion is not ported yet")
+        packet = settings is not None and settings.trace_backend == "pallas"
         soup = scene_data.triangles
         bvh = build_sah(soup.v0, soup.v1, soup.v2)
         cols = torch.tensor(SHADE_COLS, device=scene_data.device)
-        return SceneTracer(packed=pack_bvh(bvh, soup.v0, soup.v1, soup.v2),
+        packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+                          PACKET_STACK_DEPTH if packet else STACK_DEPTH)
+        return SceneTracer(packed=packed,
                            shade_rows=scene_data.attr_rows[:, cols]
-                           .contiguous())
+                           .contiguous(), packet=packet)
+
+    def _packet_order(self, lead, *rays):
+        """K2b traces the rays of an (H, W) image in 8x4 pixel tiles:
+        → (the permutation or None, the flat rays in that order)."""
+        if not (self.packet and len(lead) == 2):
+            return None, rays
+        perm = tile_order(*lead, rays[0].device)
+        return perm, tuple(x[perm].contiguous() for x in rays)
+
+    def _any(self, o, d, tmin, tmax, active):
+        if self.packet:
+            return intersect_packet(self.packed, o, d, tmin, tmax, active,
+                                    any_hit=True)[1]
+        return intersect_any(self.packed, o, d, tmin, tmax, active)
+
+    def _closest(self, o, d, tmin, tmax, active):
+        if self.packet:
+            return intersect_packet(self.packed, o, d, tmin, tmax, active,
+                                    any_hit=False)
+        return intersect_closest(self.packed, o, d, tmin, tmax, active)
 
     def shadow_rays(self, world_pos, normal, direction, tmax, active=None):
         """The rays of ``shadow_query`` as ``intersect_any`` takes them:
@@ -74,8 +129,10 @@ class SceneTracer:
         (H, W) masks rays out entirely; they report 1.0."""
         o, d, t, act = self.shadow_rays(world_pos, normal, direction, tmax,
                                         active)
-        tri = intersect_any(self.packed, o, d, TMIN, t, act)
-        return torch.where(tri >= 0, 0.0, 1.0).reshape(world_pos.shape[:2])
+        lead = world_pos.shape[:2]
+        perm, (o, d, t, act) = self._packet_order(lead, o, d, t, act)
+        vis = torch.where(self._any(o, d, TMIN, t, act) >= 0, 0.0, 1.0)
+        return _pixel_order(perm, vis, lead)
 
     def occluded(self, origin, direction, tmax: float, active):
         """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
@@ -83,9 +140,8 @@ class SceneTracer:
         R = origin.shape[0]
         t = torch.full((R,), float(tmax), dtype=torch.float32,
                        device=origin.device)
-        tri = intersect_any(self.packed, origin.contiguous(),
-                            direction.contiguous(), OCCLUSION_TMIN, t,
-                            active.contiguous())
+        tri = self._any(origin.contiguous(), direction.contiguous(),
+                        OCCLUSION_TMIN, t, active.contiguous())
         return torch.where(active & (tri < 0), 1.0, 0.0)
 
     def radiance_rays(self, origin, direction, active=None):
@@ -105,25 +161,27 @@ class SceneTracer:
         """Trace and shade closest hits. origin / direction (..., 3) →
         (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
         rays trace nothing and take the miss value. The NEE seed of a ray
-        is its flat index, the reference's original pixel index."""
+        is its flat index, the reference's original pixel index, also
+        where K2b's packets trace (H, W) rays in tile order."""
         lead = origin.shape[:-1]
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
-        t, tri, u, v = intersect_closest(self.packed, o, d, RADIANCE_TMIN,
-                                         tmax, act)
+        perm, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax, act)
+        t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act)
         hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
-        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit)
+        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, perm)
         rgb_miss = sky.sample_environment(
             d, bool(ctx.settings.flags & RenderFlags.IBL),
             has_sky=scene.has_sky_texture)
         rgb = torch.where(hit.unsqueeze(-1), rgb_hit, rgb_miss)
         dist = torch.where(hit, t, torch.full_like(t, -1.0))
-        return rgb.reshape(*lead, 3), dist.reshape(lead)
+        return _pixel_order(perm, rgb, lead), _pixel_order(perm, dist, lead)
 
-    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active):
+    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active, ray_idx=None):
         """closesthit.rchit: interpolate the hit's attributes, evaluate
         its material, sun and emissive-light NEE (both shadowed, with the
         reference's facing gates), IBL ambient and emission. ``active``
-        (the hit mask) gates the occlusion rays."""
+        (the hit mask) gates the occlusion rays; ``ray_idx``, the rays'
+        pixel indices (default: their flat index), seeds NEE."""
         params, flags = ctx.params, ctx.settings.flags
         R = o.shape[0]
         dev = o.device
@@ -164,9 +222,9 @@ class SceneTracer:
 
         nee_act = None
         if sc.lights.count > 0:
-            seed = sampling.init_random_seed(
-                torch.arange(R, dtype=torch.int64, device=dev),
-                params.frame_index)
+            if ray_idx is None:
+                ray_idx = torch.arange(R, dtype=torch.int64, device=dev)
+            seed = sampling.init_random_seed(ray_idx, params.frame_index)
             ldir, sampled_inst, _ = sampling.sample_lights(sc, world_pos,
                                                            seed)
             has = (maths.length(ldir) > 0.001) & (maths.dot(geo_n, ldir)

@@ -1,5 +1,4 @@
-"""RenderPathFactory (hybridrenderer_tpu/paths/factory.py). The forward
-and hybrid paths are ported; the ray-traced path raises."""
+"""RenderPathFactory (hybridrenderer_tpu/paths/factory.py)."""
 from __future__ import annotations
 
 from ..core.types import RenderPathType
@@ -8,11 +7,11 @@ from ..core.types import RenderPathType
 def create_render_path(settings):
     from .forward import ForwardRenderPath
     from .hybrid import HybridRenderPath
+    from .raytraced import RayTracedRenderPath
 
-    if settings.path == RenderPathType.FORWARD:
-        return ForwardRenderPath(settings)
-    if settings.path == RenderPathType.HYBRID:
-        return HybridRenderPath(settings)
-    if settings.path == RenderPathType.RAYTRACED:
-        raise NotImplementedError("the RAYTRACED path is not ported yet")
-    raise ValueError(f"unknown render path {settings.path}")
+    paths = {RenderPathType.FORWARD: ForwardRenderPath,
+             RenderPathType.HYBRID: HybridRenderPath,
+             RenderPathType.RAYTRACED: RayTracedRenderPath}
+    if settings.path not in paths:
+        raise ValueError(f"unknown render path {settings.path}")
+    return paths[settings.path](settings)

@@ -9,12 +9,15 @@ tensors are freed when it is replaced.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..core.types import RenderFlags, RenderPathType
 from ..graph.params import FrameParams, FrameState
 from ..graph.passes import FrameContext
+from ..ops import trace
 from ..paths.factory import create_render_path
 
 
@@ -31,23 +34,10 @@ class Renderer:
 
     @classmethod
     def for_scene(cls, settings, scene_data):
-        """Renderer with the ray tracer attached when the flags ask for
-        ray-traced passes. Radiance rays on a scene above SHADE_ROWS_MAX
-        triangles raise before the BVH is built: there the reference
-        shades from a quantized table, which is not ported."""
-        from ..ops import trace
-
-        needs_rt = settings.path == RenderPathType.RAYTRACED or bool(
-            settings.flags & (RenderFlags.SHADOW | RenderFlags.AO
-                              | RenderFlags.REFLECTION | RenderFlags.GI))
-        radiance = bool(settings.flags & (RenderFlags.REFLECTION
-                                          | RenderFlags.GI))
-        if radiance and scene_data.num_triangles > trace.SHADE_ROWS_MAX:
-            raise NotImplementedError(
-                f"reflection and GI above {trace.SHADE_ROWS_MAX} triangles "
-                f"(the quantized shade_rows_q fetch) are not ported yet")
+        """Renderer with the ray tracer attached when the path or the
+        flags ask for ray-traced passes."""
         tracer = trace.SceneTracer.build(scene_data, settings) \
-            if needs_rt else None
+            if _needs_tracer(settings, scene_data) else None
         return cls(settings, scene_data, tracer=tracer)
 
     @torch.no_grad()
@@ -78,6 +68,61 @@ class Renderer:
     def render_np(self, cam_state, **kw) -> np.ndarray:
         return self.render(cam_state, **kw).cpu().numpy()
 
+    def render_burst(self, cam_states, exposure: float = 1.0,
+                     svgf_phi=(4.0, 128.0, 0.02, 0.0)):
+        """Render one frame per camera state in order → (K, H, W, 3). The
+        history carries from frame to frame exactly as through K
+        ``render`` calls; the reference's one-dispatch burst has no
+        counterpart in eager PyTorch."""
+        return torch.stack([self.render(cs, exposure=exposure,
+                                        svgf_phi=svgf_phi)
+                            for cs in cam_states])
+
+    def switch_path(self, path_type):
+        """Live render-path switch: new pass stack, history dropped; the
+        scene is kept, and the tracer too unless the new path needs one
+        that is missing."""
+        self.apply_settings(path=path_type)
+
+    def apply_settings(self, **changes):
+        """Live settings change (flags, display mode, resolution, path,
+        trace_backend): rebuild the pass stack, keep the scene, drop the
+        history. The tracer is kept while it still serves (the reference
+        keeps it whatever changes), built when one is needed and missing,
+        and rebuilt when trace_backend moves between the per-ray and the
+        packet traversal, so that the setting takes effect."""
+        settings = self.settings.replace(**changes)
+        path = create_render_path(settings)
+        if _needs_tracer(settings, self.scene) and (
+                self.tracer is None or self.tracer.packet
+                != (settings.trace_backend == "pallas")):
+            self.tracer = trace.SceneTracer.build(self.scene, settings)
+        self.settings, self.path = settings, path
+        self.reset_history()
+
+    def reset_history(self):
+        """Drop all carried history: the next frame is a first frame."""
+        self.state = FrameState.empty()
+        self.frame_count = 0
+
+    def benchmark(self, camera, frames: int = 32, warmup: int = 4) -> dict:
+        """Steady-state frame rate over ``frames`` frames after
+        ``warmup``, the camera stepping with TAA jitter; the device is
+        synchronised before each clock reading."""
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        for _ in range(warmup):
+            self.render(camera.step(taa_enabled=True))
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            self.render(camera.step(taa_enabled=True))
+        sync()
+        dt = time.perf_counter() - t0
+        return {"fps": frames / dt, "ms_per_frame": 1000.0 * dt / frames}
+
     def frame_stats(self) -> dict:
         """Last frame's instance drawn/culled counts and covered pixels
         (the active-ray count). Waits for the device."""
@@ -85,3 +130,23 @@ class Renderer:
             else self._stats.cpu().numpy()
         return {"instances_drawn": int(s[0]), "instances_culled": int(s[1]),
                 "covered_pixels": int(s[2])}
+
+
+
+def _needs_tracer(settings, scene_data) -> bool:
+    """Whether the settings run ray-traced passes. Radiance rays (the
+    reflection and GI passes, and the ray-traced path's primary rays) on
+    a scene above SHADE_ROWS_MAX triangles raise, before any BVH is
+    built: there the reference shades from a quantized table, which is
+    not ported."""
+    raytraced = settings.path == RenderPathType.RAYTRACED
+    radiance = raytraced or bool(settings.flags & (RenderFlags.REFLECTION
+                                                   | RenderFlags.GI))
+    if radiance and scene_data.num_triangles > trace.SHADE_ROWS_MAX:
+        raise NotImplementedError(
+            f"radiance rays (reflection, GI, the ray-traced path) above "
+            f"{trace.SHADE_ROWS_MAX} triangles (the quantized shade_rows_q "
+            f"fetch) are not ported yet")
+    return raytraced or bool(settings.flags & (
+        RenderFlags.SHADOW | RenderFlags.AO | RenderFlags.REFLECTION
+        | RenderFlags.GI))

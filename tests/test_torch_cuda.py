@@ -8,8 +8,8 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
-(compiled with -fmad=false), so K1-K3 and K5 agree exactly; K4's exp and
-pow may differ in the last ulp."""
+(compiled with -fmad=false), so K1-K3, K1v, K2b and K5 agree exactly;
+K4's exp and pow may differ in the last ulp."""
 import numpy as np
 import pytest
 import torch
@@ -57,6 +57,74 @@ def test_raster_kernel_matches_plain(dev):
     for a, b in ((vk.depth, vp_.depth), (vk.bary1, vp_.bary1),
                  (vk.bary2, vp_.bary2), (ak, ap)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_vis_only_raster_kernels_match_plain(dev):
+    """K1 vis-only (the depth prepass) and K1v, exactly."""
+    W, H = 200, 120
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
+    vp = cam.proj @ cam.view
+    corners = torch.stack([raster.transform_to_clip(v, vp)
+                           for v in (data.triangles.v0, data.triangles.v1,
+                                     data.triangles.v2)], dim=1)
+    rec, bbox, valid = raster_cuda.pack_candidates(
+        raster.clip_triangles(corners, W, H))
+    ts, ec = raster_cuda.bin_candidates(bbox, valid, W, H)
+    before = native.KERNELS["raster_vis"].launches
+    pairs = [(raster_cuda.raster_tiles(rec, ts, ec, None, W, H)[0],
+              raster_cuda.raster_tiles_plain(rec, ts, ec, None, W, H)[0]),
+             (raster_cuda.raster_vis(rec, ts, ec, W, H),
+              raster_cuda.raster_vis_plain(rec, ts, ec, W, H))]
+    assert native.KERNELS["raster_vis"].launches == before + 1
+    for vk, vp_ in pairs:
+        for a, b in ((vk.tri_id, vp_.tri_id), (vk.depth, vp_.depth),
+                     (vk.bary1, vp_.bary1), (vk.bary2, vp_.bary2)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_packet_kernel_matches_plain(dev, any_hit):
+    """K2b exactly (tri, t, u, v), on random rays with a fifth inactive
+    and on primary rays in 8x4 tile order; against the per-ray kernels:
+    the same visibility and closest t."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.ops import composition
+    from hybridrenderer_tpu_torch.ops.trace import tile_order
+
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    tracer = SceneTracer.build(data, RenderSettings(trace_backend="pallas"))
+    g = np.random.default_rng(5)
+    R = 8000
+    o = _t(g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3)).astype(
+        np.float32), dev)
+    d = g.standard_normal((R, 3)).astype(np.float32)
+    d = _t(d / np.linalg.norm(d, axis=-1, keepdims=True), dev)
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = _t(g.random(R) < 0.8, dev)
+    W, H = 96, 64
+    cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
+    perm = tile_order(H, W, dev)
+    po = cam.position.expand(H * W, 3).contiguous()
+    pd = composition.view_directions(cam, H, W, dev).reshape(-1, 3)[perm]
+    for args in ((o, d, 0.01, tmax, active),
+                 (po, pd.contiguous(), 0.01,
+                  torch.full((H * W,), 1e6, device=dev),
+                  torch.ones(H * W, dtype=torch.bool, device=dev))):
+        before = native.KERNELS["trace_packet"].launches
+        k = trace_cuda.intersect_packet(tracer.packed, *args, any_hit)
+        assert native.KERNELS["trace_packet"].launches == before + 1
+        p = trace_cuda.intersect_packet_plain(tracer.packed, *args, any_hit)
+        for a, b in zip(k, p):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        act = args[4]
+        assert (k[1][~act] == -1).all()
+        if any_hit:
+            ref = trace_cuda.intersect_any(tracer.packed, *args)
+            assert torch.equal(ref >= 0, k[1] >= 0)
+        else:
+            ref = trace_cuda.intersect_closest(tracer.packed, *args)
+            torch.testing.assert_close(ref[0], k[0], rtol=0, atol=0)
 
 
 def test_trace_kernel_matches_plain(dev):
@@ -226,4 +294,60 @@ def test_cuda_frame_matches_cpu_frame(dev, path, flags, cam_kw, max_off,
     print(f"card vs CPU, {path} {flags}: off-edge max {off_max} u8, p99 "
           f"{p99}, secondary flips {int(flips.sum())} px")
     assert flips.mean() <= SECONDARY_FLIP_MAX
+    assert off_max <= max_off and p99 <= max_p99, (off_max, p99)
+
+
+@pytest.mark.parametrize("mode,max_off,max_p99", [
+    # readings on an H100 (off-edge max / p99): 1 / 1, 1 / 1
+    ("default", 2, 1.0),
+    ("packet", 2, 1.0),
+])
+def test_cuda_raytraced_frame_matches_cpu_frame(dev, mode, max_off, max_p99):
+    """The ray-traced path (depth prepass, primary rays, TAA) on the card
+    against the CPU, 3 frames at 64x64 on the cube, off the edges of a
+    K1 raster of the unjittered camera: with the default kernels (K1
+    vis-only, K2c + K2, K5) and with raster_eval "v2" and trace_backend
+    "pallas" (K1v, K2b, K5). No SVGF, so the frame is held to the
+    reference's TAA gate, 2 / 1."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+    from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
+    from hybridrenderer_tpu_torch.runtime.output import to_u8
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    size = 64
+    kw = dict(raster_eval="v2", trace_backend="pallas") \
+        if mode == "packet" else {}
+    s = RenderSettings(width=size, height=size,
+                       path=RenderPathType.RAYTRACED,
+                       flags=RenderFlags.LIGHT | RenderFlags.IBL
+                       | RenderFlags.EMISSIVE | RenderFlags.TAA, **kw)
+    imgs = []
+    for d in (torch.device("cpu"), dev):
+        native.reset_counts()
+        r = Renderer.for_scene(s, scenes.cube_scene().build(d))
+        cam = OrbitCamera(width=size, height=size, **CUBE_KW)
+        for _ in range(3):
+            img = r.render(cam.step(taa_enabled=True))
+            cam.orbit(0.02, 0.0)
+        imgs.append(to_u8(img.cpu().numpy()))
+    assert not any(k.plain_cuda_calls for k in native.KERNELS.values())
+    want = ("raster_vis", "trace_packet") if mode == "packet" \
+        else ("raster_tiles", "trace_closest", "trace_any")
+    assert all(native.KERNELS[k].launches > 0
+               for k in want + ("window_sample",))
+    data = scenes.cube_scene().build("cpu")
+    cam = OrbitCamera(width=size, height=size, **CUBE_KW).step().to("cpu")
+    vp = cam.proj @ cam.view
+    corners = torch.stack([raster.transform_to_clip(v, vp)
+                           for v in (data.triangles.v0, data.triangles.v1,
+                                     data.triangles.v2)], dim=1)
+    vis, _ = raster_cuda.rasterize_binned(
+        raster.clip_triangles(corners, size, size), size, size, None)
+    edges = tri_boundary_mask(vis.tri_id.numpy())
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    off_max = int(diff.max(-1)[~edges].max())
+    p99 = float(np.percentile(diff, 99))
+    print(f"card vs CPU, ray-traced {mode}: off-edge max {off_max} u8, p99 "
+          f"{p99}")
     assert off_max <= max_off and p99 <= max_p99, (off_max, p99)

@@ -111,14 +111,19 @@ def test_settings_keep_reference_defaults_and_reject_unported():
     assert (s.ao_block, s.svgf_bits, s.svgf_atrous_iterations,
             s.ao_interleaved, s.raster_cull, s.raster_attr_bits) == \
         (128, 16, 3, True, "back", 32)
-    # the reference's backend fields are not settings of the port
-    for kw in (dict(raster_backend="pallas"), dict(trace_backend="jnp"),
-               dict(svgf_backend="pallas"), dict(svgf_temporal_gather="tile"),
-               dict(bvh_builder="lbvh")):
+    # the reference's backend fields are not settings of the port, but
+    # for trace_backend and raster_eval, which pick between its kernels
+    for kw in (dict(raster_backend="pallas"), dict(svgf_backend="pallas"),
+               dict(svgf_temporal_gather="tile"), dict(bvh_builder="lbvh")):
         with pytest.raises(TypeError):
             RenderSettings(**kw)
-    with pytest.raises(ValueError):
-        RenderSettings(raster_attr_bits=16)
+    assert (s.trace_backend, s.raster_eval) == ("auto", None)
+    for backend in ("auto", "pallas-wide", "jnp", "pallas"):
+        assert RenderSettings(trace_backend=backend).trace_backend == backend
+    for kw in (dict(raster_attr_bits=16), dict(trace_backend="wide"),
+               dict(raster_eval="v5")):
+        with pytest.raises(ValueError):
+            RenderSettings(**kw)
 
 
 def test_entry_points_ask_for_the_card(monkeypatch):

@@ -180,18 +180,18 @@ def test_frame_state_and_stats(bits):
 
 
 def test_unported_options_raise():
-    """The ray-traced path, reflection or GI above the reference's exact
-    shade-row table (it switches to a quantized one), and bound textures
-    are not ported yet; the first two raise before any BVH is built."""
+    """Radiance rays (reflection, GI and the ray-traced path's primary
+    rays) above the reference's exact shade-row table (it switches to a
+    quantized one), and bound textures, are not ported yet; the first
+    raise before any BVH is built."""
     data = port_scenes.cube_scene().build("cpu")
-    with pytest.raises(NotImplementedError):
-        Renderer.for_scene(_settings(16).replace(path=RenderPathType.RAYTRACED),
-                           data)
     big = types.SimpleNamespace(num_triangles=SHADE_ROWS_MAX + 1)
-    for flag in (RenderFlags.REFLECTION, RenderFlags.GI):
-        s = _settings(16)
+    s = _settings(16)
+    for kw in (dict(flags=s.flags | RenderFlags.REFLECTION),
+               dict(flags=s.flags | RenderFlags.GI),
+               dict(path=RenderPathType.RAYTRACED)):
         with pytest.raises(NotImplementedError, match="shade_rows_q"):
-            Renderer.for_scene(s.replace(flags=s.flags | flag), big)
+            Renderer.for_scene(s.replace(**kw), big)
     data.textures.data = torch.ones((1, 4, 4, 4))
     r = Renderer.for_scene(_settings(16), data)
     with pytest.raises(NotImplementedError):
