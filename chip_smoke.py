@@ -389,23 +389,24 @@ def packet_frame(dev):
     r = Renderer.for_scene(_raytraced_settings(W, H, raster_eval="v2",
                                                trace_backend="pallas"), data)
     vis_calls, ray_calls = [], []
-    vis, packet = raster_cuda.raster_vis, trace.intersect_packet
+    vis, packet = raster_cuda.raster_tiles, trace.intersect_packet
 
-    def recording_vis(*a):
-        vis_calls.append(a)
-        return vis(*a)
+    def recording_vis(*a, **kw):
+        if kw.get("keyed"):
+            vis_calls.append(a)
+        return vis(*a, **kw)
 
     def recording_packet(*a, **kw):
         ray_calls.append((a, kw))
         return packet(*a, **kw)
 
-    raster_cuda.raster_vis, trace.intersect_packet = recording_vis, \
+    raster_cuda.raster_tiles, trace.intersect_packet = recording_vis, \
         recording_packet
     try:
         r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
             taa_enabled=True))
     finally:
-        raster_cuda.raster_vis, trace.intersect_packet = vis, packet
+        raster_cuda.raster_tiles, trace.intersect_packet = vis, packet
     if len(vis_calls) != 1 or len(ray_calls) != 2:
         raise AssertionError(f"expected one K1v call and two K2b queries, "
                              f"got {len(vis_calls)} and {len(ray_calls)}")
@@ -420,35 +421,45 @@ def check_packet_path(dev):
             "trace_packet": check_trace_packet(frame)}
 
 
-def check_raster_vis(frame):
-    """K1v on the 1080p ray-traced depth prepass's bins."""
-    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
-
-    args = frame["vis"]
-    rec, ts, ec, W, H = args
-    k = rc.raster_vis(*args)
-    p = rc.raster_vis_plain(*args)
+def _vis_mismatch(name, k, p):
+    """Raise unless VisibilityBuffers ``k`` and ``p`` are equal; → the
+    largest difference (0.0)."""
     mismatch = (k.tri_id != p.tri_id).sum().item()
     err = max((a - b).abs().max().item() for a, b in (
         (k.depth, p.depth), (k.bary1, p.bary1), (k.bary2, p.bary2)))
     # same float operations in the same order (-fmad=false): exact
     if mismatch or err > 0.0:
-        raise AssertionError(f"K1v disagrees with its plain version: "
+        raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{mismatch} pixels, max err {err}")
-    k1, _ = rc.raster_tiles(rec, ts, ec, None, W, H)
+    return err
+
+
+def check_raster_vis(frame):
+    """K1v, and K1 vis-only (the default depth prepass), on the 1080p
+    ray-traced depth prepass's bins, each against its plain version."""
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    rec, ts, ec, _, W, H = frame["vis"]
+    args = (rec, ts, ec, None, W, H)
+    k, _ = rc.raster_tiles(*args, keyed=True)
+    err = _vis_mismatch("K1v", k, rc.raster_vis_plain(rec, ts, ec, W, H))
+    k1, _ = rc.raster_tiles(*args)
+    _vis_mismatch("K1 vis-only", k1, rc.raster_tiles_plain(*args)[0])
     ties = (k1.tri_id != k.tri_id).float().mean().item()
-    ms = cuda_time(lambda: rc.raster_vis(*args), 20)
-    k1_ms = cuda_time(lambda: rc.raster_tiles(rec, ts, ec, None, W, H), 20)
+    ms = cuda_time(lambda: rc.raster_tiles(*args, keyed=True), 20)
+    k1_ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
     # K1's ~20 FLOP per (candidate, pixel) coverage test and key
     b = bound(nbytes(rec, ts, ec, k.tri_id, k.depth, k.bary1, k.bary2),
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
     return dict(err=err, ms=ms, plain_ms=cuda_time(
-                    lambda: rc.raster_vis_plain(*args), 2), bound=b,
+                    lambda: rc.raster_vis_plain(rec, ts, ec, W, H), 2),
+                bound=b,
                 shape=f"{W}x{H} depth prepass, {ec.shape[0]} tile entries, "
                       f"{rec.shape[0]} candidates; K1 vis-only on the same "
-                      f"bins {k1_ms:.4f} ms, winner differs from K1's on "
-                      f"{ties:.2e} of pixels (2^-17 near-ties)",
-                tol="exact (tri ids and all outputs)")
+                      f"bins {k1_ms:.4f} ms (exact against its plain "
+                      f"version), winner differs from K1's on {ties:.2e} "
+                      f"of pixels (2^-17 near-ties)",
+                tol="exact (tri ids and all outputs), K1 vis-only too")
 
 
 def check_trace_packet(frame):
@@ -472,17 +483,19 @@ def check_trace_packet(frame):
         for q, m in zip(queries, modes)]
     packet_visits = {}
     ks, ps = kern(), plain(packet_visits)
-    errs = []
+    errs = [0.0, 0.0, 0.0]   # t, u, v over both queries, where p hits
     for k, p in zip(ks, ps):
         if bool((k[1] != p[1]).any()):
             raise AssertionError(f"K2b triangle mismatch: "
                                  f"{(k[1] != p[1]).sum().item()} rays")
         hit = p[1] >= 0
-        errs.append(max((a - b).abs()[hit].max().item() if bool(hit.any())
-                        else 0.0 for a, b in zip(k[::2], p[::2])))
+        if bool(hit.any()):
+            for i, c in enumerate((0, 2, 3)):
+                errs[i] = max(errs[i],
+                              (k[c] - p[c]).abs()[hit].max().item())
     if max(errs) > 0.0:
-        raise AssertionError(f"K2b t, u, v differ from the plain version: "
-                             f"{errs}")
+        raise AssertionError(f"K2b differs from the plain version: max err "
+                             f"t, u, v {errs}")
     # the per-ray kernels on the same rays; the bound counts the nodes
     # and triangles the per-ray plain versions visit, as for K2 and K2c
     (o, d, tmin, tmax, act), (o2, d2, tmin2, tmax2, act2) = queries
@@ -513,7 +526,9 @@ def check_trace_packet(frame):
                       f"ray-traced frame, {queries[0][0].shape[0]} rays "
                       f"each, {active} active, hit {hit[0]:.3f} / "
                       f"{hit[1]:.3f}, {frame['triangles']} triangles; K2b "
-                      f"{times[0]:.4f} + {times[1]:.4f} ms vs per-ray K2c "
+                      f"{times[0]:.4f} + {times[1]:.4f} ms (max err t "
+                      f"{errs[0]:.3g} u {errs[1]:.3g} v {errs[2]:.3g}) vs "
+                      f"per-ray K2c "
                       f"{per_ray_ms[0]:.4f} ms and K2 {per_ray_ms[1]:.4f} ms "
                       f"on the same rays (closest t equal, {tri_diff} "
                       f"equal-t triangle ties, no visibility flip); nodes "

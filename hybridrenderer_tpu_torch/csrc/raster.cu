@@ -9,8 +9,9 @@
 // attribute channels (16 vertex attributes interpolated with those
 // barycentrics + the triangle's 24 constants, from scene raster_rows).
 //
-// K1v (raster_vis) replaces raster_pallas.py _raster_kernel (:519) in its
-// vis-only eval modes v2 / v3 (eval_block_v2 :621, eval_block_v3 :682):
+// K1v (raster_vis, K1's keyed vis-only mode) replaces raster_pallas.py
+// _raster_kernel (:519) in its vis-only eval modes v2 / v3
+// (eval_block_v2 :621, eval_block_v3 :682):
 // the tile's candidate list is cut into groups of 128 consecutive
 // entries (the Pallas kernel's 128-lane record blocks). Inside a group
 // the largest integer key (clip(Z * 131071, 0, 131071) << 7 | position)
@@ -125,7 +126,8 @@ __device__ __forceinline__ void write_winner(
   for (int c = 0; c < 24; ++c) a[16 + c] = row[48 + c];
 }
 
-template <bool kAttrs>
+// kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group
+template <bool kAttrs, bool kKeyed>
 __global__ void __launch_bounds__(kThreads)
 raster_tiles_kernel(const float* __restrict__ rec,
                     const int* __restrict__ tile_start,
@@ -134,8 +136,9 @@ raster_tiles_kernel(const float* __restrict__ rec,
                     int height, int ntx, float* __restrict__ depth_out,
                     int* __restrict__ tri_out, float* __restrict__ bary_out,
                     float* __restrict__ attr_out) {
-  __shared__ float srec[kThreads * kRec];
-  __shared__ int scand[kThreads];
+  constexpr int kChunk = kKeyed ? kGroup : kThreads;
+  __shared__ float srec[kChunk * kRec];
+  __shared__ int scand[kChunk];
 
   const int tile = blockIdx.x;
   const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
@@ -148,8 +151,8 @@ raster_tiles_kernel(const float* __restrict__ rec,
   // depth must beat 0 (the cleared far plane) to win
   float best_z = 0.0f;
   int best = -1;
-  for (int base = start; base < end; base += kThreads) {
-    const int n = min(kThreads, end - base);
+  for (int base = start; base < end; base += kChunk) {
+    const int n = min(kChunk, end - base);
     __syncthreads();
     for (int i = threadIdx.x; i < n * kRec; i += kThreads) {
       const int e = i / kRec;
@@ -158,13 +161,36 @@ raster_tiles_kernel(const float* __restrict__ rec,
     }
     if (threadIdx.x < n) scand[threadIdx.x] = entry_cand[base + threadIdx.x];
     __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      float z;
-      if (cover_depth(&srec[e * kRec], px, py, &z)) {
-        const int c = scand[e];
-        if (z > best_z || (z == best_z && best >= 0 && c < best)) {
-          best_z = z;
-          best = c;
+    if constexpr (kKeyed) {
+      // the group's winner: the largest key; positions make keys unique
+      int key = -1, win = -1;
+      float win_z = 0.0f;
+      for (int e = 0; e < n; ++e) {
+        float z;
+        if (cover_depth(&srec[e * kRec], px, py, &z)) {
+          const int k = (static_cast<int>(
+                            fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
+                        << 7) | e;
+          if (k > key) {
+            key = k;
+            win = scand[e];
+            win_z = z;
+          }
+        }
+      }
+      if (win >= 0 && win_z > best_z) {
+        best_z = win_z;
+        best = win;
+      }
+    } else {
+      for (int e = 0; e < n; ++e) {
+        float z;
+        if (cover_depth(&srec[e * kRec], px, py, &z)) {
+          const int c = scand[e];
+          if (z > best_z || (z == best_z && best >= 0 && c < best)) {
+            best_z = z;
+            best = c;
+          }
         }
       }
     }
@@ -175,93 +201,25 @@ raster_tiles_kernel(const float* __restrict__ rec,
                        tri_out, bary_out, attr_out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-raster_vis_kernel(const float* __restrict__ rec,
-                  const int* __restrict__ tile_start,
-                  const int* __restrict__ entry_cand, int width, int height,
-                  int ntx, float* __restrict__ depth_out,
-                  int* __restrict__ tri_out, float* __restrict__ bary_out) {
-  __shared__ float srec[kGroup * kRec];
-  __shared__ int scand[kGroup];
-
-  const int tile = blockIdx.x;
-  const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
-  const int y = (tile / ntx) * kTile + threadIdx.x / kTile;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
-
-  float best_z = 0.0f;
-  int best = -1;
-  for (int base = start; base < end; base += kGroup) {
-    const int n = min(kGroup, end - base);
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * kRec; i += kThreads) {
-      const int e = i / kRec;
-      srec[i] = rec[static_cast<size_t>(entry_cand[base + e]) * kRec +
-                    (i - e * kRec)];
-    }
-    if (threadIdx.x < n) scand[threadIdx.x] = entry_cand[base + threadIdx.x];
-    __syncthreads();
-    // the group's winner: the largest key; positions make keys unique
-    int key = -1, win = -1;
-    float win_z = 0.0f;
-    for (int e = 0; e < n; ++e) {
-      float z;
-      if (cover_depth(&srec[e * kRec], px, py, &z)) {
-        const int k = (static_cast<int>(
-                          fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
-                      << 7) | e;
-        if (k > key) {
-          key = k;
-          win = scand[e];
-          win_z = z;
-        }
-      }
-    }
-    if (win >= 0 && win_z > best_z) {
-      best_z = win_z;
-      best = win;
-    }
-  }
-  if (x >= width || y >= height) return;
-  write_winner<false>(rec, nullptr, best, best_z, px, py,
-                      static_cast<size_t>(y) * width + x, depth_out,
-                      tri_out, bary_out, nullptr);
-}
-
 }  // namespace
 
-// attr_table and attrs null: vis-only
+// attr_table and attrs null: vis-only; keyed (vis-only): K1v
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
-                              int width, int height, int ntx, void* depth,
-                              void* tri, void* bary, void* attrs,
-                              void* stream) {
+                              int keyed, int width, int height, int ntx,
+                              void* depth, void* tri, void* bary,
+                              void* attrs, void* stream) {
+  if (keyed && attr_table) return static_cast<int>(cudaErrorInvalidValue);
   const int nty = (height + kTile - 1) / kTile;
-  auto kernel = attr_table ? raster_tiles_kernel<true>
-                           : raster_tiles_kernel<false>;
+  auto kernel = keyed        ? raster_tiles_kernel<false, true>
+                : attr_table ? raster_tiles_kernel<true, false>
+                             : raster_tiles_kernel<false, false>;
   kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
       static_cast<const float*>(attr_table), width, height, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(bary), static_cast<float*>(attrs));
-  HR_RETURN_LAUNCH_STATUS();
-}
-
-HR_EXPORT int hr_raster_vis(const void* rec, const void* tile_start,
-                            const void* entry_cand, int width, int height,
-                            int ntx, void* depth, void* tri, void* bary,
-                            void* stream) {
-  const int nty = (height + kTile - 1) / kTile;
-  raster_vis_kernel<<<ntx * nty, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rec), static_cast<const int*>(tile_start),
-      static_cast<const int*>(entry_cand), width, height, ntx,
-      static_cast<float*>(depth), static_cast<int*>(tri),
-      static_cast<float*>(bary));
   HR_RETURN_LAUNCH_STATUS();
 }
 

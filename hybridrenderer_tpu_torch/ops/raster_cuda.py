@@ -12,10 +12,11 @@
    VisibilityBuffer and, unless it runs vis-only, the (H, W, 40)
    interpolated attribute image. CUDA tensors run kernel K1
    (csrc/raster.cu); CPU tensors run ``raster_tiles_plain``, the same
-   arithmetic in PyTorch.
-4. ``raster_vis`` is the vis-only resolve of the reference's eval modes
-   v2 / v3, kernel K1v: the winner rule differs from K1's only between
-   candidates within 2^-17 of reversed-Z (csrc/raster.cu says how).
+   arithmetic in PyTorch. With ``keyed`` it runs vis-only with the
+   winner rule of the reference's eval modes v2 / v3: kernel K1v (K1's
+   keyed mode), plain version ``raster_vis_plain``. That rule differs
+   from K1's only between candidates within 2^-17 of reversed-Z
+   (csrc/raster.cu says how).
 
 The arithmetic is the reference's jnp resolve (ops/raster.py
 rasterize), whose goldens the port is held to; csrc/raster.cu says why.
@@ -39,7 +40,11 @@ KERNEL_VIS = native.KERNELS["raster_vis"]
 
 def pack_candidates(tris):
     """ClippedTriangles → (records (T2, 24), bbox (T2, 4), valid (T2,)).
-    Candidates with no area are not valid."""
+    Candidates with no area are not valid. Triangle ids ride the float
+    record, exact below 2^24; ``tris`` holds two slots per triangle."""
+    if tris.tri_id.shape[0] // 2 >= 1 << 24:
+        raise ValueError("pack_candidates: triangle ids must stay below "
+                         "2^24 (they ride the float record)")
     p0, p1, p2 = tris.sxy[:, 0], tris.sxy[:, 1], tris.sxy[:, 2]
     a0, b0, g0 = edge_coeffs(p1, p2)
     a1, b1, g1 = edge_coeffs(p2, p0)
@@ -96,74 +101,53 @@ def _tiles(width, height):
     return -(-width // TILE), -(-height // TILE)
 
 
-def _check_bins(rec, tile_start, entry_cand, width, height):
-    dev = rec.device
-    ntx, nty = _tiles(width, height)
-    native.check(rec, "rec", torch.float32, (None, REC), dev)
-    native.check(tile_start, "tile_start", torch.int32,
-                 (ntx * nty + 1,), dev)
-    native.check(entry_cand, "entry_cand", torch.int32, (None,), dev)
-
-
-def _vis_planes(width, height, dev):
-    return (torch.empty((height, width), dtype=torch.float32, device=dev),
-            torch.empty((height, width), dtype=torch.int32, device=dev),
-            torch.empty((height, width, 2), dtype=torch.float32, device=dev))
-
-
-def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height):
+def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
+                 keyed=False):
     """Resolve every pixel → (VisibilityBuffer, attrs (H, W, 40)), or
     (VisibilityBuffer, None) vis-only when ``attr_table`` is None.
+    ``keyed`` (vis-only) takes the v2 / v3 winner rule.
 
     CUDA tensors launch kernel K1, which replaces the TPU kernel
-    raster_pallas._raster_kernel_t; CPU tensors take the plain version.
-    On the card the kernel's candidate loop runs from shared memory and
-    is bound by its ~20 FLOP per candidate per pixel; see csrc/raster.cu.
+    raster_pallas._raster_kernel_t, or with ``keyed`` kernel K1v, which
+    replaces raster_pallas._raster_kernel (eval modes v2 / v3); CPU
+    tensors take the plain versions. On the card the kernel's candidate
+    loop runs from shared memory and is bound by its ~20 FLOP per
+    candidate per pixel; see csrc/raster.cu.
     """
+    if keyed and attr_table is not None:
+        raise ValueError("raster_tiles: the keyed mode is vis-only")
     if rec.device.type == "cpu":
+        if keyed:
+            return raster_vis_plain(rec, tile_start, entry_cand, width,
+                                    height), None
         return raster_tiles_plain(rec, tile_start, entry_cand, attr_table,
                                   width, height)
     if rec.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {rec.device}")
     dev = rec.device
-    _check_bins(rec, tile_start, entry_cand, width, height)
+    ntx, nty = _tiles(width, height)
+    native.check(rec, "rec", torch.float32, (None, REC), dev)
+    native.check(tile_start, "tile_start", torch.int32, (ntx * nty + 1,),
+                 dev)
+    native.check(entry_cand, "entry_cand", torch.int32, (None,), dev)
     attrs = None
     if attr_table is not None:
         native.check(attr_table, "attr_table", torch.float32,
                      (None, ATTR_ROW), dev)
         attrs = torch.empty((height, width, ATTR_OUT), dtype=torch.float32,
                             device=dev)
-    depth, tri, bary = _vis_planes(width, height, dev)
-    KERNEL.launch("hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
-                  native.ptr(entry_cand),
-                  None if attrs is None else native.ptr(attr_table), width,
-                  height, _tiles(width, height)[0], native.ptr(depth),
-                  native.ptr(tri), native.ptr(bary),
-                  None if attrs is None else native.ptr(attrs))
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tri = torch.empty((height, width), dtype=torch.int32, device=dev)
+    bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
+    (KERNEL_VIS if keyed else KERNEL).launch(
+        "hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
+        native.ptr(entry_cand),
+        None if attrs is None else native.ptr(attr_table), int(keyed),
+        width, height, ntx, native.ptr(depth), native.ptr(tri),
+        native.ptr(bary), None if attrs is None else native.ptr(attrs))
     vis = VisibilityBuffer(tri_id=tri, bary1=bary[..., 0], bary2=bary[..., 1],
                            depth=depth)
     return vis, attrs
-
-
-def raster_vis(rec, tile_start, entry_cand, width, height):
-    """Vis-only resolve with the v2 / v3 winner rule → VisibilityBuffer.
-
-    CUDA tensors launch kernel K1v, which replaces the TPU kernel
-    raster_pallas._raster_kernel (eval modes v2 / v3, vis-only); CPU
-    tensors take the plain version. Bound on the card like K1's
-    candidate loop; see csrc/raster.cu."""
-    if rec.device.type == "cpu":
-        return raster_vis_plain(rec, tile_start, entry_cand, width, height)
-    if rec.device.type != "cuda":
-        raise ValueError(f"raster_vis: unsupported device {rec.device}")
-    _check_bins(rec, tile_start, entry_cand, width, height)
-    depth, tri, bary = _vis_planes(width, height, rec.device)
-    KERNEL_VIS.launch("hr_raster_vis", native.ptr(rec),
-                      native.ptr(tile_start), native.ptr(entry_cand), width,
-                      height, _tiles(width, height)[0], native.ptr(depth),
-                      native.ptr(tri), native.ptr(bary))
-    return VisibilityBuffer(tri_id=tri, bary1=bary[..., 0],
-                            bary2=bary[..., 1], depth=depth)
 
 
 def _edges(r, px, py):
@@ -339,8 +323,8 @@ def rasterize_binned(tris, width, height, attr_table, vis_eval=None):
     ``vis_eval`` is "v2" or "v3", else through K1."""
     rec, bbox, valid = pack_candidates(tris)
     tile_start, entry_cand = bin_candidates(bbox, valid, width, height)
-    if attr_table is None and vis_eval in ("v2", "v3"):
-        return raster_vis(rec, tile_start, entry_cand, width, height), None
-    return raster_tiles(rec, tile_start, entry_cand,
-                        None if attr_table is None
-                        else attr_table.contiguous(), width, height)
+    if attr_table is not None:
+        attr_table = attr_table.contiguous()
+    return raster_tiles(rec, tile_start, entry_cand, attr_table, width,
+                        height, keyed=attr_table is None
+                        and vis_eval in ("v2", "v3"))

@@ -74,7 +74,8 @@ def test_vis_only_raster_kernels_match_plain(dev):
     before = native.KERNELS["raster_vis"].launches
     pairs = [(raster_cuda.raster_tiles(rec, ts, ec, None, W, H)[0],
               raster_cuda.raster_tiles_plain(rec, ts, ec, None, W, H)[0]),
-             (raster_cuda.raster_vis(rec, ts, ec, W, H),
+             (raster_cuda.raster_tiles(rec, ts, ec, None, W, H,
+                                       keyed=True)[0],
               raster_cuda.raster_vis_plain(rec, ts, ec, W, H))]
     assert native.KERNELS["raster_vis"].launches == before + 1
     for vk, vp_ in pairs:

@@ -1,7 +1,9 @@
 """Port vs reference: the ray-traced path (DepthPrepass → RaytracePass →
 TAAPass → PostProcessPass), its raster kernels K1 (vis-only) and K1v
-(raster_eval "v2" / "v3"), and the runtime entry points that reach it
-(switch_path, apply_settings, render_burst, benchmark).
+(raster_eval "v2" / "v3"), the runtime entry points that reach it
+(switch_path, apply_settings, render_burst, benchmark), the triangle-id
+limit of the raster records, and the two demo passes no path runs
+(RTAOPass, RayQueryPass).
 
 K1v's and K1's plain versions are held to the reference's Pallas raster
 in interpret mode (eval modes v2 / v3 and v1), the path to the jitted
@@ -18,6 +20,7 @@ from hybridrenderer_tpu.core.camera import OrbitCamera as RefCamera
 from hybridrenderer_tpu.core.config import RenderSettings as RefSettings
 from hybridrenderer_tpu.core.types import RenderFlags as RefFlags
 from hybridrenderer_tpu.core.types import RenderPathType as RefPath
+from hybridrenderer_tpu.graph import rt_passes as ref_rt_passes
 from hybridrenderer_tpu.ops import raster as ref_raster
 from hybridrenderer_tpu.ops import raster_pallas
 from hybridrenderer_tpu.runtime.renderer import Renderer as RefRenderer
@@ -25,13 +28,17 @@ from hybridrenderer_tpu.scene import scene as ref_scenes
 from hybridrenderer_tpu_torch.core.camera import OrbitCamera
 from hybridrenderer_tpu_torch.core.config import RenderSettings
 from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu_torch.graph.params import RS
+from hybridrenderer_tpu_torch.graph import rt_passes
+from hybridrenderer_tpu_torch.graph.params import RS, FrameParams
+from hybridrenderer_tpu_torch.graph.passes import FrameContext
 from hybridrenderer_tpu_torch.ops import raster, raster_cuda, trace
+from hybridrenderer_tpu_torch.ops.gbuffer import GBuffer
 from hybridrenderer_tpu_torch.runtime.output import read_png, to_u8
 from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene import scene as port_scenes
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
+from .test_demo_passes import _setup as demo_setup
 from .test_torch_raster import _port_cam
 from .test_torch_slice import CUBE_CAM, _edge_tri_ids
 from .torch_parity import clear_reference_knobs, flatten, off_edge_errors
@@ -166,8 +173,8 @@ def test_vis_raster_matches_pallas_eval_modes(stress_bins, mode):
     bins, (rec, ts, ec, W, H), clipped = stress_bins
     ref = raster_pallas.raster_tiles(bins, W, H, interpret=True,
                                      eval_mode=mode)
-    vis = raster_cuda.raster_tiles(rec, ts, ec, None, W, H)[0] \
-        if mode == "v1" else raster_cuda.raster_vis(rec, ts, ec, W, H)
+    vis, _ = raster_cuda.raster_tiles(rec, ts, ec, None, W, H,
+                                      keyed=mode != "v1")
     tri, ref_tri = vis.tri_id.numpy(), np.asarray(ref.tri_id)
     depth, ref_depth = vis.depth.numpy(), np.asarray(ref.depth)
     assert (ref_tri >= 0).mean() > 0.1
@@ -186,7 +193,7 @@ def test_k1v_differs_from_k1_only_on_near_ties(stress_bins):
     depths are within 2^-17 (reading: 11 of 8,192 pixels)."""
     _, (rec, ts, ec, W, H), _ = stress_bins
     k1, _ = raster_cuda.raster_tiles(rec, ts, ec, None, W, H)
-    k1v = raster_cuda.raster_vis(rec, ts, ec, W, H)
+    k1v, _ = raster_cuda.raster_tiles(rec, ts, ec, None, W, H, keyed=True)
     mis = k1.tri_id != k1v.tri_id
     assert 0 < int(mis.sum()) < 0.005 * mis.numel()
     assert ((k1.depth - k1v.depth).abs()[mis] <= 2.0 ** -17).all()
@@ -195,11 +202,22 @@ def test_k1v_differs_from_k1_only_on_near_ties(stress_bins):
         torch.testing.assert_close(a[~mis], b[~mis], rtol=0, atol=0)
 
 
-def _counting(monkeypatch, module, name, calls):
+def test_keyed_raster_is_vis_only(stress_bins):
+    """K1v's winner rule has no attribute stage: asking for one raises."""
+    _, (rec, ts, ec, W, H), _ = stress_bins
+    with pytest.raises(ValueError, match="vis-only"):
+        raster_cuda.raster_tiles(rec, ts, ec, torch.zeros((1, 72)), W, H,
+                                 keyed=True)
+
+
+def _counting(monkeypatch, module, name, calls, label=None):
+    """Record ``name`` in ``calls`` at each call of module.name, or
+    ``label`` at each call that passes a true ``keyed``."""
     fn = getattr(module, name)
 
     def counted(*a, **kw):
-        calls.append(name)
+        if label is None or kw.get("keyed"):
+            calls.append(label or name)
         return fn(*a, **kw)
 
     monkeypatch.setattr(module, name, counted)
@@ -240,7 +258,7 @@ def test_runtime_entry_points(monkeypatch):
                                rtol=0, atol=0)
 
     calls = []
-    _counting(monkeypatch, raster_cuda, "raster_vis", calls)
+    _counting(monkeypatch, raster_cuda, "raster_tiles", calls, "raster_vis")
     _counting(monkeypatch, trace, "intersect_packet", calls)
     tracer = r.tracer
     for kw in (dict(raster_eval="v3"), dict(raster_eval="v4"),
@@ -263,3 +281,55 @@ def test_runtime_entry_points(monkeypatch):
         r.apply_settings(trace_backend="wide")
     stats = r.benchmark(cams[1], frames=2, warmup=1)
     assert stats["fps"] > 0 and stats["ms_per_frame"] > 0
+
+
+def test_triangle_ids_past_float_precision_raise():
+    """Triangle ids ride the float32 raster record, exact below 2^24:
+    pack_candidates refuses 2^24 triangles (two slots each) before it
+    reads anything, for K1 with or without attributes and K1v alike."""
+    def tris(n):
+        ids = torch.zeros(1, dtype=torch.int32).expand(2 * n)
+        return raster.ClippedTriangles(sxy=None, z=None, inv_w=None,
+                                       bary=None, tri_id=ids, valid=None)
+
+    with pytest.raises(ValueError, match="2\\^24"):
+        raster_cuda.pack_candidates(tris(1 << 24))
+    with pytest.raises(TypeError):   # below the limit it reads sxy
+        raster_cuda.pack_candidates(tris((1 << 24) - 1))
+
+
+@pytest.fixture(scope="module")
+def demo_inputs():
+    """The reference's 48x48 cube G-buffer and frame context
+    (tests/test_demo_passes.py), and the port's over the same G-buffer
+    with its own tracer."""
+    gb, ref_ctx, settings = demo_setup()
+    data = scene_from_numpy(flatten(ref_ctx.scene), "cpu")
+    port_gb = GBuffer(**{k: torch.from_numpy(np.array(v))
+                         for k, v in flatten(gb).items()})
+    ctx = FrameContext(scene=data, cam=_port_cam(ref_ctx.cam),
+                       params=FrameParams.create(data, frame_index=1),
+                       settings=settings, state=None, history_valid=False,
+                       shadow_query=trace.SceneTracer.build(data).shadow_query)
+    return ({"_GBuffer": gb}, ref_ctx), ({"_GBuffer": port_gb}, ctx), settings
+
+
+@pytest.mark.parametrize("name", ["rtao", "rayquery"])
+def test_demo_pass_matches_reference(demo_inputs, name):
+    """RTAOPass and RayQueryPass against the reference's: AO visibility
+    on every pixel (reading: 0 of 2,304 differ); RayQuery's colour to
+    1e-5 (reading: 8.9e-8), its shadow rays along the dFdx / dFdy face
+    normal included (the cube has no sky texture: flat ambient)."""
+    ref_inputs, port_inputs, settings = demo_inputs
+    ref_fn = getattr(ref_rt_passes, f"make_{name}_pass")(settings)[0]
+    fn, reads, writes, _ = getattr(rt_passes, f"make_{name}_pass")(settings)
+    (key,) = writes
+    want = np.asarray(ref_fn(*ref_inputs)[key])
+    got = fn(*port_inputs)[key].numpy()
+    assert reads == ("_GBuffer",) and got.shape == want.shape
+    if name == "rtao":
+        assert 0.0 < (want[..., 0] < 0.5).mean() < 1.0
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert want.max() > 0.05
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
