@@ -29,7 +29,16 @@ non-zero without printing a result):
       flags): depth prepass (K1 vis-only), primary rays (K2c) with their
       sun occlusion (K2), TAA (K5);
    e. the ray-traced path with raster_eval="v2" and
-      trace_backend="pallas": K1v, the packet traversal K2b, K5.
+      trace_backend="pallas": K1v, the packet traversal K2b, K5;
+   f. the dynamic scene (bench.py's dynamic rung): the headline frame
+      with entity 0 turned by rot_y(0.05 k) before frame k through
+      DynamicScene.set_entity_transform and commit() (transform update +
+      refit, timed apart from the frame), on a fresh scene each run:
+      with the default traversal (K2 over the refit binary tree), with
+      trace_backend="pallas-wide" and wide_kernel="compressed" (K2w over
+      the refit 8-wide tree) and with wide_kernel="mimt" (K2m);
+   g. the ray-traced path (d) with wide_kernel "compressed" and "mimt":
+      K2w / K2m in both modes (primary rays and their sun occlusion).
    variance_blur is checked in phase 3 but launched by no path: its
    output feeds nothing (ops/svgf.py).
 
@@ -269,7 +278,7 @@ def check_trace(dev):
     active = [int(a.sum()) for *_, a in batches]
     return dict(err=max(mismatch), ms=cuda_time(kern, 20),
                 plain_ms=cuda_time(plain, 1),
-                bound=trace_bound(tracer.packed, batches, tks, visits),
+                bound=trace_bound(_tree(tracer.packed), batches, tks, visits),
                 shape=f"2 queries (shadow tmax 10000, AO tmax 10) of {R} rays "
                       f"of one {W}x{H} headline frame, {active} active, "
                       f"{data.num_triangles} triangles, tree depth {depth}, "
@@ -277,18 +286,23 @@ def check_trace(dev):
                 tol="visibility mismatch <= 1e-3 of rays per query")
 
 
-def trace_bound(packed, batches, outs, visits):
-    """The tree read once; every ray's active flag read and its outputs
-    written once, an active ray's origin, direction and tmax read once
-    (an inactive ray needs nothing else); ~30 FLOP per child-box slab
-    test (two per internal node visited) and ~40 per triangle test, over
-    the nodes these rays visit (counted by the plain version)."""
-    data = nbytes(packed.nodes, packed.node_tri, packed.tri_verts)
+def trace_bound(tree, batches, outs, visits):
+    """The tree's tensors ``tree`` read once; every ray's active flag
+    read and its outputs written once, an active ray's origin, direction
+    and tmax read once (an inactive ray needs nothing else); ~30 FLOP
+    per child-box slab test (two per internal node visited) and ~40 per
+    triangle test, over the binary-tree nodes these rays visit (counted
+    by K2's or K2c's plain version)."""
+    data = nbytes(*tree)
     for (o, d, tmax, active), out in zip(batches, outs):
         per_active = (o[0], d[0], tmax[:1])
         data += nbytes(active, *(out if isinstance(out, tuple) else (out,)))
         data += int(active.sum()) * nbytes(*per_active)
     return bound(data, 60.0 * visits["internal"] + 40.0 * visits["leaf"])
+
+
+def _tree(packed):
+    return packed.nodes, packed.node_tri, packed.tri_verts
 
 
 def check_trace_closest(dev):
@@ -351,7 +365,7 @@ def check_trace_closest(dev):
     active = [int(a.sum()) for *_, a in batches]
     return dict(err=max(errs), ms=cuda_time(kern, 10),
                 plain_ms=cuda_time(plain, 1),
-                bound=trace_bound(tracer.packed, batches, ks, visits),
+                bound=trace_bound(_tree(tracer.packed), batches, ks, visits),
                 shape=f"2 queries (reflection, GI; tmax 1e6) of "
                       f"{batches[0][0].shape[0]} rays of one {W}x{H} "
                       f"full-graph frame, {active} active, hit "
@@ -518,7 +532,7 @@ def check_trace_packet(frame):
     hit = [(p[1] >= 0)[q[4]].float().mean().item()
            for p, q in zip(ps, queries)]
     return dict(err=max(errs), ms=sum(times), plain_ms=cuda_time(plain, 1),
-                bound=trace_bound(packed, [(q[0], q[1], q[3], q[4])
+                bound=trace_bound(_tree(packed), [(q[0], q[1], q[3], q[4])
                                            for q in queries],
                                   [ks[0], ks[1][1]], visits),
                 shape=f"primary rays (closest-hit, tmax 1e6) and their sun "
@@ -535,6 +549,139 @@ def check_trace_packet(frame):
                       f"visited by packets {packet_visits} (one a step) vs "
                       f"by rays {visits}; ms for both",
                 tol="exact (tri, t, u, v)")
+
+
+def wide_queries(dev):
+    """What SceneTracer hands the wide kernels on the 1080p paths, with
+    trace_backend "pallas-wide" and wide_kernel "compressed": the
+    headline frame's shadow and AO queries (any-hit, 32x32 tile-major
+    rays) and the ray-traced frame's primary rays (closest-hit) and
+    their sun occlusion rays (any-hit); → (queries (name, o, d, tmin,
+    tmax, active, any_hit), the wide records, the scene)."""
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import trace
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    calls, real = [], trace.intersect_wide
+
+    def recording(wide, *args):
+        calls.append(args)
+        return real(wide, *args)
+
+    kw = dict(trace_backend="pallas-wide", wide_kernel="compressed")
+    trace.intersect_wide = recording
+    try:
+        tracers = []
+        for settings in (_hybrid_settings(W, H, **kw),
+                         _raytraced_settings(W, H, **kw)):
+            r = Renderer.for_scene(settings, data)
+            r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
+                taa_enabled=True))
+            tracers.append(r.tracer)
+    finally:
+        trace.intersect_wide = real
+    names = ["shadow", "AO", "primary", "occlusion"]
+    if [c[-1] for c in calls] != [True, True, False, True]:
+        raise AssertionError(f"expected the {names} queries, got modes "
+                             f"{[c[-1] for c in calls]}")
+    return ([(n, *c) for n, c in zip(names, calls)], tracers[0].wide,
+            data)
+
+
+def torch_equal_nan(a, b):
+    """Whether two result tensors are equal, NaN where NaN."""
+    import torch
+
+    return torch.equal(a, b) or bool(((a == b) | (torch.isnan(a)
+                                                 & torch.isnan(b))).all())
+
+
+def check_wide(dev):
+    """K2w and K2m on the four wide queries of the 1080p paths (all rays),
+    each exact against its plain version (t, tri, u, v apart), then
+    against the per-ray K2 (any-hit) and K2c (closest-hit) over the
+    binary tree on the same rays: no visibility flip, closest t equal."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda as tc
+    from hybridrenderer_tpu_torch.ops.trace import SceneTracer
+
+    queries, wide, data = wide_queries(dev)
+    packed = SceneTracer.build(data).packed
+    rays = [q[1:6] for q in queries]        # o, d, tmin, tmax, active
+    modes = [q[6] for q in queries]
+    # the per-ray kernels and their visits on the same rays (the bound)
+    per_ray = [(lambda r=r, m=m: tc.intersect_any(packed, *r) if m
+                else tc.intersect_closest(packed, *r))
+               for r, m in zip(rays, modes)]
+    ref = [f() for f in per_ray]
+    visits = {}
+    for r, m in zip(rays, modes):
+        (tc.intersect_any_plain if m else tc.intersect_closest_plain)(
+            packed, *r, visits=visits)
+    per_ray_ms = [cuda_time(f, 5) for f in per_ray]
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    out = {}
+    for name, kern, plain in (
+            ("trace_wide", tc.intersect_wide, tc.intersect_wide_plain),
+            ("trace_mimt", tc.intersect_mimt, tc.intersect_mimt_plain)):
+        deep0 = int(wide.deep_pushes.item())
+        ks = [kern(wide, *r, m) for r, m in zip(rays, modes)]
+        deep = int(wide.deep_pushes.item()) - deep0
+        steps = {}
+        ps = [plain(wide, *r, m, visits=steps) for r, m in zip(rays, modes)]
+        for (qn, *_), k, p in zip(queries, ks, ps):
+            bad = [f for f, a, b in zip("t tri u v".split(), k, p)
+                   if not torch_equal_nan(a, b)]
+            if bad:
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version on the {qn} rays in {bad}")
+        flips, t_diff, ties = 0, 0.0, 0
+        for r, m, k, ref_out in zip(rays, modes, ks, ref):
+            act = r[4]
+            tri = k[1].clone()
+            tri[tri == tc.INACTIVE_TRI] = -1
+            ref_tri = ref_out if m else ref_out[1]
+            flips += int(((tri >= 0) != (ref_tri >= 0))[act].sum())
+            if not m:
+                hit = (ref_tri >= 0) & act
+                t_diff = max(t_diff, (k[0] - ref_out[0]).abs()[hit].max()
+                             .item())
+                ties += int(((tri != ref_tri) & hit).sum())
+        total = sum(int(r[4].sum()) for r in rays)
+        if flips > 1e-3 * total or t_diff > 1e-4:
+            raise AssertionError(f"{name} against K2 / K2c: {flips} "
+                                 f"visibility flips of {total} active rays, "
+                                 f"closest t differs by {t_diff}")
+        times = [cuda_time(lambda r=r, m=m: kern(wide, *r, m), 5)
+                 for r, m in zip(rays, modes)]
+        plain_ms = cuda_time(lambda: [plain(wide, *r, m)
+                                      for r, m in zip(rays, modes)], 1)
+        b = trace_bound((wide.nodes_flat, wide.leaves_flat, wide.meta),
+                        [(r[0], r[1], r[3], r[4]) for r in rays],
+                        [k if not m else k[1] for k, m in zip(ks, modes)],
+                        visits)
+        active = [int(r[4].sum()) for r in rays]
+        unit = "row" if name == "trace_mimt" else "packet"
+        out[name] = dict(
+            err=0.0, ms=sum(times), plain_ms=plain_ms, bound=b,
+            shape=f"the shadow, AO (any-hit) and primary (closest-hit) rays "
+                  f"of one {W}x{H} headline / ray-traced frame in 32x32 "
+                  f"tile order and the primary hits' sun occlusion rays "
+                  f"(any-hit), {[r[0].shape[0] for r in rays]} rays, "
+                  f"{active} active, {data.num_triangles} triangles, wide "
+                  f"tree of {wide.num_wide} nodes, {wide.num_clusters} "
+                  f"clusters, depth {wide.depth}; "
+                  + " + ".join(f"{t:.4f}" for t in times)
+                  + f" ms vs per-ray K2 / K2c "
+                  + " + ".join(f"{t:.4f}" for t in per_ray_ms)
+                  + f" ms on the same rays ({flips} visibility flips, "
+                  f"closest t within {t_diff:.3g}, {ties} equal-t triangle "
+                  f"ties); {unit} steps {steps} vs per-ray node visits "
+                  f"{visits}; {deep} leaf pushes past the reference's 128 "
+                  f"entries; ms for all four",
+            tol="exact (t, tri, u, v)")
+    return out
 
 
 def _frame_planes(dev, H, W, seed):
@@ -805,10 +952,12 @@ def phase_golden(dev):
         raise AssertionError(f"golden gate failed: {ok}")
 
 
-def frame_breakdown(name, r, cam):
+def frame_breakdown(name, r, cam, update=None):
     """Two more frames: one with a sync around each pass (per-pass ms on
     the host clock), one under torch.profiler (device time by kernel,
-    device operations, busy share of the profiled frame's wall time)."""
+    device operations, busy share of the profiled frame's wall time).
+    ``update``, a dynamic path's commit, runs before each frame, timed
+    as its own pass and profiled with the frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -829,6 +978,12 @@ def frame_breakdown(name, r, cam):
     for p in passes:
         p.fn = timed(p, p.fn)
     try:
+        if update is not None:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            update()
+            torch.cuda.synchronize()
+            spent["commit"] = 1e3 * (time.perf_counter() - t)
         r.render(cam.step(taa_enabled=True))
     finally:
         for p, fn in zip(passes, fns):
@@ -840,6 +995,8 @@ def frame_breakdown(name, r, cam):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
+        if update is not None:
+            update()
         r.render(cam.step(taa_enabled=True))
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
@@ -860,9 +1017,22 @@ def frame_breakdown(name, r, cam):
             f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
 
 
-def phase_render(dev, out_dir, name, settings, kernels, absent=()):
+def rot_y(a):
+    """bench.py's dynamic rung's entity rotation."""
+    c, s = float(np.cos(a)), float(np.sin(a))
+    return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0],
+                     [0, 0, 0, 1]], np.float32)
+
+
+def phase_render(dev, out_dir, name, settings, kernels, absent=(),
+                 dynamic=False):
     """8 frames at 1920x1080 with the counts set to 0 just before and read
-    just after; ``kernels`` must each have launched, ``absent`` none."""
+    just after; ``kernels`` must each have launched, ``absent`` none.
+    ``dynamic``: bench.py's dynamic rung on a fresh scene: before frame
+    k, entity 0 turns to rot_y(0.05 k) and DynamicScene.commit() updates
+    the transforms and refits the tracer (timed apart, with a sync); the
+    camera stays (its TAA jitter steps), as in the rung. Returns the
+    launch counts."""
     import torch
 
     from hybridrenderer_tpu_torch import native
@@ -870,25 +1040,41 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=()):
     from hybridrenderer_tpu_torch.core.types import RenderPathType
     from hybridrenderer_tpu_torch.runtime.output import write_png
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+    from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
 
     W, H, F = settings.width, settings.height, HEADLINE["frames"]
-    data = _headline_scene(dev, HEADLINE["objects"])
+    host = scenes.stress_scene(num_objects=HEADLINE["objects"])
+    data = host.build(dev)
     t0 = time.perf_counter()
     r = Renderer.for_scene(settings, data)
+    dyn = DynamicScene(host, r) if dynamic else None
     log(f"[{name}] {data.num_triangles} triangles; BVH build + renderer "
         f"{time.perf_counter() - t0:.2f} s")
     cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    turn = [0]
+
+    def update():
+        turn[0] += 1
+        dyn.set_entity_transform(0, rot_y(0.05 * turn[0]))
+        dyn.commit()
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     native.reset_counts()
-    times = []
+    times, commits = [], []
     for _ in range(F):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        if dyn is not None:
+            update()
+            torch.cuda.synchronize()
+            commits.append(1e3 * (time.perf_counter() - t))
         out = r.render(cam.step(taa_enabled=True))
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
-        cam.orbit(0.01, 0.0)
+        if dyn is None:
+            cam.orbit(0.01, 0.0)
     launches = {k.name: k.launches for k in native.KERNELS.values()
                 if k.launches}
     plain = {k.name: k.plain_cuda_calls for k in native.KERNELS.values()}
@@ -914,12 +1100,20 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=()):
     write_png(png, np.clip(img, 0.0, 1.0))
     med = float(np.median(times[2:]))
     log(f"[{name}] ms/frame per frame: {[round(t, 2) for t in times]}")
+    if dyn is not None:
+        log(f"[{name}] commit() ms (transform update + refit, in the frame "
+            f"times above) per frame: {[round(t, 2) for t in commits]}; "
+            f"median (frames 3-{F}) {float(np.median(commits[2:])):.2f}")
+    wide = getattr(r.tracer, "wide", None)
+    if wide is not None:
+        log(f"[{name}] leaf pushes past the reference's 128 entries: "
+            f"{int(wide.deep_pushes.item())}")
     log(f"[{name}] median ms/frame (frames 3-{F}) {med:.2f} on "
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
         f"launches {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image {png}")
-    frame_breakdown(name, r, cam)
-    return launches
+    frame_breakdown(name, r, cam, update if dyn is not None else None)
+    return launches, img
 
 
 def main(argv=None):
@@ -951,6 +1145,7 @@ def main(argv=None):
                         ("trace_any", check_trace),
                         ("trace_closest", check_trace_closest),
                         ("packet_path", check_packet_path),
+                        ("wide", check_wide),
                         ("temporal_fetch", check_temporal),
                         ("window_sample", check_window_sample),
                         ("stencils", check_stencils)):
@@ -960,7 +1155,7 @@ def main(argv=None):
             log(f"[kernel] {name} FAILED: {e}")
             failures.append(name)
             continue
-        results.update(res if name in ("packet_path", "stencils")
+        results.update(res if name in ("packet_path", "wide", "stencils")
                        else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
@@ -977,7 +1172,9 @@ def main(argv=None):
     W, H = HEADLINE["width"], HEADLINE["height"]
     hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
               "filter_moments", "atrous"]
-    paths = {
+    wide = dict(trace_backend="pallas-wide")
+    direct = ["trace_any", "trace_closest", "trace_packet"]
+    runs = {
         "headline": phase_render(dev, args.out, "headline",
                                  _hybrid_settings(W, H), hybrid),
         "full_graph": phase_render(
@@ -996,9 +1193,36 @@ def main(argv=None):
                 W, H, raster_eval="v2", trace_backend="pallas"),
             ["raster_vis", "trace_packet", "window_sample"],
             absent=["raster_tiles", "trace_closest", "trace_any"]),
+        "dynamic": phase_render(
+            dev, args.out, "dynamic", _hybrid_settings(W, H), hybrid,
+            absent=["trace_wide", "trace_mimt"], dynamic=True),
     }
+    for kernel, k in (("trace_wide", "compressed"), ("trace_mimt", "mimt")):
+        other = {"trace_wide": "trace_mimt", "trace_mimt": "trace_wide"}
+        tag = {"trace_wide": "wide", "trace_mimt": "mimt"}[kernel]
+        runs["dynamic_" + tag] = phase_render(
+            dev, args.out, "dynamic_" + tag,
+            _hybrid_settings(W, H, wide_kernel=k, **wide),
+            [kernel if x == "trace_any" else x for x in hybrid],
+            absent=direct + [other[kernel]], dynamic=True)
+        runs["raytraced_" + tag] = phase_render(
+            dev, args.out, "raytraced_" + tag,
+            _raytraced_settings(W, H, wide_kernel=k, **wide),
+            ["raster_tiles", kernel, "window_sample"],
+            absent=direct + [other[kernel]])
+    paths = {name: launches for name, (launches, _) in runs.items()}
+    # the wide kernels change no visibility and no closest t: the dynamic
+    # and ray-traced frames equal the K2 / K2c paths' frames
+    for base in ("dynamic", "raytraced"):
+        for tag in ("wide", "mimt"):
+            diff = np.abs(runs[base][1] - runs[f"{base}_{tag}"][1])
+            log(f"[{base}_{tag}] last frame against {base}'s: max abs "
+                f"diff {diff.max():.3g}, {(diff > 1.0 / 255).mean():.2e} "
+                f"of pixel channels beyond 1/255")
+            if (diff > 1.0 / 255).mean() > 1e-3:
+                failures.append(f"{base}_{tag} frame")
     if failures:
-        raise AssertionError(f"kernel checks failed: {failures}")
+        raise AssertionError(f"checks failed: {failures}")
 
     kernels = []
     for name, res in results.items():

@@ -8,9 +8,12 @@ version, so they are not fields and passing one raises TypeError. So
 does passing gi_layout or ao_layout (relayouts of the TPU's ray packets
 that change no result), shade_fetch (an A/B switch of the hit-shading
 fetch) or debug_radiance_stage (a diagnostic cut of the radiance pass).
-Two kernel choices are settings, because they pick between two kernels
-of the port: ``trace_backend`` and ``raster_eval`` (below). Nothing is
-read from the environment.
+Three kernel choices are settings, because they pick between kernels
+of the port: ``trace_backend``, ``wide_kernel`` and ``raster_eval``
+(below). Nothing is read from the environment. The reference's wide-tree
+shape fields ``bvh_leaf_tris`` and ``bvh_width`` are not ported (the
+tree is 8-wide with 4-triangle leaves, their defaults): passing one
+raises TypeError.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from .types import DisplayMode, RenderFlags, RenderPathType
 
 TRACE_BACKENDS = ("auto", "pallas-wide", "jnp", "pallas")
 RASTER_EVALS = (None, "v1", "v2", "v3", "v4")
+WIDE_KERNELS = (None, "direct", "compressed", "mimt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +64,12 @@ class RenderSettings:
     # 32 rays shares a stack); "auto", "pallas-wide" and "jnp" are the
     # per-ray K2 / K2c, which compute the reference's intersect_bvh
     trace_backend: str = "auto"
+    # with trace_backend "pallas-wide", the traversal of the 8-wide BVH,
+    # the reference's environment knobs WIDE_STACK and WIDE_KERNEL read
+    # at import: None or "direct" (WIDE_STACK=auto, its direct-stack
+    # kernel) run K2 / K2c; "compressed" (WIDE_STACK=compressed) runs
+    # K2w; "mimt" (WIDE_KERNEL=mimt) runs K2m
+    wide_kernel: "str | None" = None
     # raster winner rule of the ray-traced path's depth prepass: "v2" and
     # "v3" are K1v's 17-bit integer depth keys per 128 candidates; None,
     # "v1" and "v4" are K1's exact depth. The G-buffer pass always runs
@@ -75,6 +85,14 @@ class RenderSettings:
         if self.trace_backend not in TRACE_BACKENDS:
             raise ValueError(f"trace_backend must be one of "
                              f"{TRACE_BACKENDS}, got {self.trace_backend!r}")
+        if self.wide_kernel not in WIDE_KERNELS:
+            raise ValueError(f"wide_kernel must be one of {WIDE_KERNELS}, "
+                             f"got {self.wide_kernel!r}")
+        if self.wide_kernel is not None \
+                and self.trace_backend != "pallas-wide":
+            raise ValueError(f"wide_kernel={self.wide_kernel!r} needs "
+                             f"trace_backend='pallas-wide', got "
+                             f"{self.trace_backend!r}")
         if self.raster_eval not in RASTER_EVALS:
             raise ValueError(f"raster_eval must be one of {RASTER_EVALS}, "
                              f"got {self.raster_eval!r}")

@@ -1,7 +1,8 @@
 // K2 and K2c: ray / BVH traversal, any-hit (shadow, AO and shading
 // occlusion rays) and closest-hit (reflection and GI radiance rays).
-// K2b (trace_packet, at the end of the file): the same queries as packet
-// traversal, one warp per packet of 32 rays.
+// K2b (trace_packet): the same queries as packet traversal, one warp per
+// packet of 32 rays. K2w (trace_wide) and K2m (trace_mimt), at the end of
+// the file: packet traversals of the 8-wide BVH (ops/bvh_wide.py).
 //
 // Replaces hybridrenderer_tpu/ops/trace_pallas.py _wide_direct_kernel
 // (:869) in both its modes. Same contracts:
@@ -310,6 +311,366 @@ trace_packet_kernel(const float4* __restrict__ nodes,
   v_out[i] = best_v;
 }
 
+
+// ---------------------------------------------------------------------------
+// K2w and K2m: packet traversals of the 8-wide BVH (ops/bvh_wide.py: flat
+// records of 48 floats, node rows of 8 child boxes, leaf rows of 4
+// triangles as v0, e1, e2, id; meta (ibase*256 | imask, lbase*256 |
+// lmask) per node).
+//
+// Replace hybridrenderer_tpu/ops/trace_pallas.py _wide_traverse_kernel
+// (:457, entry intersect_wide :746) and _mimt_traverse_kernel (:1518,
+// entry intersect_mimt :1757). Same contract: a packet is 1024
+// consecutive rays; a program, here one block of 1024 threads, runs two
+// packets, thread i holding ray i of each; inactive rays (and the padding
+// past R: o = 0, d = 1) carry tmax -1 and start with the sentinel id
+// INACTIVE_TRI, so they never hit and count as done for any-hit; tmax is
+// clamped to 1e6. Each step pops one internal node and one leaf cluster
+// (per packet, or per 128-ray row for K2m), runs the 4 Moller-Trumbore
+// tests of the cluster (a hit with t <= the best so far replaces it, in
+// any-hit mode too) and the 8 slab tests of the node against each ray's
+// best t (any-hit rays with a hit test against -inf), ORs the hits of the
+// packet's (row's) rays per child slot and pushes the hit children of
+// each kind, masked by the meta masks (empty slots' inverted boxes pass
+// every slab test). The block tests liveness every 16 steps and runs
+// while either packet has stack entries and, any-hit, a ray without a
+// hit: a finished packet keeps popping beside its live sibling, as the
+// reference's chunked loop does, so the kernels report the reference's
+// triangles, any-hit included.
+// * K2w: one stack per kind per packet of compressed entries
+//   (node << 8 | pending child mask); a pop takes the lowest pending
+//   slot and decodes its id with the meta popcount rule; the entry leaves
+//   the stack with its last bit. Votes: __reduce_or_sync per warp, then a
+//   shared atomicOr per packet; thread 0 writes the stacks.
+// * K2m: each row (4 warps) has its own stacks of direct ids; a row pushes
+//   its hit children at sp + popcount(hits below), id base +
+//   popcount(mask below), threads 0..7 of the row one slot each, and pops
+//   the last pushed first.
+// Stacks live in shared memory. Internal stacks hold 128 entries (the TPU
+// kernels' 128 register lanes), enough for any tree ops/trace_cuda.
+// check_wide_stacks accepts. Leaf stacks hold 512: the TPU kernels drop
+// leaf pushes past 128 and miss their triangles (a packet's leaf stack
+// reaches ~150 on the stress scene); here a packet (row) whose leaf stack
+// could overflow pops no internal node that step, only a leaf, so the
+// visiting order is the reference's wherever the reference drops nothing
+// and no push is ever dropped. Leaf pushes past 128 are counted in
+// *deep_pushes. Arithmetic in the order of the plain versions
+// (ops/trace_cuda.py); -fmad=false makes the card check exact.
+// Bound on the card: two block barriers and a vote per step for 1024
+// threads, and the step count, which is the union of the nodes the
+// packet's (row's) rays visit; records are read from L2 (5 MB for the
+// 65k-triangle scene), each once per step, broadcast to the block.
+constexpr int kWidePacket = 1024;
+constexpr int kWideChunk = 16;
+constexpr int kWideMaxSteps = 1 << 16;
+constexpr int kWideStack = 128;
+constexpr int kWideLeafStack = 512;
+constexpr int kWideRows = 8;
+constexpr int kRowRays = kWidePacket / kWideRows;
+constexpr int kInactiveTri = 1 << 29;
+
+struct WideRay {
+  V3 o, d, inv;
+  float t, u, v;
+  int tri;
+};
+
+__device__ __forceinline__ WideRay wide_ray(const float* __restrict__ o,
+                                            const float* __restrict__ d,
+                                            const float* __restrict__ tmax,
+                                            const uint8_t* __restrict__ act,
+                                            long i, int R) {
+  WideRay r;
+  float tm = -1.0f;
+  if (i < R) {
+    r.o = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
+    r.d = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
+    if (act[i]) tm = fminf(tmax[i], 1e6f);
+  } else {
+    r.o = {0.0f, 0.0f, 0.0f};
+    r.d = {1.0f, 1.0f, 1.0f};
+  }
+  r.inv = {safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z)};
+  r.t = tm;
+  r.u = 0.0f;
+  r.v = 0.0f;
+  r.tri = tm < 0.0f ? kInactiveTri : -1;
+  return r;
+}
+
+__device__ __forceinline__ void wide_store(const WideRay& r, long i, int R,
+                                           float* __restrict__ t_out,
+                                           int* __restrict__ tri_out,
+                                           float* __restrict__ u_out,
+                                           float* __restrict__ v_out) {
+  if (i >= R) return;
+  t_out[i] = r.tri < 0 ? __int_as_float(0x7f800000) : r.t;
+  tri_out[i] = r.tri;
+  u_out[i] = r.u;
+  v_out[i] = r.v;
+}
+
+// the 4 triangles of leaf record `rec`
+__device__ __forceinline__ void wide_leaf(const float* __restrict__ rec,
+                                          WideRay& r, float tmin) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float* f = rec + 12 * k;
+    const float p0x = __ldg(f + 0), p0y = __ldg(f + 1), p0z = __ldg(f + 2);
+    const float a1x = __ldg(f + 3), a1y = __ldg(f + 4), a1z = __ldg(f + 5);
+    const float a2x = __ldg(f + 6), a2y = __ldg(f + 7), a2z = __ldg(f + 8);
+    const float tid = __ldg(f + 9);
+    const float pvx = r.d.y * a2z - r.d.z * a2y;
+    const float pvy = r.d.z * a2x - r.d.x * a2z;
+    const float pvz = r.d.x * a2y - r.d.y * a2x;
+    const float det = a1x * pvx + a1y * pvy + a1z * pvz;
+    const float inv_det = 1.0f / (fabsf(det) < kTriEps ? kTriEps : det);
+    const float tvx = r.o.x - p0x;
+    const float tvy = r.o.y - p0y;
+    const float tvz = r.o.z - p0z;
+    const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    const float qvx = tvy * a1z - tvz * a1y;
+    const float qvy = tvz * a1x - tvx * a1z;
+    const float qvz = tvx * a1y - tvy * a1x;
+    const float vv = (r.d.x * qvx + r.d.y * qvy + r.d.z * qvz) * inv_det;
+    const float tt = (a2x * qvx + a2y * qvy + a2z * qvz) * inv_det;
+    if (fabsf(det) >= kTriEps && uu >= 0.0f && vv >= 0.0f &&
+        uu + vv <= 1.0f && tt >= tmin && tt <= r.t && tid >= 0.0f) {
+      r.t = tt;
+      r.tri = static_cast<int>(tid);
+      r.u = uu;
+      r.v = vv;
+    }
+  }
+}
+
+// the mask of the 8 child boxes of node record `rec` that the ray hits
+__device__ __forceinline__ unsigned wide_votes(const float* __restrict__ rec,
+                                               const WideRay& r, float tmin,
+                                               bool any_hit) {
+  const float tb = (any_hit && r.tri >= 0) ? -__int_as_float(0x7f800000)
+                                           : r.t;
+  unsigned hm = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float* f = rec + 6 * c;
+    const float t0x = (__ldg(f + 0) - r.o.x) * r.inv.x;
+    const float t1x = (__ldg(f + 3) - r.o.x) * r.inv.x;
+    const float t0y = (__ldg(f + 1) - r.o.y) * r.inv.y;
+    const float t1y = (__ldg(f + 4) - r.o.y) * r.inv.y;
+    const float t0z = (__ldg(f + 2) - r.o.z) * r.inv.z;
+    const float t1z = (__ldg(f + 5) - r.o.z) * r.inv.z;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                           fmaxf(t0z, t1z));
+    if (tn <= tf && tf >= tmin && tn <= tb) hm |= 1u << c;
+  }
+  return hm;
+}
+
+// K2w's pop decode: entry (parent << 8 | pending mask) → the id of its
+// lowest pending child of kind `col` (0 internal, 1 leaf); *rem gets the
+// mask without that bit
+__device__ __forceinline__ int wide_decode(int e, const int2* __restrict__ meta,
+                                           int n_meta, int col, int* rem) {
+  const int bits = e & 255;
+  const int below = (bits & -bits) - 1;
+  const int2 mm = __ldg(meta + min(e >> 8, n_meta - 1));
+  const int m = col ? mm.y : mm.x;
+  *rem = bits & (bits - 1);
+  return (m >> 8) + __popc((m & 255) & below);
+}
+
+// OR of `v` over the warp, added into *dst by lane 0
+__device__ __forceinline__ void vote_or(unsigned v, unsigned* dst) {
+  v = __reduce_or_sync(kFull, v);
+  if ((threadIdx.x & (kWarp - 1)) == 0 && v) atomicOr(dst, v);
+}
+
+__global__ void __launch_bounds__(kWidePacket)
+trace_wide_kernel(const float* __restrict__ nodes,
+                  const float* __restrict__ leaves,
+                  const int2* __restrict__ meta, int n_nodes, int n_leaves,
+                  int n_meta, const float* __restrict__ o,
+                  const float* __restrict__ d,
+                  const float* __restrict__ tmax,
+                  const uint8_t* __restrict__ active, float tmin, int R,
+                  int any_hit, float* __restrict__ t_out,
+                  int* __restrict__ tri_out, float* __restrict__ u_out,
+                  float* __restrict__ v_out, int* __restrict__ deep_pushes) {
+  __shared__ int s_istack[2][kWideStack];
+  __shared__ int s_lstack[2][kWideLeafStack];
+  __shared__ unsigned s_vote[2][2];  // [buffer][packet]
+  const int tid = threadIdx.x;
+  const long base = static_cast<long>(blockIdx.x) * 2 * kWidePacket + tid;
+  WideRay ray[2];
+  for (int p = 0; p < 2; ++p) {
+    ray[p] = wide_ray(o, d, tmax, active, base + p * kWidePacket, R);
+  }
+  // the bootstrap entry (super-root 0, mask 1) decodes to the root
+  int isp[2] = {1, 1}, lsp[2] = {0, 0};
+  if (tid < 2) s_istack[tid][0] = 1;
+  if (tid < 4) s_vote[tid / 2][tid % 2] = 0u;
+  __syncthreads();
+  int buf = 0;
+  for (int steps = 0; steps < kWideMaxSteps; steps += kWideChunk) {
+    bool live = false;
+    for (int p = 0; p < 2; ++p) {
+      bool pl = isp[p] > 0 || lsp[p] > 0;
+      if (any_hit) pl = pl && !__syncthreads_and(ray[p].tri >= 0);
+      live = live || pl;
+    }
+    if (!live) break;
+    for (int s = 0; s < kWideChunk; ++s) {
+      int node[2], itop[2], ltop[2], ient[2], lent[2];
+      bool ivalid[2], lvalid[2];
+      for (int p = 0; p < 2; ++p) {
+        // a packet whose leaf stack is full pops no node this step
+        ivalid[p] = isp[p] > 0 && lsp[p] < kWideLeafStack;
+        itop[p] = max(isp[p] - 1, 0);
+        const int ie = itop[p] < kWideStack ? s_istack[p][itop[p]] : 0;
+        int irem, lrem;
+        const int ichild = wide_decode(ie, meta, n_meta, 0, &irem);
+        ient[p] = ((ie >> 8) << 8) | irem;
+        lvalid[p] = lsp[p] > 0;
+        ltop[p] = max(lsp[p] - 1, 0);
+        const int le = ltop[p] < kWideLeafStack ? s_lstack[p][ltop[p]] : 0;
+        const int lchild = wide_decode(le, meta, n_meta, 1, &lrem);
+        lent[p] = ((le >> 8) << 8) | lrem;
+        node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : 0;
+        const int leaf = lvalid[p] ? min(lchild, n_leaves - 1)
+                                   : n_leaves - 1;
+        wide_leaf(leaves + 48L * leaf, ray[p], tmin);
+        vote_or(wide_votes(nodes + 48L * node[p], ray[p], tmin, any_hit),
+                &s_vote[buf][p]);
+        // the entry leaves the stack with its last pending bit
+        isp[p] -= (ivalid[p] && irem == 0) ? 1 : 0;
+        lsp[p] -= (lvalid[p] && lrem == 0) ? 1 : 0;
+      }
+      __syncthreads();  // votes in; every thread has read the tops
+      for (int p = 0; p < 2; ++p) {
+        const unsigned hm = ivalid[p] ? s_vote[buf][p] : 0u;
+        const int2 mm = __ldg(meta + min(node[p], n_meta - 1));
+        const int hi = static_cast<int>(hm) & mm.x & 255;
+        const int hl = static_cast<int>(hm) & mm.y & 255;
+        if (tid == 0) {
+          if (ivalid[p] && itop[p] < kWideStack) {
+            s_istack[p][itop[p]] = ient[p];
+          }
+          if (lvalid[p]) s_lstack[p][ltop[p]] = lent[p];
+          if (hi && isp[p] < kWideStack) {
+            s_istack[p][isp[p]] = (node[p] << 8) | hi;
+          }
+          if (hl) {
+            s_lstack[p][lsp[p]] = (node[p] << 8) | hl;
+            if (lsp[p] >= kWideStack) atomicAdd(deep_pushes, 1);
+          }
+          s_vote[buf ^ 1][p] = 0u;
+        }
+        isp[p] += hi != 0;
+        lsp[p] += hl != 0;
+      }
+      __syncthreads();  // stacks written before the next step's pops
+      buf ^= 1;
+    }
+  }
+  for (int p = 0; p < 2; ++p) {
+    wide_store(ray[p], base + p * kWidePacket, R, t_out, tri_out, u_out,
+               v_out);
+  }
+}
+
+__global__ void __launch_bounds__(kWidePacket)
+trace_mimt_kernel(const float* __restrict__ nodes,
+                  const float* __restrict__ leaves,
+                  const int2* __restrict__ meta, int n_nodes, int n_leaves,
+                  int n_meta, const float* __restrict__ o,
+                  const float* __restrict__ d,
+                  const float* __restrict__ tmax,
+                  const uint8_t* __restrict__ active, float tmin, int R,
+                  int any_hit, float* __restrict__ t_out,
+                  int* __restrict__ tri_out, float* __restrict__ u_out,
+                  float* __restrict__ v_out, int* __restrict__ deep_pushes) {
+  __shared__ int s_istack[2][kWideRows][kWideStack];
+  __shared__ int s_lstack[2][kWideRows][kWideLeafStack];
+  __shared__ unsigned s_vote[2][2][kWideRows];  // [buffer][packet][row]
+  const int tid = threadIdx.x;
+  const int row = tid / kRowRays, lane = tid % kRowRays;
+  const long base = static_cast<long>(blockIdx.x) * 2 * kWidePacket + tid;
+  WideRay ray[2];
+  for (int p = 0; p < 2; ++p) {
+    ray[p] = wide_ray(o, d, tmax, active, base + p * kWidePacket, R);
+  }
+  // every row starts on the super-root's id 0; sp is the thread's row's
+  int isp[2] = {1, 1}, lsp[2] = {0, 0};
+  if (lane < 2) s_istack[lane][row][0] = 0;
+  if (lane < 4) s_vote[lane / 2][lane % 2][row] = 0u;
+  __syncthreads();
+  int buf = 0;
+  for (int steps = 0; steps < kWideMaxSteps; steps += kWideChunk) {
+    bool live = false;
+    for (int p = 0; p < 2; ++p) {
+      bool pl = __syncthreads_or(isp[p] > 0 || lsp[p] > 0);
+      if (any_hit) pl = pl && !__syncthreads_and(ray[p].tri >= 0);
+      live = live || pl;
+    }
+    if (!live) break;
+    for (int s = 0; s < kWideChunk; ++s) {
+      int node[2];
+      bool ivalid[2];
+      for (int p = 0; p < 2; ++p) {
+        // a row whose leaf stack could overflow pops no node this step
+        ivalid[p] = isp[p] > 0 && lsp[p] <= kWideLeafStack - 8;
+        const int itop = max(isp[p] - 1, 0);
+        const int ichild = itop < kWideStack ? s_istack[p][row][itop] : 0;
+        const bool lvalid = lsp[p] > 0;
+        const int ltop = max(lsp[p] - 1, 0);
+        const int lchild = ltop < kWideLeafStack ? s_lstack[p][row][ltop]
+                                                 : 0;
+        node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : n_nodes - 1;
+        const int leaf = lvalid ? min(lchild, n_leaves - 1) : n_leaves - 1;
+        wide_leaf(leaves + 48L * leaf, ray[p], tmin);
+        vote_or(wide_votes(nodes + 48L * node[p], ray[p], tmin, any_hit),
+                &s_vote[buf][p][row]);
+        isp[p] -= ivalid[p] ? 1 : 0;
+        lsp[p] -= lvalid ? 1 : 0;
+      }
+      __syncthreads();  // votes in; every thread has read the tops
+      for (int p = 0; p < 2; ++p) {
+        const unsigned hm = ivalid[p] ? s_vote[buf][p][row] : 0u;
+        const int2 mm = __ldg(meta + min(node[p], n_meta - 1));
+        const int hi = static_cast<int>(hm) & mm.x & 255;
+        const int hl = static_cast<int>(hm) & mm.y & 255;
+        if (lane < 8) {
+          // thread c of the row pushes child slot c of each kind
+          const int bit = 1 << lane, below = bit - 1;
+          if (hi & bit) {
+            const int pos = isp[p] + __popc(hi & below);
+            if (pos < kWideStack) {
+              s_istack[p][row][pos] = (mm.x >> 8) + __popc(mm.x & 255 & below);
+            }
+          }
+          if (hl & bit) {
+            const int pos = lsp[p] + __popc(hl & below);
+            s_lstack[p][row][pos] = (mm.y >> 8) + __popc(mm.y & 255 & below);
+            if (pos >= kWideStack) atomicAdd(deep_pushes, 1);
+          }
+        }
+        if (lane == 0) s_vote[buf ^ 1][p][row] = 0u;
+        isp[p] += __popc(hi);
+        lsp[p] += __popc(hl);
+      }
+      __syncthreads();  // stacks written before the next step's pops
+      buf ^= 1;
+    }
+  }
+  for (int p = 0; p < 2; ++p) {
+    wide_store(ray[p], base + p * kWidePacket, R, t_out, tri_out, u_out,
+               v_out);
+  }
+}
+
 }  // namespace
 
 HR_EXPORT int hr_trace_any(const void* nodes, const void* node_tri,
@@ -370,3 +731,32 @@ HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
   }
   HR_RETURN_LAUNCH_STATUS();
 }
+
+// K2w / K2m: meta is (n_meta, 2) i32; n_nodes and n_leaves are the record
+// rows; any_hit 0 or 1; deep_pushes a device int the kernel adds to
+#define HR_WIDE_ENTRY(NAME, KERNEL)                                          \
+  HR_EXPORT int NAME(const void* nodes, const void* leaves, const void* meta, \
+                     int n_nodes, int n_leaves, int n_meta, const void* o,    \
+                     const void* d, const void* tmax, const void* active,     \
+                     float tmin, int R, int any_hit, void* t_out,             \
+                     void* tri_out, void* u_out, void* v_out,                 \
+                     void* deep_pushes, void* stream) {                      \
+    if (R > 0) {                                                             \
+      const int programs = (R + 2 * kWidePacket - 1) / (2 * kWidePacket);    \
+      KERNEL<<<programs, kWidePacket, 0,                                     \
+               static_cast<cudaStream_t>(stream)>>>(                         \
+          static_cast<const float*>(nodes),                                  \
+          static_cast<const float*>(leaves),                                 \
+          static_cast<const int2*>(meta), n_nodes, n_leaves, n_meta,         \
+          static_cast<const float*>(o), static_cast<const float*>(d),        \
+          static_cast<const float*>(tmax),                                   \
+          static_cast<const uint8_t*>(active), tmin, R, any_hit,             \
+          static_cast<float*>(t_out), static_cast<int*>(tri_out),            \
+          static_cast<float*>(u_out), static_cast<float*>(v_out),            \
+          static_cast<int*>(deep_pushes));                                   \
+    }                                                                        \
+    HR_RETURN_LAUNCH_STATUS();                                               \
+  }
+
+HR_WIDE_ENTRY(hr_trace_wide, trace_wide_kernel)
+HR_WIDE_ENTRY(hr_trace_mimt, trace_mimt_kernel)

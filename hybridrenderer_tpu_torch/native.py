@@ -118,6 +118,10 @@ _SIGNATURES = {
     "hr_trace_any": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P],
     "hr_trace_closest": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _P, _P, _P,
                          _P, _P],
+    "hr_trace_wide": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,
+                      _P, _P, _P, _P, _P],
+    "hr_trace_mimt": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,
+                      _P, _P, _P, _P, _P],
     "hr_temporal_fetch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                           _P],
     "hr_window_sample": [_P, _I, _I, _I, _P, _I, _P, _P],
@@ -188,6 +192,10 @@ KERNELS = {
                _TPU + "trace_pallas.py:869"),
         Kernel("trace_packet", _CSRC + "trace.cu",
                _TPU + "trace_pallas.py:132"),
+        Kernel("trace_wide", _CSRC + "trace.cu",
+               _TPU + "trace_pallas.py:457"),
+        Kernel("trace_mimt", _CSRC + "trace.cu",
+               _TPU + "trace_pallas.py:1518"),
         Kernel("temporal_fetch", _CSRC + "temporal.cu",
                _TPU + "temporal_pallas.py:55"),
         Kernel("window_sample", _CSRC + "temporal.cu",

@@ -1,6 +1,7 @@
 """Binary BVH over the world-space triangle soup
 (hybridrenderer_tpu/ops/bvh.py): the binned-SAH host build of
-native/bvh_builder.cpp, loaded through ctypes (native.bvh_library).
+native/bvh_builder.cpp, loaded through ctypes (native.bvh_library), and
+the frozen-topology refit of dynamic scenes.
 
 Node indexing for T triangles: internal nodes 0 .. T-2 (root 0), leaf k
 = node (T-1)+k holding one triangle.
@@ -55,3 +56,68 @@ def build_sah(v0, v1, v2, device=None) -> BVH:
         raise RuntimeError(f"hrtpu_build_sah failed with code {rc}")
     return BVH(*(torch.from_numpy(x).to(device)
                  for x in (nmin, nmax, left, right, tri)), num_tris=T)
+
+
+def tree_height(left, right, num_tris) -> int:
+    """Levels of internal nodes from the root down (host): the number of
+    bottom-up passes a refit needs."""
+    T = int(num_tris)
+    if T <= 1:
+        return 1
+    lf = left[: T - 1].cpu().numpy()
+    rt = right[: T - 1].cpu().numpy()
+    cur = np.array([0], np.int64)
+    h = 0
+    while cur.size:
+        h += 1
+        children = np.concatenate([lf[cur], rt[cur]])
+        cur = children[children < T - 1]
+    return h
+
+
+def refit_levels(bvh: BVH) -> list:
+    """The internal nodes grouped by height above the leaves (host, once
+    per topology), as (nodes, their left children, their right
+    children) index tensors on the tree's device: group k holds the
+    nodes whose children all lie in groups before it or are leaves, so a
+    refit can take the groups in order, one gather-min pass each.
+    ``len(groups) == tree_height(...)``."""
+    T = bvh.num_tris
+    if T <= 1:
+        return []
+    lf = bvh.left[: T - 1].cpu().numpy().astype(np.int64)
+    rt = bvh.right[: T - 1].cpu().numpy().astype(np.int64)
+    done = np.zeros(T - 1, bool)
+    groups = []
+    while not done.all():
+        ready = ~done & (np.where(lf < T - 1, done[np.minimum(lf, T - 2)],
+                                  True)
+                         & np.where(rt < T - 1, done[np.minimum(rt, T - 2)],
+                                    True))
+        idx = np.flatnonzero(ready)
+        done[idx] = True
+        groups.append(tuple(torch.from_numpy(x).to(bvh.left.device)
+                            for x in (idx, lf[idx], rt[idx])))
+    return groups
+
+
+def refit_bvh(bvh: BVH, v0, v1, v2, levels) -> BVH:
+    """Frozen-topology box refit after the triangles moved (the
+    reference's refit_bvh / refit_bvh_rmq, bit for bit: both take exact
+    min / max unions over the same leaf sets). ``levels`` comes from
+    ``refit_levels``; the refit runs on the tree's device with no host
+    work, one gather-min pass per level."""
+    T = v0.shape[0]
+    lt = bvh.tri[T - 1:].long() if T > 1 else bvh.tri[:1].long()
+    sv0, sv1, sv2 = v0[lt], v1[lt], v2[lt]
+    leaf_min = torch.minimum(torch.minimum(sv0, sv1), sv2)
+    leaf_max = torch.maximum(torch.maximum(sv0, sv1), sv2)
+    if T <= 1:
+        return dataclasses.replace(bvh, node_min=leaf_min, node_max=leaf_max)
+    # [min, -max]: one minimum per level takes both unions
+    box = torch.cat([torch.full((T - 1, 6), float("inf"), device=v0.device),
+                     torch.cat([leaf_min, -leaf_max], dim=-1)])
+    for g, lg, rg in levels:
+        box[g] = torch.minimum(box[lg], box[rg])
+    return dataclasses.replace(bvh, node_min=box[:, :3].contiguous(),
+                               node_max=(-box[:, 3:]).contiguous())

@@ -4,12 +4,16 @@ images, ``occluded`` over flat rays) through the any-hit traversal K2,
 and ``trace_radiance``, the closest-hit traversal K2c with hit shading
 (closesthit.rchit) and the sky on a miss (miss.rmiss). With
 ``trace_backend="pallas"`` all three go through the packet traversal
-K2b instead.
+K2b instead; with ``trace_backend="pallas-wide"`` and ``wide_kernel``
+"compressed" or "mimt", through the wide-BVH traversal K2w or K2m.
+``refit`` follows a dynamic scene's moved triangles without a rebuild.
 
 The reference relayouts rays tile- or pattern-major for its TPU packets;
 a relayout changes no per-ray result, so the per-ray kernels trace in
 pixel order. K2b's packets are 32 consecutive rays, so image queries
-are relayouted into 8x4 pixel tiles for it, one tile a packet.
+are relayouted into 8x4 pixel tiles for it, one tile a packet; the wide
+kernels' packets are 1024 rays, so image queries take the reference's
+32x32 tile-major order for them (``to_tile_major``, edge-padded).
 """
 from __future__ import annotations
 
@@ -21,10 +25,12 @@ import torch
 from ..core import maths
 from ..core.types import RenderFlags
 from . import sampling, shade, sky
-from .bvh import build_sah
-from .trace_cuda import (PACKET_STACK_DEPTH, STACK_DEPTH, PackedBVH,
-                         intersect_any, intersect_closest, intersect_packet,
-                         pack_bvh)
+from .bvh import build_sah, refit_bvh, refit_levels
+from .bvh_wide import build_wide, refit_wide
+from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
+                         PackedBVH, check_wide_stacks, intersect_any,
+                         intersect_closest, intersect_mimt, intersect_packet,
+                         intersect_wide, pack_bvh)
 
 TMIN = 0.01  # shadow_query's ray start, past the normal offset
 OCCLUSION_TMIN = 1e-3   # occluded's ray start
@@ -38,6 +44,10 @@ SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
               + list(range(45, 54)) + [66] + list(range(67, 83)))
 SHADE_ROWS_MAX = 98304
 TILE_W, TILE_H = 8, 4   # K2b's packet of 32 image rays
+WIDE_TILE = 32          # K2w / K2m: a 1024-ray packet is a 32x32 tile
+# trace_pallas.VMEM_SCENE_BUDGET: above it the reference traces bf16
+# records (bvh_wide.quantize_bf16), which change the image
+VMEM_SCENE_BUDGET = 96 * 1024 * 1024
 
 
 def tile_order(H, W, device):
@@ -52,59 +62,147 @@ def tile_order(H, W, device):
     return torch.argsort(key.reshape(-1))
 
 
-def _pixel_order(perm, x, lead):
-    """Flat results in ``perm`` order (None: pixel order) → (*lead, ...)
-    in pixel order."""
-    if perm is not None:
-        out = torch.empty_like(x)
-        out[perm] = x
-        x = out
+def tile_major(H, W, device, tile=WIDE_TILE):
+    """The reference's ``to_tile_major`` order as indices: → (the source
+    pixel of each traced ray, tile x tile tiles in row-major order, the
+    image edge-padded to whole tiles; each pixel's position in that
+    order)."""
+    ntx, nty = -(-W // tile), -(-H // tile)
+    p = torch.arange(nty * ntx * tile * tile, device=device)
+    t, r = p // (tile * tile), p % (tile * tile)
+    y = torch.clamp((t // ntx) * tile + r // tile, max=H - 1)
+    x = torch.clamp((t % ntx) * tile + r % tile, max=W - 1)
+    yy = torch.arange(H, device=device).unsqueeze(1)
+    xx = torch.arange(W, device=device).unsqueeze(0)
+    pos = ((yy // tile) * ntx + xx // tile) * (tile * tile) \
+        + (yy % tile) * tile + xx % tile
+    return y * W + x, pos.reshape(-1)
+
+
+def _pixel_order(pos, x, lead):
+    """Flat results in traced order → (*lead, ...) in pixel order;
+    ``pos`` holds each pixel's traced position (None: pixel order)."""
+    if pos is not None:
+        x = x[pos]
     return x.reshape(*lead, *x.shape[1:])
+
+
+def _shade_rows(scene_data):
+    cols = torch.tensor(SHADE_COLS, device=scene_data.device)
+    return scene_data.attr_rows[:, cols].contiguous()
+
+
+def wide_kernel_of(settings) -> "str | None":
+    """The wide traversal ``settings`` ask for: "compressed" (K2w),
+    "mimt" (K2m) or None (K2 / K2c, the reference's direct kernel)."""
+    k = None if settings is None else settings.wide_kernel
+    return k if k in ("compressed", "mimt") else None
 
 
 @dataclasses.dataclass
 class SceneTracer:
-    packed: PackedBVH
+    # K2 / K2c / K2b's records of the binary tree; None when a wide
+    # kernel traces
+    packed: "PackedBVH | None"
     # (T, 53) hit-shading rows: vertex k's normal, tangent, uv at 9k;
     # normal matrix at 27, material id at 36, material row at 37
     shade_rows: Any
     # trace_backend "pallas": every query through the packet kernel K2b
     packet: bool = False
+    # the binary SAH tree and its refit order (bvh.refit_levels)
+    bvh: Any = None
+    levels: Any = None
+    # wide_kernel "compressed" (K2w) or "mimt" (K2m): every query over
+    # the 8-wide tree ``wide`` (bvh_wide.WideBVH)
+    wide_kernel: "str | None" = None
+    wide: Any = None
 
     @staticmethod
     def build(scene_data, settings=None) -> "SceneTracer":
         """Binned-SAH BVH over the scene's triangle soup, on the scene's
-        device, for the traversal ``settings.trace_backend`` picks.
-        Alpha-tested scenes need closest-hit rounds over cut-out texels,
-        which are not ported yet."""
+        device, for the traversal ``settings.trace_backend`` and
+        ``settings.wide_kernel`` pick. Alpha-tested scenes need
+        closest-hit rounds over cut-out texels, which are not ported
+        yet; nor are the reference's bf16 wide records, which it traces
+        when the f32 records exceed its 96 MiB budget: the wide kernels
+        raise above it."""
         if scene_data.has_alpha_test:
             raise NotImplementedError(
                 "alpha-tested (cut-out) occlusion is not ported yet")
         packet = settings is not None and settings.trace_backend == "pallas"
+        kernel = wide_kernel_of(settings)
         soup = scene_data.triangles
         bvh = build_sah(soup.v0, soup.v1, soup.v2)
-        cols = torch.tensor(SHADE_COLS, device=scene_data.device)
-        packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
-                          PACKET_STACK_DEPTH if packet else STACK_DEPTH)
-        return SceneTracer(packed=packed,
-                           shade_rows=scene_data.attr_rows[:, cols]
-                           .contiguous(), packet=packet)
+        packed = wide = None
+        if kernel is None:
+            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+                              PACKET_STACK_DEPTH if packet else STACK_DEPTH)
+        else:
+            wide = build_wide(bvh, soup.v0, soup.v1, soup.v2)
+            if wide.vmem_bytes > VMEM_SCENE_BUDGET:
+                raise NotImplementedError(
+                    f"wide records of {wide.vmem_bytes} bytes exceed the "
+                    f"reference's {VMEM_SCENE_BUDGET}-byte budget, above "
+                    f"which it traces bf16 records (not ported yet)")
+            check_wide_stacks(wide, kernel == "mimt")
+        return SceneTracer(packed=packed, shade_rows=_shade_rows(scene_data),
+                           packet=packet, bvh=bvh, levels=refit_levels(bvh),
+                           wide_kernel=kernel, wide=wide)
+
+    def refit(self, scene_data) -> "SceneTracer":
+        """The tracer after a dynamic update moved triangles (the
+        topology frozen): the binary tree's boxes refit, K2's records
+        repacked at the known depth, or the wide records refit, and the
+        hit-shading rows taken anew from the scene's attribute rows. All
+        on the scene's device, with no host work."""
+        soup = scene_data.triangles
+        bvh = refit_bvh(self.bvh, soup.v0, soup.v1, soup.v2, self.levels)
+        packed = wide = None
+        if self.wide is not None:
+            wide = refit_wide(self.wide, bvh.node_min, bvh.node_max,
+                              soup.v0, soup.v1, soup.v2)
+        else:
+            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+                              PACKET_STACK_DEPTH if self.packet
+                              else STACK_DEPTH, depth=self.packed.depth)
+        return dataclasses.replace(self, packed=packed, bvh=bvh, wide=wide,
+                                   shade_rows=_shade_rows(scene_data))
 
     def _packet_order(self, lead, *rays):
-        """K2b traces the rays of an (H, W) image in 8x4 pixel tiles:
-        → (the permutation or None, the flat rays in that order)."""
-        if not (self.packet and len(lead) == 2):
-            return None, rays
-        perm = tile_order(*lead, rays[0].device)
-        return perm, tuple(x[perm].contiguous() for x in rays)
+        """The order packet kernels trace the rays of an (H, W) image in:
+        K2b 8x4 pixel tiles, K2w / K2m 32x32 tiles → (each traced ray's
+        pixel, each pixel's traced position, the flat rays in traced
+        order), or (None, None, rays) for pixel order."""
+        if len(lead) != 2 or not (self.packet or self.wide is not None):
+            return None, None, rays
+        dev = rays[0].device
+        if self.packet:
+            fwd = tile_order(*lead, dev)
+            pos = torch.argsort(fwd)
+        else:
+            fwd, pos = tile_major(*lead, dev)
+        return fwd, pos, tuple(x[fwd].contiguous() for x in rays)
+
+    def _wide_query(self, o, d, tmin, tmax, active, any_hit):
+        """K2w or K2m, with the sentinel of inactive rays mapped to the
+        port's miss (t = +inf, tri = -1), as K2 / K2c report them."""
+        f = intersect_mimt if self.wide_kernel == "mimt" else intersect_wide
+        t, tri, u, v = f(self.wide, o, d, tmin, tmax, active, any_hit)
+        inactive = tri == INACTIVE_TRI
+        return (torch.where(inactive, float("inf"), t),
+                torch.where(inactive, -1, tri), u, v)
 
     def _any(self, o, d, tmin, tmax, active):
+        if self.wide is not None:
+            return self._wide_query(o, d, tmin, tmax, active, True)[1]
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
                                     any_hit=True)[1]
         return intersect_any(self.packed, o, d, tmin, tmax, active)
 
     def _closest(self, o, d, tmin, tmax, active):
+        if self.wide is not None:
+            return self._wide_query(o, d, tmin, tmax, active, False)
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
                                     any_hit=False)
@@ -130,9 +228,9 @@ class SceneTracer:
         o, d, t, act = self.shadow_rays(world_pos, normal, direction, tmax,
                                         active)
         lead = world_pos.shape[:2]
-        perm, (o, d, t, act) = self._packet_order(lead, o, d, t, act)
+        _, pos, (o, d, t, act) = self._packet_order(lead, o, d, t, act)
         vis = torch.where(self._any(o, d, TMIN, t, act) >= 0, 0.0, 1.0)
-        return _pixel_order(perm, vis, lead)
+        return _pixel_order(pos, vis, lead)
 
     def occluded(self, origin, direction, tmax: float, active):
         """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
@@ -162,19 +260,20 @@ class SceneTracer:
         (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
         rays trace nothing and take the miss value. The NEE seed of a ray
         is its flat index, the reference's original pixel index, also
-        where K2b's packets trace (H, W) rays in tile order."""
+        where packet kernels trace (H, W) rays in tile order."""
         lead = origin.shape[:-1]
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
-        perm, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax, act)
+        fwd, pos, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax,
+                                                         act)
         t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act)
         hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
-        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, perm)
+        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, fwd)
         rgb_miss = sky.sample_environment(
             d, bool(ctx.settings.flags & RenderFlags.IBL),
             has_sky=scene.has_sky_texture)
         rgb = torch.where(hit.unsqueeze(-1), rgb_hit, rgb_miss)
         dist = torch.where(hit, t, torch.full_like(t, -1.0))
-        return _pixel_order(perm, rgb, lead), _pixel_order(perm, dist, lead)
+        return _pixel_order(pos, rgb, lead), _pixel_order(pos, dist, lead)
 
     def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active, ray_idx=None):
         """closesthit.rchit: interpolate the hit's attributes, evaluate

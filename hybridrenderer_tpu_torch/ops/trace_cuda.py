@@ -15,6 +15,14 @@ Neither caps its iterations: the reference's ``max_iters`` batch cap of
 ``intersect_packet`` answers either query for packets of 32 consecutive
 rays that share one stack; its visiting order, and so its choice among
 equal-t hits, is the packet's, not a ray's.
+
+``intersect_wide`` (K2w, trace_pallas.py _wide_traverse_kernel) and
+``intersect_mimt`` (K2m, _mimt_traverse_kernel) walk the 8-wide tree of
+ops/bvh_wide.py in packets of 1024 consecutive rays, with the
+reference's contract: (t, tri, u, v) with t = +inf and tri = -1 on a
+miss, and tri = INACTIVE_TRI, t = -1 for an inactive ray. Both follow
+the reference's visiting order step for step, its termination rule
+included, so they report the reference kernels' triangles.
 """
 from __future__ import annotations
 
@@ -35,6 +43,28 @@ PACKET_TMAX = 1e6          # intersect_packed's tmax clamp
 KERNEL = native.KERNELS["trace_any"]
 KERNEL_CLOSEST = native.KERNELS["trace_closest"]
 KERNEL_PACKET = native.KERNELS["trace_packet"]
+KERNEL_WIDE = native.KERNELS["trace_wide"]
+KERNEL_MIMT = native.KERNELS["trace_mimt"]
+# K2w / K2m (trace_pallas.py:406-446): 1024-ray packets, two packets a
+# program that step together until both are done, liveness tested every
+# WIDE_CHUNK steps, at most WIDE_MAX_STEPS steps. Internal-node stacks
+# have the TPU kernels' 128 entries (their 128-lane register stacks),
+# enough for any tree the build accepts (check_wide_stacks). The leaf
+# stacks are not bounded by the depth: on the stress scene a packet's
+# leaf stack reaches ~150 entries, where the reference drops pushes past
+# 128 and misses their triangles. The port's leaf stacks hold
+# WIDE_LEAF_STACK entries, and a packet (K2m: a row) whose leaf stack
+# could overflow this step pops no internal node, only a leaf: the
+# visiting order is the reference's wherever the reference drops
+# nothing, and no push is ever dropped
+WIDE_PACKET = 1024
+WIDE_PAIR = 2
+WIDE_CHUNK = 16
+WIDE_MAX_STEPS = 1 << 16
+WIDE_STACK = 128
+WIDE_LEAF_STACK = 512
+WIDE_ROWS = 8              # K2m: one stack pair per 128-ray row
+INACTIVE_TRI = 1 << 29     # trace_pallas.INACTIVE_TRI
 
 
 @dataclasses.dataclass
@@ -64,13 +94,15 @@ def _check_depth(depth, stack):
                          f"{depth + 1} entries; the kernel has {stack}")
 
 
-def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH) -> PackedBVH:
+def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, depth=None) -> PackedBVH:
     """Raises if the tree is too deep for the traversal's stack of
     ``stack`` entries (K2's 64, or K2b's 96): popping a node at depth k
     leaves at most k entries, and its two children make k + 2, so a tree
     of depth D needs D + 1 entries. Within that bound neither kernel nor
-    its plain version ever drops a child."""
-    depth = tree_depth(bvh.left, bvh.right)
+    its plain version ever drops a child. ``depth``, when the caller
+    knows it (a refit keeps the topology), saves the host walk."""
+    if depth is None:
+        depth = tree_depth(bvh.left, bvh.right)
     _check_depth(depth, stack)
     bits = lambda x: x.to(torch.int32).view(torch.float32).unsqueeze(-1)
     nodes = torch.cat([bvh.node_min, bits(bvh.left), bvh.node_max,
@@ -379,3 +411,362 @@ def _traverse_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
         visits["internal"] = visits.get("internal", 0) + int(n_inner)
         visits["leaf"] = visits.get("leaf", 0) + int(n_leaf)
     return best, out, bu, bv
+
+
+# ---------------------------------------------------------------------------
+# K2w and K2m: wide-BVH packet traversals
+# ---------------------------------------------------------------------------
+
+def check_wide_stacks(wide, mimt: bool):
+    """Raise if the tree is too deep for the kernel's internal-node stack.
+    K2w keeps one compressed entry per level of the DFS path: a tree of
+    depth D (super-root 0) needs D + 1 entries. K2m pushes up to 8 child
+    ids and pops one per level: 7 D + 1."""
+    need = 7 * wide.depth + 1 if mimt else wide.depth + 1
+    if need > WIDE_STACK:
+        raise ValueError(f"wide BVH of depth {wide.depth} needs "
+                         f"{need} stack entries; the kernel has {WIDE_STACK}")
+
+
+def _check_wide(wide, o, d, tmax, active, mimt):
+    dev = o.device
+    R = o.shape[0]
+    check_wide_stacks(wide, mimt)
+    native.check(wide.nodes_flat, "nodes_flat", torch.float32, (None, 48),
+                 dev)
+    native.check(wide.leaves_flat, "leaves_flat", torch.float32, (None, 48),
+                 dev)
+    native.check(wide.meta, "meta", torch.int32, (None, 2), dev)
+    native.check(wide.deep_pushes, "deep_pushes", torch.int32, (1,), dev)
+    native.check(o, "o", torch.float32, (R, 3), dev)
+    native.check(d, "d", torch.float32, (R, 3), dev)
+    native.check(tmax, "tmax", torch.float32, (R,), dev)
+    native.check(active, "active", torch.bool, (R,), dev)
+    return R
+
+
+def _launch_wide(kernel, entry, wide, o, d, tmin, tmax, active, any_hit):
+    R = _check_wide(wide, o, d, tmax, active, entry == "hr_trace_mimt")
+    t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
+               for _ in range(3))
+    tri = torch.empty((R,), dtype=torch.int32, device=o.device)
+    kernel.launch(entry, native.ptr(wide.nodes_flat),
+                  native.ptr(wide.leaves_flat), native.ptr(wide.meta),
+                  wide.nodes_flat.shape[0], wide.leaves_flat.shape[0],
+                  wide.meta.shape[0], native.ptr(o), native.ptr(d),
+                  native.ptr(tmax), native.ptr(active), float(tmin), R,
+                  int(any_hit), native.ptr(t), native.ptr(tri),
+                  native.ptr(u), native.ptr(v), native.ptr(wide.deep_pushes))
+    return t, tri, u, v
+
+
+def intersect_wide(wide, o, d, tmin: float, tmax, active, any_hit: bool):
+    """Rays (R, 3) o, d; tmax (R,) f32; active (R,) bool → (t, tri, u, v)
+    over the 8-wide tree ``wide`` (ops/bvh_wide.WideBVH), in packets of
+    1024 consecutive rays that share one compressed stack per kind
+    (internal nodes, leaf clusters): entries (parent << 8 | pending child
+    mask), popped lowest slot first, one node and one cluster a step.
+
+    CUDA tensors launch kernel K2w, which replaces the TPU kernel
+    trace_pallas._wide_traverse_kernel; CPU tensors take the plain
+    version. On the card a block of 1024 threads runs a program of two
+    packets, every step voting over the block; see csrc/trace.cu."""
+    if o.device.type == "cpu":
+        return intersect_wide_plain(wide, o, d, tmin, tmax, active, any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_wide: unsupported device {o.device}")
+    return _launch_wide(KERNEL_WIDE, "hr_trace_wide", wide, o, d, tmin, tmax,
+                        active, any_hit)
+
+
+def intersect_mimt(wide, o, d, tmin: float, tmax, active, any_hit: bool):
+    """As ``intersect_wide``, but each 128-ray row of a 1024-ray packet
+    walks the tree on its own pair of stacks of direct node ids, pushing
+    the children its rays hit in ascending slot order and popping the
+    last pushed first.
+
+    CUDA tensors launch kernel K2m, which replaces the TPU kernel
+    trace_pallas._mimt_traverse_kernel; CPU tensors take the plain
+    version. On the card four warps are a row and vote together; see
+    csrc/trace.cu."""
+    if o.device.type == "cpu":
+        return intersect_mimt_plain(wide, o, d, tmin, tmax, active, any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_mimt: unsupported device {o.device}")
+    return _launch_wide(KERNEL_MIMT, "hr_trace_mimt", wide, o, d, tmin, tmax,
+                        active, any_hit)
+
+
+_POP8 = torch.tensor([bin(i).count("1") for i in range(256)])
+
+
+def _popcount8(x):
+    return _POP8.to(x.device)[x & 255]
+
+
+def _wide_packets(o, d, tmax, active):
+    """Rays → (P, 1024, ...) packets, P even (a program is two packets):
+    padding rays have o = 0, d = 1 and are inactive; an inactive ray
+    carries tmax -1 and starts with the sentinel id, as the reference's
+    ``intersect_wide`` gives them (trace_pallas.py:768-778)."""
+    R = o.shape[0]
+    pad = (-R) % (WIDE_PACKET * WIDE_PAIR)
+    P = (R + pad) // WIDE_PACKET
+    tm = torch.where(active, torch.clamp(tmax, max=PACKET_TMAX), -1.0)
+    org = torch.cat([o, o.new_zeros((pad, 3))]).view(P, WIDE_PACKET, 3)
+    dirs = torch.cat([d, d.new_ones((pad, 3))]).view(P, WIDE_PACKET, 3)
+    tm = torch.cat([tm, tm.new_full((pad,), -1.0)]).view(P, WIDE_PACKET)
+    return P, org, dirs, tm
+
+
+def _leaf_visit(rec, ray, tmin, st):
+    """The 4 Moller-Trumbore tests of one leaf cluster per packet (or row):
+    ``rec`` (..., 48) record rows broadcast over the rays (..., n); the
+    state's "t", "tri", "u", "v" are replaced where a hit has t <= the
+    best so far (in triangle order)."""
+    ox, oy, oz, dx, dy, dz = ray[:6]
+    for k in range(4):
+        f = lambda j: rec[..., 12 * k + j].unsqueeze(-1)
+        p0x, p0y, p0z = f(0), f(1), f(2)
+        a1x, a1y, a1z = f(3), f(4), f(5)
+        a2x, a2y, a2z = f(6), f(7), f(8)
+        tid = f(9)
+        pvx = dy * a2z - dz * a2y
+        pvy = dz * a2x - dx * a2z
+        pvz = dx * a2y - dy * a2x
+        det = a1x * pvx + a1y * pvy + a1z * pvz
+        inv_det = 1.0 / torch.where(torch.abs(det) < TRI_EPS, TRI_EPS, det)
+        tvx = ox - p0x
+        tvy = oy - p0y
+        tvz = oz - p0z
+        uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+        qvx = tvy * a1z - tvz * a1y
+        qvy = tvz * a1x - tvx * a1z
+        qvz = tvx * a1y - tvy * a1x
+        vv = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+        tt = (a2x * qvx + a2y * qvy + a2z * qvz) * inv_det
+        hit = ((torch.abs(det) >= TRI_EPS) & (uu >= 0.0) & (vv >= 0.0)
+               & (uu + vv <= 1.0) & (tt >= tmin) & (tt <= st["t"])
+               & (tid >= 0.0))
+        st["t"] = torch.where(hit, tt, st["t"])
+        st["tri"] = torch.where(hit, tid.to(torch.int32), st["tri"])
+        st["u"] = torch.where(hit, uu, st["u"])
+        st["v"] = torch.where(hit, vv, st["v"])
+
+
+def _node_votes(rec, ray, tmin, st, any_hit):
+    """The 8 slab tests of one wide node per packet (or row) → the mask
+    of child slots hit by any of its rays (..., ) int64. Any-hit rays
+    that have a hit test against -inf and vote for nothing."""
+    ox, oy, oz = ray[0:3]
+    ix, iy, iz = ray[6:9]
+    tb = st["t"]
+    if any_hit:
+        tb = torch.where(st["tri"] < 0, st["t"], float("-inf"))
+    hm = 0
+    for c in range(8):
+        f = lambda j: rec[..., 6 * c + j].unsqueeze(-1)
+        t0x = (f(0) - ox) * ix
+        t1x = (f(3) - ox) * ix
+        t0y = (f(1) - oy) * iy
+        t1y = (f(4) - oy) * iy
+        t0z = (f(2) - oz) * iz
+        t1z = (f(5) - oz) * iz
+        tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                         torch.minimum(t0y, t1y)),
+                           torch.minimum(t0z, t1z))
+        tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                         torch.maximum(t0y, t1y)),
+                           torch.maximum(t0z, t1z))
+        ok = (tn <= tf) & (tf >= tmin) & (tn <= tb)
+        hm = hm | (ok.any(dim=-1).long() << c)
+    return hm
+
+
+def _ray_planes(org, dirs):
+    """(..., 3) rays → [ox, oy, oz, dx, dy, dz, ix, iy, iz] planes."""
+    tiny = torch.where(dirs < 0, -1e-12, 1e-12)
+    inv = 1.0 / torch.where(torch.abs(dirs) < 1e-12, tiny, dirs)
+    return [x[..., a] for x in (org, dirs, inv) for a in range(3)]
+
+
+def _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit, mimt,
+                         visits):
+    """Both wide kernels' plain version: the live programs step together,
+    ``WIDE_CHUNK`` steps between liveness tests; a program (two packets)
+    runs while either packet has stack entries and, any-hit, a ray
+    without a hit, so a finished packet keeps popping beside its live
+    sibling, as in the reference."""
+    dev = o.device
+    P, org, dirs, tm = _wide_packets(o, d, tmax, active)
+    ray = _ray_planes(org, dirs)
+    if mimt:   # (P, rows, 128): each row a traversal of its own
+        ray = [x.view(P, WIDE_ROWS, -1) for x in ray]
+        tm = tm.view(P, WIDE_ROWS, -1)
+    lead = (P, WIDE_ROWS) if mimt else (P,)
+    st = dict(istack=torch.zeros((*lead, WIDE_STACK), dtype=torch.long,
+                                 device=dev),
+              lstack=torch.zeros((*lead, WIDE_LEAF_STACK), dtype=torch.long,
+                                 device=dev),
+              isp=torch.ones(lead, dtype=torch.long, device=dev),
+              lsp=torch.zeros(lead, dtype=torch.long, device=dev),
+              t=tm.clone(),
+              tri=torch.where(tm < 0, INACTIVE_TRI, -1).to(torch.int32),
+              u=torch.zeros_like(tm), v=torch.zeros_like(tm))
+    # K2w's bootstrap entry (super-root 0, mask 1) decodes to the root;
+    # K2m's rows start on the super-root's id 0
+    if not mimt:
+        st["istack"][:, 0] = 1
+    steps = torch.zeros((P // WIDE_PAIR,), dtype=torch.long, device=dev)
+    meta = wide.meta.long()
+    # node visits, leaf visits, leaf pushes past the reference's 128
+    count = torch.zeros(3, dtype=torch.long, device=dev)
+    step = _mimt_step if mimt else _wide_step
+    while True:
+        live = (st["isp"] > 0) | (st["lsp"] > 0)
+        if mimt:
+            live = live.any(dim=1)
+        if any_hit:
+            live = live & ~(st["tri"] >= 0).reshape(P, -1).all(dim=1)
+        prog = live.view(-1, WIDE_PAIR).any(dim=1) & (steps < WIDE_MAX_STEPS)
+        if not bool(prog.any()):
+            break
+        steps = steps + WIDE_CHUNK * prog.long()
+        pk = torch.nonzero(prog.repeat_interleave(WIDE_PAIR)).squeeze(1)
+        sub = {k: x[pk] for k, x in st.items()}
+        sray = [x[pk] for x in ray]
+        for _ in range(WIDE_CHUNK):
+            step(wide, meta, sub, sray, tmin, any_hit, count)
+        for k, x in st.items():
+            x[pk] = sub[k]
+    wide.deep_pushes += count[2].to(wide.deep_pushes.dtype)
+    if visits is not None:
+        visits["internal"] = visits.get("internal", 0) + int(count[0])
+        visits["leaf"] = visits.get("leaf", 0) + int(count[1])
+    t, tri, u, v = (st[k].reshape(-1)[:o.shape[0]]
+                    for k in ("t", "tri", "u", "v"))
+    return torch.where(tri < 0, float("inf"), t), tri, u, v
+
+
+def _take(stack, pos):
+    """stack[..., pos] for (...) positions, 0 past the end (the
+    reference's one-hot lane read)."""
+    slot = torch.clamp(pos, max=stack.shape[-1] - 1).unsqueeze(-1)
+    return torch.where(pos < stack.shape[-1],
+                       stack.gather(-1, slot).squeeze(-1), 0)
+
+
+def _put(stack, pos, val, where):
+    """stack[..., pos] = val where ``where`` and pos is in range."""
+    ok = where & (pos < stack.shape[-1])
+    slot = torch.clamp(pos, max=stack.shape[-1] - 1).unsqueeze(-1)
+    stack.scatter_(-1, slot, torch.where(ok.unsqueeze(-1), val.unsqueeze(-1),
+                                         stack.gather(-1, slot)))
+
+
+def _wide_step(wide, meta, st, ray, tmin, any_hit, count):
+    """One K2w step of every packet in ``st`` (updated in place); adds
+    the node and leaf visits and the deep leaf pushes to ``count``."""
+    n_meta = meta.shape[0]
+
+    def pop(kind, col, enabled):
+        """Pop the top compressed entry: its lowest pending child →
+        (child id, valid); the entry loses that bit and leaves the stack
+        with its last one."""
+        stack, sp = st[kind + "stack"], st[kind + "sp"]
+        top = torch.clamp(sp - 1, min=0)
+        e = _take(stack, top)
+        valid = (sp > 0) & enabled
+        par, bits = e >> 8, e & 255
+        below = (bits & -bits) - 1
+        m = meta[torch.clamp(par, max=n_meta - 1), col]
+        child = (m >> 8) + _popcount8((m & 255) & below)
+        rem = bits & (bits - 1)
+        _put(stack, top, (par << 8) | rem, valid)
+        st[kind + "sp"] = sp - ((rem == 0) & valid).long()
+        return child, valid
+
+    # a packet whose leaf stack is full pops no node this step
+    child_i, ivalid = pop("i", 0, st["lsp"] < WIDE_LEAF_STACK)
+    child_l, lvalid = pop("l", 1, torch.ones_like(ivalid))
+    i = torch.clamp(torch.where(ivalid, child_i, 0),
+                    max=wide.nodes_flat.shape[0] - 1)
+    dummy = wide.leaves_flat.shape[0] - 1
+    k = torch.where(lvalid, torch.clamp(child_l, max=dummy), dummy)
+    _leaf_visit(wide.leaves_flat[k], ray, tmin, st)
+    hm = _node_votes(wide.nodes_flat[i], ray, tmin, st, any_hit)
+    hm = hm * ivalid.long()
+    mi = meta[torch.clamp(i, max=n_meta - 1)]
+    deep = torch.zeros_like(count[2])
+    for kind, col in (("i", 0), ("l", 1)):
+        # one entry (node, the slots of this kind its rays hit)
+        h = hm & mi[:, col] & 255
+        sp = st[kind + "sp"]
+        push = h != 0
+        _put(st[kind + "stack"], sp, (i << 8) | h, push)
+        if kind == "l":
+            deep = (push & (sp >= WIDE_STACK)).sum()
+        st[kind + "sp"] = sp + push.long()
+    count += torch.stack([ivalid.sum(), lvalid.sum(), deep])
+
+
+def _mimt_step(wide, meta, st, ray, tmin, any_hit, count):
+    """One K2m step of every row of every packet in ``st`` (updated in
+    place); adds the node and leaf visits (one a row step) and the deep
+    leaf pushes to ``count``."""
+    n_meta = meta.shape[0]
+
+    def pop(kind, enabled):
+        """Pop the top node id → (id, valid)."""
+        sp = st[kind + "sp"]
+        valid = (sp > 0) & enabled
+        child = _take(st[kind + "stack"], torch.clamp(sp - 1, min=0))
+        st[kind + "sp"] = torch.where(valid, sp - 1, sp)
+        return child, valid
+
+    # a row whose leaf stack could overflow pops no node this step
+    child_i, ivalid = pop("i", st["lsp"] <= WIDE_LEAF_STACK - 8)
+    child_l, lvalid = pop("l", torch.ones_like(ivalid))
+    dummy_n = wide.nodes_flat.shape[0] - 1
+    dummy_l = wide.leaves_flat.shape[0] - 1
+    ki = torch.where(ivalid, torch.clamp(child_i, max=dummy_n), dummy_n)
+    kl = torch.where(lvalid, torch.clamp(child_l, max=dummy_l), dummy_l)
+    _leaf_visit(wide.leaves_flat[kl], ray, tmin, st)
+    hm = _node_votes(wide.nodes_flat[ki], ray, tmin, st, any_hit)
+    hm = hm * ivalid.long()
+    mi = meta[torch.clamp(ki, max=n_meta - 1)]
+    deep = torch.zeros_like(count[2])
+    for kind, col in (("i", 0), ("l", 1)):
+        # each child of this kind the row's rays hit, in slot order: its
+        # id ranks in the kind's mask from the base
+        base, full = mi[..., col] >> 8, mi[..., col] & 255
+        h = hm & full
+        sp = st[kind + "sp"]
+        for c in range(8):
+            below = (1 << c) - 1
+            has = (h >> c) & 1 == 1
+            pos = sp + _popcount8(h & below)
+            _put(st[kind + "stack"], pos, base + _popcount8(full & below),
+                 has)
+            if kind == "l":
+                deep = deep + (has & (pos >= WIDE_STACK)).sum()
+        st[kind + "sp"] = sp + _popcount8(h)
+    count += torch.stack([ivalid.sum(), lvalid.sum(), deep])
+
+
+def intersect_wide_plain(wide, o, d, tmin: float, tmax, active,
+                         any_hit: bool, visits=None):
+    """Plain PyTorch version of kernel K2w; ``visits``, a dict, receives
+    the number of node and leaf-cluster visits (one each a packet step)."""
+    KERNEL_WIDE.note_plain(o)
+    return _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit,
+                                False, visits)
+
+
+def intersect_mimt_plain(wide, o, d, tmin: float, tmax, active,
+                         any_hit: bool, visits=None):
+    """Plain PyTorch version of kernel K2m; ``visits`` counts node and
+    leaf-cluster visits, one each a row step."""
+    KERNEL_MIMT.note_plain(o)
+    return _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit,
+                                True, visits)

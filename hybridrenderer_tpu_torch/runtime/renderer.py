@@ -19,6 +19,7 @@ from ..graph.params import FrameParams, FrameState
 from ..graph.passes import FrameContext
 from ..ops import trace
 from ..paths.factory import create_render_path
+from ..scene import dynamic
 
 
 class Renderer:
@@ -68,6 +69,25 @@ class Renderer:
     def render_np(self, cam_state, **kw) -> np.ndarray:
         return self.render(cam_state, **kw).cpu().numpy()
 
+    def render_dynamic(self, cam_state, maps, transforms, vert_idx, tri_idx,
+                       use_subset: bool, update_lights: bool, **kw):
+        """A dynamic frame in one call: the transform update
+        (scene/dynamic.py, the dirty rows ``vert_idx`` / ``tri_idx``
+        only when ``use_subset``), the tracer's refit, then the frame.
+        Leaves ``self.scene`` and ``self.tracer`` as
+        ``DynamicScene.commit`` would. The reference fuses the three into
+        one jitted dispatch; eager PyTorch runs them in order."""
+        if use_subset:
+            self.scene = dynamic.update_transforms_subset(
+                self.scene, maps, transforms, vert_idx, tri_idx,
+                update_lights=update_lights)
+        else:
+            self.scene = dynamic.update_transforms(self.scene, maps,
+                                                   transforms)
+        if self.tracer is not None:
+            self.tracer = self.tracer.refit(self.scene)
+        return self.render(cam_state, **kw)
+
     def render_burst(self, cam_states, exposure: float = 1.0,
                      svgf_phi=(4.0, 128.0, 0.02, 0.0)):
         """Render one frame per camera state in order → (K, H, W, 3). The
@@ -89,13 +109,14 @@ class Renderer:
         trace_backend): rebuild the pass stack, keep the scene, drop the
         history. The tracer is kept while it still serves (the reference
         keeps it whatever changes), built when one is needed and missing,
-        and rebuilt when trace_backend moves between the per-ray and the
-        packet traversal, so that the setting takes effect."""
+        and rebuilt when trace_backend or wide_kernel moves to another
+        traversal kernel, so that the setting takes effect."""
         settings = self.settings.replace(**changes)
         path = create_render_path(settings)
         if _needs_tracer(settings, self.scene) and (
                 self.tracer is None or self.tracer.packet
-                != (settings.trace_backend == "pallas")):
+                != (settings.trace_backend == "pallas")
+                or self.tracer.wide_kernel != trace.wide_kernel_of(settings)):
             self.tracer = trace.SceneTracer.build(self.scene, settings)
         self.settings, self.path = settings, path
         self.reset_history()

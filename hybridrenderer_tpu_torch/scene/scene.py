@@ -43,7 +43,10 @@ def _t(x):
 
 
 class Scene:
-    """Mutable host scene; ``build()`` produces the device SceneData."""
+    """Mutable host scene; ``build()`` produces the device SceneData and
+    keeps the host topology record ``_built`` (instance rows, mesh vertex
+    offsets, triangle vertex indices and instances), which
+    scene/dynamic.py maps from, as the reference's build does."""
 
     def __init__(self, name: str = "scene"):
         self.name = name
@@ -173,6 +176,8 @@ class Scene:
             instance=_t(t_inst), i0=_t(i0), i1=_t(i1), i2=_t(i2),
             single_sided=_t(single))
 
+        self._built = dict(rows=rows, mesh_voffset=mesh_voffset, i0=i0,
+                           i1=i1, i2=i2, t_inst=t_inst)
         lights = build_light_table(self, rows, pw, i0, i1, i2, t_inst)
         vertices = VertexArrays(position=_t(positions), world_position=_t(pw),
                                 normal=_t(normals), tangent=_t(tangents),

@@ -234,8 +234,19 @@ class SceneData:
 # [65] instance id, [66:72] pad
 
 
-def build_attr_rows(vertices, instances, soup, materials):
-    """One (T, 84) f32 row per triangle (layout above)."""
+def _subset(soup, tris):
+    """(i0, i1, i2, instance) of every triangle, or of the rows ``tris``."""
+    cols = (soup.i0, soup.i1, soup.i2, soup.instance)
+    if tris is not None:
+        tris = tris.long()
+        cols = tuple(c[tris] for c in cols)
+    return tuple(c.long() for c in cols)
+
+
+def build_attr_rows(vertices, instances, soup, materials, tris=None):
+    """One (T, 84) f32 row per triangle (layout above); with ``tris``
+    (D,), the rows of those triangles only (D, 84), equal to the full
+    build's rows there (the dirty-only dynamic update)."""
     from ..ops.shade import pack_materials  # local: avoid import cycle
 
     vpack = torch.cat([vertices.world_position, vertices.position,
@@ -248,25 +259,24 @@ def build_attr_rows(vertices, instances, soup, materials):
         instances.prev_transform[:, :3, :4].reshape(n, 12),
         mat_ids[:, None].float(),
         pack_materials(materials)[mat_ids]], dim=-1)
-    inst = soup.instance.long()
-    return torch.cat([vpack[soup.i0.long()], vpack[soup.i1.long()],
-                      vpack[soup.i2.long()], ipack[inst],
+    i0, i1, i2, inst = _subset(soup, tris)
+    return torch.cat([vpack[i0], vpack[i1], vpack[i2], ipack[inst],
                       inst[:, None].float()], dim=-1)
 
 
-def build_raster_rows(vertices, instances, soup, materials):
+def build_raster_rows(vertices, instances, soup, materials, tris=None):
     """One (T, 72) f32 row per triangle (layout above): the per-vertex
     attributes the raster kernel interpolates, with every instance
-    transform already applied, and the winner's constants."""
+    transform already applied, and the winner's constants; ``tris``
+    scopes it to those triangles, as for ``build_attr_rows``."""
     from ..ops.shade import pack_materials  # local: avoid import cycle
 
-    inst = soup.instance.long()
+    i0, i1, i2, inst = _subset(soup, tris)
     nmat = instances.normal_transform[inst][:, :3, :3]
     ptf = instances.prev_transform[inst][:, :3, :]
     T = inst.shape[0]
 
     def vert(ik):
-        ik = ik.long()
         lp = vertices.position[ik]
         wn = torch.einsum("tij,tj->ti", nmat, vertices.normal[ik])
         tg = vertices.tangent[ik]
@@ -282,5 +292,4 @@ def build_raster_rows(vertices, instances, soup, materials):
         mat_ids[:, None].float(),
         inst[:, None].float(),
         torch.zeros((T, 6), device=nmat.device)], dim=-1)
-    return torch.cat([vert(soup.i0), vert(soup.i1), vert(soup.i2), const],
-                     dim=-1)
+    return torch.cat([vert(i0), vert(i1), vert(i2), const], dim=-1)

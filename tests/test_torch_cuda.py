@@ -8,8 +8,8 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
-(compiled with -fmad=false), so K1-K3, K1v, K2b and K5 agree exactly;
-K4's exp and pow may differ in the last ulp."""
+(compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m and K5 agree
+exactly; K4's exp and pow may differ in the last ulp."""
 import numpy as np
 import pytest
 import torch
@@ -165,6 +165,59 @@ def test_closest_hit_kernel_matches_plain(dev):
     for a, b in ((tk, tp), (uk, up), (vk, vp)):
         torch.testing.assert_close(a[same], b[same], rtol=0, atol=0)
     assert (trik[~active] == -1).all() and torch.isinf(tk[trik < 0]).all()
+
+
+@pytest.mark.parametrize("kernel", ["trace_wide", "trace_mimt"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_kernels_match_plain(dev, kernel, any_hit):
+    """K2w and K2m against their plain versions on the card, exact in t,
+    tri, u and v: random rays (10% inactive, per-ray tmax, a ragged last
+    program) and primary rays in 32x32 tile order; then against the
+    per-ray K2 / K2c on the same rays."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.ops import composition
+    from hybridrenderer_tpu_torch.ops.trace import tile_major
+
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    wide_kernel = "mimt" if kernel == "trace_mimt" else "compressed"
+    tracer = SceneTracer.build(data, RenderSettings(
+        trace_backend="pallas-wide", wide_kernel=wide_kernel))
+    packed = SceneTracer.build(data).packed
+    f = getattr(trace_cuda, "intersect_" + kernel[6:])
+    plain = getattr(trace_cuda, "intersect_" + kernel[6:] + "_plain")
+    g = np.random.default_rng(1)
+    R = 5000
+    o = _t(g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3)).astype(
+        np.float32), dev)
+    d = g.standard_normal((R, 3)).astype(np.float32)
+    d = _t(d / np.linalg.norm(d, axis=-1, keepdims=True), dev)
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = _t(g.random(R) < 0.9, dev)
+    W, H = 96, 64
+    cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
+    fwd, _ = tile_major(H, W, dev)
+    po = cam.position.expand(fwd.shape[0], 3).contiguous()
+    pd = composition.view_directions(cam, H, W, dev).reshape(-1, 3)[fwd]
+    for args in ((o, d, 0.01, tmax, active),
+                 (po, pd.contiguous(), 0.01,
+                  torch.full(fwd.shape, 1e6, device=dev),
+                  torch.ones(fwd.shape, dtype=torch.bool, device=dev))):
+        before = native.KERNELS[kernel].launches
+        k = f(tracer.wide, *args, any_hit)
+        assert native.KERNELS[kernel].launches == before + 1
+        p = plain(tracer.wide, *args, any_hit)
+        for a, b in zip(k, p):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        act = args[4]
+        assert (k[1][~act] == trace_cuda.INACTIVE_TRI).all()
+        if any_hit:
+            ref = trace_cuda.intersect_any(packed, *args)
+            assert torch.equal(ref >= 0, (k[1] >= 0) & act)
+        else:
+            ref = trace_cuda.intersect_closest(packed, *args)
+            torch.testing.assert_close(ref[0][act], k[0][act], rtol=0,
+                                       atol=0)
+    assert int(tracer.wide.deep_pushes.item()) == 0
 
 
 def test_window_sample_kernel_matches_plain(dev):
@@ -351,4 +404,63 @@ def test_cuda_raytraced_frame_matches_cpu_frame(dev, mode, max_off, max_p99):
     p99 = float(np.percentile(diff, 99))
     print(f"card vs CPU, ray-traced {mode}: off-edge max {off_max} u8, p99 "
           f"{p99}")
+    assert off_max <= max_off and p99 <= max_p99, (off_max, p99)
+
+
+@pytest.mark.parametrize("kernel,svgf,max_off,max_p99", [
+    # readings on an H100 (off-edge max / p99): SVGF on 18 / 3 for both
+    # kernels (the cube's SVGF chaos: the reference's own jit and eager
+    # renders differ by 20 / 6), SVGF off 0 / 0 for both
+    ("compressed", True, 22, 5.0),
+    ("mimt", True, 22, 5.0),
+    ("compressed", False, 2, 1.0),
+    ("mimt", False, 2, 1.0),
+])
+def test_cuda_dynamic_frame_matches_cpu_frame(dev, kernel, svgf, max_off,
+                                              max_p99):
+    """The dynamic hybrid frame (entity 1 of the cube moving before each
+    of 3 frames, DynamicScene.commit: transform update, refit of the
+    8-wide tree, K2w or K2m) on the card against the CPU, 64x64, off the
+    last frame's object edges. With SVGF at the reading plus 4 / 2, as
+    the other SVGF frames' gates; without it at the reference's 2 / 1."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+    from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
+    from hybridrenderer_tpu_torch.runtime.output import to_u8
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
+
+    size = 64
+    flags = RenderFlags.default_hybrid()
+    if not svgf:
+        flags &= ~(RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
+                   | RenderFlags.SVGF_SPATIAL)
+    s = RenderSettings(width=size, height=size, path=RenderPathType.HYBRID,
+                       flags=flags, ao_block=8, gi_block=8,
+                       trace_backend="pallas-wide", wide_kernel=kernel)
+    imgs = []
+    for d in (torch.device("cpu"), dev):
+        native.reset_counts()
+        host = scenes.cube_scene()
+        r = Renderer.for_scene(s, host.build(d))
+        dyn = DynamicScene(host, r)
+        cam = OrbitCamera(width=size, height=size, **CUBE_KW)
+        for i in range(3):
+            t = np.eye(4, dtype=np.float32)
+            t[:3, 3] = [0.3 * i, 0.75, 0.1 * i]
+            dyn.set_entity_transform(1, t)
+            dyn.commit()
+            img = r.render(cam.step())
+        imgs.append(to_u8(img.cpu().numpy()))
+        tri = r.state.history["ObjectID"].cpu().numpy()
+    assert not any(k.plain_cuda_calls for k in native.KERNELS.values())
+    name = "trace_mimt" if kernel == "mimt" else "trace_wide"
+    assert native.KERNELS[name].launches > 0
+    assert native.KERNELS["trace_any"].launches == 0
+    edges = tri_boundary_mask(tri)
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    off_max = int(diff.max(-1)[~edges].max())
+    p99 = float(np.percentile(diff, 99))
+    print(f"card vs CPU, dynamic {kernel}, SVGF {svgf}: off-edge max "
+          f"{off_max} u8, p99 {p99}")
     assert off_max <= max_off and p99 <= max_p99, (off_max, p99)
