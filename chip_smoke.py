@@ -598,6 +598,18 @@ def torch_equal_nan(a, b):
                                                  & torch.isnan(b))).all())
 
 
+def abs_diff_nan(a, b) -> float:
+    """max |a - b|, 0 where both are NaN or equal (both +inf on a miss),
+    inf where only one is NaN."""
+    import torch
+
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    if bool(same.all()):
+        return 0.0
+    inf = float("inf")
+    return (a - b).abs().nan_to_num(nan=inf, posinf=inf)[~same].max().item()
+
+
 def check_wide(dev):
     """K2w and K2m on the four wide queries of the 1080p paths (all rays),
     each exact against its plain version (t, tri, u, v apart), then
@@ -630,12 +642,17 @@ def check_wide(dev):
         deep = int(wide.deep_pushes.item()) - deep0
         steps = {}
         ps = [plain(wide, *r, m, visits=steps) for r, m in zip(rays, modes)]
+        err, tri_bad = 0.0, 0   # max |kernel - plain| over t, u, v
         for (qn, *_), k, p in zip(queries, ks, ps):
             bad = [f for f, a, b in zip("t tri u v".split(), k, p)
                    if not torch_equal_nan(a, b)]
+            tri_bad += int((k[1] != p[1]).sum())
+            err = max([err] + [abs_diff_nan(k[c], p[c]) for c in (0, 2, 3)])
             if bad:
                 raise AssertionError(f"{name} differs from its plain "
-                                     f"version on the {qn} rays in {bad}")
+                                     f"version on the {qn} rays in {bad}: "
+                                     f"max err t, u, v {err}, {tri_bad} "
+                                     f"triangles")
         flips, t_diff, ties = 0, 0.0, 0
         for r, m, k, ref_out in zip(rays, modes, ks, ref):
             act = r[4]
@@ -664,7 +681,7 @@ def check_wide(dev):
         active = [int(r[4].sum()) for r in rays]
         unit = "row" if name == "trace_mimt" else "packet"
         out[name] = dict(
-            err=0.0, ms=sum(times), plain_ms=plain_ms, bound=b,
+            err=err, ms=sum(times), plain_ms=plain_ms, bound=b,
             shape=f"the shadow, AO (any-hit) and primary (closest-hit) rays "
                   f"of one {W}x{H} headline / ray-traced frame in 32x32 "
                   f"tile order and the primary hits' sun occlusion rays "
@@ -677,7 +694,8 @@ def check_wide(dev):
                   + " + ".join(f"{t:.4f}" for t in per_ray_ms)
                   + f" ms on the same rays ({flips} visibility flips, "
                   f"closest t within {t_diff:.3g}, {ties} equal-t triangle "
-                  f"ties); {unit} steps {steps} vs per-ray node visits "
+                  f"ties; {tri_bad} triangles differ from the plain "
+                  f"version's); {unit} steps {steps} vs per-ray node visits "
                   f"{visits}; {deep} leaf pushes past the reference's 128 "
                   f"entries; ms for all four",
             tol="exact (t, tri, u, v)")

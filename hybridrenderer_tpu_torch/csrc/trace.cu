@@ -476,7 +476,7 @@ __device__ __forceinline__ int wide_decode(int e, const int2* __restrict__ meta,
                                            int n_meta, int col, int* rem) {
   const int bits = e & 255;
   const int below = (bits & -bits) - 1;
-  const int2 mm = __ldg(meta + min(e >> 8, n_meta - 1));
+  const int2 mm = __ldg(meta + max(min(e >> 8, n_meta - 1), 0));
   const int m = col ? mm.y : mm.x;
   *rem = bits & (bits - 1);
   return (m >> 8) + __popc((m & 255) & below);
@@ -510,7 +510,10 @@ trace_wide_kernel(const float* __restrict__ nodes,
   }
   // the bootstrap entry (super-root 0, mask 1) decodes to the root
   int isp[2] = {1, 1}, lsp[2] = {0, 0};
-  if (tid < 2) s_istack[tid][0] = 1;
+  if (tid < 2) {
+    s_istack[tid][0] = 1;
+    s_lstack[tid][0] = 0;
+  }
   if (tid < 4) s_vote[tid / 2][tid % 2] = 0u;
   __syncthreads();
   int buf = 0;
@@ -529,13 +532,15 @@ trace_wide_kernel(const float* __restrict__ nodes,
         // a packet whose leaf stack is full pops no node this step
         ivalid[p] = isp[p] > 0 && lsp[p] < kWideLeafStack;
         itop[p] = max(isp[p] - 1, 0);
-        const int ie = itop[p] < kWideStack ? s_istack[p][itop[p]] : 0;
+        // an empty stack's top is never read: it may hold anything
+        const int ie = (isp[p] > 0 && itop[p] < kWideStack)
+                           ? s_istack[p][itop[p]] : 0;
         int irem, lrem;
         const int ichild = wide_decode(ie, meta, n_meta, 0, &irem);
         ient[p] = ((ie >> 8) << 8) | irem;
         lvalid[p] = lsp[p] > 0;
         ltop[p] = max(lsp[p] - 1, 0);
-        const int le = ltop[p] < kWideLeafStack ? s_lstack[p][ltop[p]] : 0;
+        const int le = lsp[p] > 0 ? s_lstack[p][ltop[p]] : 0;
         const int lchild = wide_decode(le, meta, n_meta, 1, &lrem);
         lent[p] = ((le >> 8) << 8) | lrem;
         node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : 0;
@@ -604,7 +609,10 @@ trace_mimt_kernel(const float* __restrict__ nodes,
   }
   // every row starts on the super-root's id 0; sp is the thread's row's
   int isp[2] = {1, 1}, lsp[2] = {0, 0};
-  if (lane < 2) s_istack[lane][row][0] = 0;
+  if (lane < 2) {
+    s_istack[lane][row][0] = 0;
+    s_lstack[lane][row][0] = 0;
+  }
   if (lane < 4) s_vote[lane / 2][lane % 2][row] = 0u;
   __syncthreads();
   int buf = 0;
@@ -623,11 +631,11 @@ trace_mimt_kernel(const float* __restrict__ nodes,
         // a row whose leaf stack could overflow pops no node this step
         ivalid[p] = isp[p] > 0 && lsp[p] <= kWideLeafStack - 8;
         const int itop = max(isp[p] - 1, 0);
-        const int ichild = itop < kWideStack ? s_istack[p][row][itop] : 0;
+        const int ichild = (isp[p] > 0 && itop < kWideStack)
+                               ? s_istack[p][row][itop] : 0;
         const bool lvalid = lsp[p] > 0;
         const int ltop = max(lsp[p] - 1, 0);
-        const int lchild = ltop < kWideLeafStack ? s_lstack[p][row][ltop]
-                                                 : 0;
+        const int lchild = lvalid ? s_lstack[p][row][ltop] : 0;
         node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : n_nodes - 1;
         const int leaf = lvalid ? min(lchild, n_leaves - 1) : n_leaves - 1;
         wide_leaf(leaves + 48L * leaf, ray[p], tmin);

@@ -58,30 +58,14 @@ def build_sah(v0, v1, v2, device=None) -> BVH:
                  for x in (nmin, nmax, left, right, tri)), num_tris=T)
 
 
-def tree_height(left, right, num_tris) -> int:
-    """Levels of internal nodes from the root down (host): the number of
-    bottom-up passes a refit needs."""
-    T = int(num_tris)
-    if T <= 1:
-        return 1
-    lf = left[: T - 1].cpu().numpy()
-    rt = right[: T - 1].cpu().numpy()
-    cur = np.array([0], np.int64)
-    h = 0
-    while cur.size:
-        h += 1
-        children = np.concatenate([lf[cur], rt[cur]])
-        cur = children[children < T - 1]
-    return h
-
-
 def refit_levels(bvh: BVH) -> list:
     """The internal nodes grouped by height above the leaves (host, once
     per topology), as (nodes, their left children, their right
     children) index tensors on the tree's device: group k holds the
     nodes whose children all lie in groups before it or are leaves, so a
     refit can take the groups in order, one gather-min pass each.
-    ``len(groups) == tree_height(...)``."""
+    ``len(groups)`` is the tree's height in internal-node levels (the
+    reference's ``tree_height``)."""
     T = bvh.num_tris
     if T <= 1:
         return []

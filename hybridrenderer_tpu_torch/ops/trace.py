@@ -109,7 +109,8 @@ class SceneTracer:
     shade_rows: Any
     # trace_backend "pallas": every query through the packet kernel K2b
     packet: bool = False
-    # the binary SAH tree and its refit order (bvh.refit_levels)
+    # the binary SAH tree, and its refit order (bvh.refit_levels), taken
+    # on the first refit
     bvh: Any = None
     levels: Any = None
     # wide_kernel "compressed" (K2w) or "mimt" (K2m): every query over
@@ -146,17 +147,20 @@ class SceneTracer:
                     f"which it traces bf16 records (not ported yet)")
             check_wide_stacks(wide, kernel == "mimt")
         return SceneTracer(packed=packed, shade_rows=_shade_rows(scene_data),
-                           packet=packet, bvh=bvh, levels=refit_levels(bvh),
-                           wide_kernel=kernel, wide=wide)
+                           packet=packet, bvh=bvh, wide_kernel=kernel,
+                           wide=wide)
 
     def refit(self, scene_data) -> "SceneTracer":
         """The tracer after a dynamic update moved triangles (the
         topology frozen): the binary tree's boxes refit, K2's records
         repacked at the known depth, or the wide records refit, and the
         hit-shading rows taken anew from the scene's attribute rows. All
-        on the scene's device, with no host work."""
+        on the scene's device; only the first refit of a tree walks it on
+        the host, for the level order it keeps."""
         soup = scene_data.triangles
-        bvh = refit_bvh(self.bvh, soup.v0, soup.v1, soup.v2, self.levels)
+        levels = self.levels if self.levels is not None \
+            else refit_levels(self.bvh)
+        bvh = refit_bvh(self.bvh, soup.v0, soup.v1, soup.v2, levels)
         packed = wide = None
         if self.wide is not None:
             wide = refit_wide(self.wide, bvh.node_min, bvh.node_max,
@@ -165,7 +169,8 @@ class SceneTracer:
             packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
                               PACKET_STACK_DEPTH if self.packet
                               else STACK_DEPTH, depth=self.packed.depth)
-        return dataclasses.replace(self, packed=packed, bvh=bvh, wide=wide,
+        return dataclasses.replace(self, packed=packed, bvh=bvh,
+                                   levels=levels, wide=wide,
                                    shade_rows=_shade_rows(scene_data))
 
     def _packet_order(self, lead, *rays):

@@ -69,14 +69,11 @@ class Renderer:
     def render_np(self, cam_state, **kw) -> np.ndarray:
         return self.render(cam_state, **kw).cpu().numpy()
 
-    def render_dynamic(self, cam_state, maps, transforms, vert_idx, tri_idx,
-                       use_subset: bool, update_lights: bool, **kw):
-        """A dynamic frame in one call: the transform update
-        (scene/dynamic.py, the dirty rows ``vert_idx`` / ``tri_idx``
-        only when ``use_subset``), the tracer's refit, then the frame.
-        Leaves ``self.scene`` and ``self.tracer`` as
-        ``DynamicScene.commit`` would. The reference fuses the three into
-        one jitted dispatch; eager PyTorch runs them in order."""
+    def update_dynamic(self, maps, transforms, vert_idx, tri_idx,
+                       use_subset: bool, update_lights: bool):
+        """A dynamic update of ``self.scene`` (scene/dynamic.py; only the
+        dirty rows ``vert_idx`` / ``tri_idx`` when ``use_subset``), then
+        the tracer's refit: ``DynamicScene.commit``'s work."""
         if use_subset:
             self.scene = dynamic.update_transforms_subset(
                 self.scene, maps, transforms, vert_idx, tri_idx,
@@ -86,6 +83,14 @@ class Renderer:
                                                    transforms)
         if self.tracer is not None:
             self.tracer = self.tracer.refit(self.scene)
+
+    def render_dynamic(self, cam_state, maps, transforms, vert_idx, tri_idx,
+                       use_subset: bool, update_lights: bool, **kw):
+        """A dynamic frame in one call: ``update_dynamic``, then the
+        frame. The reference fuses the two into one jitted dispatch;
+        eager PyTorch runs them in order."""
+        self.update_dynamic(maps, transforms, vert_idx, tri_idx, use_subset,
+                            update_lights)
         return self.render(cam_state, **kw)
 
     def render_burst(self, cam_states, exposure: float = 1.0,

@@ -305,30 +305,16 @@ class DynamicScene:
         return tf, vert_idx, tri_idx, use_subset, lights
 
     def commit(self):
-        """Update the renderer's scene and refit its tracer."""
+        """Update the renderer's scene and refit its tracer
+        (``Renderer.update_dynamic``)."""
         if not self._dirty_entities:
             return
-        r = self.renderer
         tf, vert_idx, tri_idx, use_subset, lights = self._pending()
-        if use_subset:
-            r.scene = update_transforms_subset(r.scene, self.maps, tf,
-                                               vert_idx, tri_idx,
-                                               update_lights=lights)
-        else:
-            r.scene = update_transforms(r.scene, self.maps, tf)
-        if r.tracer is not None:
-            r.tracer = r.tracer.refit(r.scene)
+        self.renderer.update_dynamic(self.maps, tf, vert_idx, tri_idx,
+                                     use_subset, lights)
         self._dirty_entities.clear()
 
     def commit_and_render(self, cam_state, **kw):
-        """``commit()`` and the frame in one call
-        (Renderer.render_dynamic); a plain render when nothing is dirty."""
-        r = self.renderer
-        if not self._dirty_entities:
-            return r.render(cam_state, **kw)
-        tf, vert_idx, tri_idx, use_subset, lights = self._pending()
-        out = r.render_dynamic(cam_state, self.maps, tf, vert_idx, tri_idx,
-                               use_subset=use_subset, update_lights=lights,
-                               **kw)
-        self._dirty_entities.clear()
-        return out
+        """``commit()``, then the frame."""
+        self.commit()
+        return self.renderer.render(cam_state, **kw)

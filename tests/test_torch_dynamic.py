@@ -260,9 +260,10 @@ def test_dynamic_render_matches_reference(reference_dynamic, kernel, svgf):
 
 
 def test_commit_and_render_equals_commit_then_render():
-    """commit_and_render (Renderer.render_dynamic) is the same update,
-    refit and frame as commit(); render(): equal images, and the same
-    scene and tracer left on the renderer."""
+    """Renderer.render_dynamic, given the dirty set's update arguments,
+    is the same update, refit and frame as commit(); render() (which
+    commit_and_render runs): equal images, and the same scene and tracer
+    left on the renderer."""
     size = 32
 
     def run(fused):
@@ -278,10 +279,13 @@ def test_commit_and_render_equals_commit_then_render():
         for i in range(3):
             dyn.set_entity_transform(1, _translate(0.4 * i, 0.75, 0.0))
             if fused:
-                imgs.append(dyn.commit_and_render(cam.step()))
+                tf, vert_idx, tri_idx, use_subset, lights = dyn._pending()
+                dyn._dirty_entities.clear()
+                imgs.append(r.render_dynamic(cam.step(), dyn.maps, tf,
+                                             vert_idx, tri_idx, use_subset,
+                                             lights))
             else:
-                dyn.commit()
-                imgs.append(r.render(cam.step()))
+                imgs.append(dyn.commit_and_render(cam.step()))
         return imgs, r
 
     (a, ra), (b, rb) = run(False), run(True)
