@@ -9,12 +9,14 @@ non-zero without printing a result):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native BVH builder
-   (g++), from the sources in this checkout;
+   (g++), from the sources in this checkout, and the SVGF stencils'
+   SASS instruction counts (cuobjdump, where the toolkit has it);
 3. kernels: each kernel against its plain PyTorch version on the card,
-   on the inputs the render paths hand it at 1920x1080, with the
-   tolerance stated, timed with CUDA events beside the least time the
-   card could take (bound) and, where one PyTorch call computes the
-   same function, that call's time (library);
+   on the inputs the render paths hand it at 1920x1080 (K1 and the K4
+   stencils at odd sizes too), with the tolerance stated, timed with
+   CUDA events beside the least time the card could take (bound) and,
+   where one PyTorch call computes the same function, that call's time
+   (library);
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
    cube_forward_64.png and cube_raytraced_128.png rendered on the card,
    held to the goldens off triangle edges;
@@ -163,6 +165,48 @@ def phase_build():
         for line in f:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("[build] " + line.strip())
+    for name, counts in sass_counts(native.kernel_library_path()).items():
+        log(f"[build] SASS of {name}: {counts}")
+
+
+# what the SVGF stencils' per-tap arithmetic costs beyond its ~30 FLOP:
+# IEEE divisions (each checked by an FCHK), the accurate expf and powf
+# (built on MUFU.EX2 and MUFU.RCP) and the slow paths they call
+SASS_OPS = ("FCHK", "MUFU.EX2", "MUFU.RCP", "MUFU.RSQ", "CALL")
+
+
+def sass_counts(lib_path, kernels=("atrous_kernel", "filter_moments_kernel")):
+    """Static SASS instruction counts of ``kernels`` in the built
+    library, from cuobjdump -sass: {kernel: {"all": n, op: n, ...}};
+    empty where the toolkit has no cuobjdump."""
+    from hybridrenderer_tpu_torch import native
+
+    tool = os.path.join(os.path.dirname(native.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("[build] no cuobjdump: SASS counts not measured")
+        return {}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = next((k for k in kernels if k in line), None)
+            if cur is not None:
+                counts[cur] = dict.fromkeys(("all",) + SASS_OPS, 0)
+            continue
+        # an instruction: /*addr*/ [@predicate] OPCODE ...
+        parts = line.split("*/", 1)
+        if cur is None or len(parts) < 2 or not parts[1].strip():
+            continue
+        words = parts[1].split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        if not op[0].isalpha():
+            continue
+        counts[cur]["all"] += 1
+        for k in SASS_OPS:
+            if op.startswith(k):
+                counts[cur][k] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -197,14 +241,12 @@ def _clipped(data, width, height, cam_kw):
                                  soup.single_sided)
 
 
-def check_raster(dev):
+def _raster_exact(args):
+    """K1 and its plain version on ``args`` → (max err, the kernel's
+    VisibilityBuffer and attributes); raises unless they are equal."""
     from hybridrenderer_tpu_torch.ops import raster_cuda as rc
 
-    W, H = HEADLINE["width"], HEADLINE["height"]
-    data = _headline_scene(dev, HEADLINE["objects"])
-    rec, bbox, valid = rc.pack_candidates(_clipped(data, W, H, HEADLINE_CAM))
-    ts, ec = rc.bin_candidates(bbox, valid, W, H)
-    args = (rec, ts, ec, data.raster_rows, W, H)
+    W, H = args[-2:]
     vk, ak = rc.raster_tiles(*args)
     vp, ap = rc.raster_tiles_plain(*args)
     same = vk.tri_id == vp.tri_id
@@ -214,8 +256,30 @@ def check_raster(dev):
         (ak, ap)))
     # same float operations in the same order (-fmad=false): exact
     if mismatch > 0.0 or err > 0.0:
-        raise AssertionError(f"K1 disagrees with its plain version: "
-                             f"{mismatch:.2e} of pixels, max err {err}")
+        raise AssertionError(f"K1 disagrees with its plain version at "
+                             f"{W}x{H}: {mismatch:.2e} of pixels, max err "
+                             f"{err}")
+    return err, vk, ak
+
+
+def check_raster(dev):
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    rec, bbox, valid = rc.pack_candidates(_clipped(data, W, H, HEADLINE_CAM))
+    ts, ec = rc.bin_candidates(bbox, valid, W, H)
+    args = (rec, ts, ec, data.raster_rows, W, H)
+    err, vk, ak = _raster_exact(args)
+    # an odd size: tiles cut in both axes, and tiles that list more than
+    # 256 candidates, so the kernel walks several staged chunks
+    Wo, Ho = 203, 117
+    rec_o, bbox_o, valid_o = rc.pack_candidates(
+        _clipped(data, Wo, Ho, HEADLINE_CAM))
+    ts_o, ec_o = rc.bin_candidates(bbox_o, valid_o, Wo, Ho)
+    err = max(err, _raster_exact((rec_o, ts_o, ec_o, data.raster_rows, Wo,
+                                  Ho))[0])
+    most_o = int((ts_o[1:] - ts_o[:-1]).max())
     ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
     plain_ms = cuda_time(lambda: rc.raster_tiles_plain(*args), 2)
     # ~20 FLOP per (candidate, pixel) coverage test, every pixel of the
@@ -225,8 +289,10 @@ def check_raster(dev):
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b,
                 shape=f"{W}x{H}, {ec.shape[0]} tile entries, "
-                      f"{rec.shape[0]} candidates",
-                tol="exact (tri ids and all outputs)")
+                      f"{rec.shape[0]} candidates; exact too at {Wo}x{Ho} "
+                      f"({ec_o.shape[0]} tile entries, up to {most_o} in a "
+                      f"tile)",
+                tol="exact (tri ids and all outputs), at both sizes")
 
 
 def check_trace(dev):
@@ -838,38 +904,56 @@ def check_window_sample(dev):
                 tol="exact")
 
 
-def check_stencils(dev):
+def _stencil_inputs(dev, H, W, seed):
+    """(signal, moments, normal, motion plane) at (H, W), from a seed."""
     import torch
 
-    from hybridrenderer_tpu_torch.ops import stencil_cuda as sc
-
-    H, W = HEADLINE["height"], HEADLINE["width"]
-    depth, oid, nrm, mp, g = _frame_planes(dev, H, W, 2)
+    depth, oid, nrm, mp, g = _frame_planes(dev, H, W, seed)
     sig = torch.from_numpy(g.random((H, W, 4)).astype(np.float32)).to(dev)
     mom = torch.from_numpy((g.random((H, W, 4)) * [1, 1, 1, 8]).astype(
         np.float32)).to(dev)
+    return sig, mom, nrm, mp
+
+
+def check_stencils(dev):
+    from hybridrenderer_tpu_torch.ops import stencil_cuda as sc
+
+    H, W = HEADLINE["height"], HEADLINE["width"]
     phi_l, phi_a, phi_n = 4.0, 128.0, float(np.float32(0.02))
-    cases = {
-        "filter_moments": (lambda: sc.filter_moments(sig, mom, nrm, mp,
-                                                     phi_l, phi_n),
-                           lambda: sc.filter_moments_plain(sig, mom, nrm, mp,
-                                                           phi_l, phi_n)),
-        "variance_blur": (lambda: sc.variance_blur(mom),
-                          lambda: sc.variance_blur_plain(mom)),
-        "atrous": (lambda: [sc.atrous(sig, nrm, mp, s, phi_a, phi_n)
-                            for s in (1, 2, 4)],
-                   lambda: [sc.atrous_plain(sig, nrm, mp, s, phi_a, phi_n)
-                            for s in (1, 2, 4)]),
-    }
-    out = {}
-    for name, (kern, plain) in cases.items():
+
+    def cases(sig, mom, nrm, mp):
+        return {
+            "filter_moments": (
+                lambda: sc.filter_moments(sig, mom, nrm, mp, phi_l, phi_n),
+                lambda: sc.filter_moments_plain(sig, mom, nrm, mp, phi_l,
+                                                phi_n)),
+            "variance_blur": (lambda: sc.variance_blur(mom),
+                              lambda: sc.variance_blur_plain(mom)),
+            "atrous": (lambda: [sc.atrous(sig, nrm, mp, s, phi_a, phi_n)
+                                for s in (1, 2, 4)],
+                       lambda: [sc.atrous_plain(sig, nrm, mp, s, phi_a,
+                                                phi_n) for s in (1, 2, 4)]),
+        }
+
+    def rel_err(kern, plain):
         ks, ps = kern(), plain()
         ks = ks if isinstance(ks, (list, tuple)) else [ks]
         ps = ps if isinstance(ps, (list, tuple)) else [ps]
-        # exp and pow differ in the last ulp between CUDA and PyTorch;
-        # outputs are normalized weighted means and variances
-        err = max(((a - b).abs() / (1.0 + b.abs())).max().item()
-                  for a, b in zip(ks, ps))
+        # exp and pow may differ in the last ulp between CUDA and
+        # PyTorch; outputs are normalized weighted means and variances
+        return ks, max(((a - b).abs() / (1.0 + b.abs())).max().item()
+                       for a, b in zip(ks, ps))
+
+    sig, mom, nrm, mp = _stencil_inputs(dev, H, W, 2)
+    # odd sizes: 117x203 is not a multiple of the tiles, 5x7 is smaller
+    # than atrous' halo at step 4
+    odd = {(h, w): cases(*_stencil_inputs(dev, h, w, 3))
+           for h, w in ((117, 203), (5, 7))}
+    out = {}
+    for name, (kern, plain) in cases(sig, mom, nrm, mp).items():
+        ks, err = rel_err(kern, plain)
+        for c in odd.values():
+            err = max(err, rel_err(*c[name])[1])
         if err > 1e-4:
             raise AssertionError(f"K4 {name} max rel err {err}")
         reps = 3 if name == "atrous" else 1
@@ -882,13 +966,24 @@ def check_stencils(dev):
             "variance_blur": nbytes(mom),
             "atrous": nbytes(sig, nrm) + px * f32 * 2}[name]
         taps = {"filter_moments": 49, "variance_blur": 9, "atrous": 25}[name]
+        shape = f"{W}x{H}"
+        if name == "atrous":
+            # background pixels take no taps: what is left is staging
+            # and stores, the traffic part of the kernel's time
+            mp_bg = mp.clone()
+            mp_bg[..., 2] = 0.0
+            bg_ms = cuda_time(lambda: [sc.atrous(sig, nrm, mp_bg, s, phi_a,
+                                                 phi_n) for s in (1, 2, 4)],
+                              20) / reps
+            shape += (f", per step (1, 2, 4); on an all-background copy "
+                      f"(no taps) {bg_ms:.4f} ms per step")
         out[name] = dict(
             err=err, ms=cuda_time(kern, 20) / reps,
             plain_ms=cuda_time(plain, 2) / reps,
             bound=bound(reads + nbytes(*(ks[:1] if reps > 1 else ks)),
                         30.0 * taps * px),
-            shape=f"{W}x{H}" + (", per step (1, 2, 4)" if reps > 1 else ""),
-            tol="1e-4 relative to 1 + |plain|")
+            shape=shape + "; also within the gate at 203x117 and 7x5",
+            tol="1e-4 relative to 1 + |plain|, at all three sizes")
     return out
 
 

@@ -39,10 +39,18 @@
 // and each thread keeps only its running winner. K1 breaks depth ties
 // to the lowest candidate index, so its result does not depend on list
 // order. Barycentrics and attributes are evaluated once, for the winner
-// only. Bound on the card: the candidate loop, ~20 FLOP per candidate
-// per pixel out of shared memory (broadcast reads); output writes are
-// 16 B per pixel (176 B with attributes). The TPU kernels' 128-lane
-// record blocks, one-hot MXU picks and quantized depth keys were TPU
+// only: each thread writes its pixel's depth, triangle and barycentrics
+// (16 B) and puts its winner's triangle and barycentrics into shared
+// memory; after a barrier that every thread reaches, pixels outside the
+// image too, the block writes the tile's 40 attribute channels per pixel
+// cooperatively, consecutive threads on consecutive float4s (a tile row
+// is 640 contiguous floats), reading the winners' raster_rows rows as
+// float4s the same way. A thread per pixel storing its own 40 floats
+// would touch 32 sectors per warp store, 8x the bytes. Bound on the
+// card: the output, 176 B per pixel with attributes (16 B vis-only),
+// after the candidate loop, ~20 FLOP per candidate per pixel out of
+// shared memory (broadcast reads). The TPU kernels' 128-lane record
+// blocks, one-hot MXU picks and quantized depth keys were TPU
 // workarounds; K1 does not keep them, K1v keeps only the key's winner
 // rule, which is its contract.
 #include "common.cuh"
@@ -82,22 +90,21 @@ __device__ __forceinline__ bool cover_depth(const float* r, float px,
   return *z >= 0.0f && *z <= 1.0f;
 }
 
-// The winner's visibility outputs (and K1's attributes) at pixel p.
-template <bool kAttrs>
-__device__ __forceinline__ void write_winner(
-    const float* __restrict__ rec, const float* __restrict__ attr_table,
-    int best, float best_z, float px, float py, size_t p,
-    float* __restrict__ depth_out, int* __restrict__ tri_out,
-    float* __restrict__ bary_out, float* __restrict__ attr_out) {
+// The winner's visibility outputs at pixel p → its triangle id (-1 for
+// none) and original-triangle barycentrics b1, b2.
+__device__ __forceinline__ int write_winner(
+    const float* __restrict__ rec, int best, float best_z, float px,
+    float py, size_t p, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ bary_out, float* b1_out,
+    float* b2_out) {
   if (best < 0) {
     depth_out[p] = 0.0f;
     tri_out[p] = -1;
     bary_out[2 * p] = 0.0f;
     bary_out[2 * p + 1] = 0.0f;
-    if (kAttrs) {
-      for (int c = 0; c < kAttrOut; ++c) attr_out[p * kAttrOut + c] = 0.0f;
-    }
-    return;
+    *b1_out = 0.0f;
+    *b2_out = 0.0f;
+    return -1;
   }
   const float* r = rec + static_cast<size_t>(best) * kRec;
   const float sgn = r[9];
@@ -115,15 +122,50 @@ __device__ __forceinline__ void write_winner(
   tri_out[p] = tri;
   bary_out[2 * p] = b1;
   bary_out[2 * p + 1] = b2;
-  if (!kAttrs) return;
+  *b1_out = b1;
+  *b2_out = b2;
+  return tri;
+}
 
-  float* a = attr_out + p * kAttrOut;
-  const float b0 = 1.0f - b1 - b2;
-  const float* row = attr_table + static_cast<size_t>(tri) * kAttrRow;
-  for (int c = 0; c < 16; ++c) {
-    a[c] = row[c] * b0 + row[16 + c] * b1 + row[32 + c] * b2;
+// K1's attribute image for the block's tile, from the winners in shared
+// memory (stri < 0: background). The tile's (pixel, channel) pairs are
+// walked as float4s in memory order, so a warp stores 512 contiguous
+// bytes: a tile row of 16 pixels is 640 contiguous floats, and a float4
+// never straddles two pixels (40 = 10 x 4). Each value is the plain
+// version's expression in its order.
+__device__ __forceinline__ void write_attrs(
+    const float* __restrict__ attr_table, const int* stri, const float* sb1,
+    const float* sb2, int x0, int y0, int width, int height,
+    float* __restrict__ attr_out) {
+  constexpr int kVec = kAttrOut / 4;            // float4s per pixel
+  constexpr int kRowVec = kTile * kVec;         // float4s per tile row
+  float4* out = reinterpret_cast<float4*>(attr_out);
+  for (int i = threadIdx.x; i < kTile * kRowVec; i += kThreads) {
+    const int ly = i / kRowVec;
+    const int j = i - ly * kRowVec;
+    const int lx = j / kVec;
+    const int v = j - lx * kVec;
+    if (x0 + lx >= width || y0 + ly >= height) continue;
+    const int s = ly * kTile + lx;
+    const int tri = stri[s];
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (tri >= 0) {
+      const float4* row = reinterpret_cast<const float4*>(
+          attr_table + static_cast<size_t>(tri) * kAttrRow);
+      if (v < 4) {   // channels 4v..4v+3 of the 16 interpolated
+        const float b1 = sb1[s], b2 = sb2[s];
+        const float b0 = 1.0f - b1 - b2;
+        const float4 a0 = row[v], a1 = row[4 + v], a2 = row[8 + v];
+        o.x = a0.x * b0 + a1.x * b1 + a2.x * b2;
+        o.y = a0.y * b0 + a1.y * b1 + a2.y * b2;
+        o.z = a0.z * b0 + a1.z * b1 + a2.z * b2;
+        o.w = a0.w * b0 + a1.w * b1 + a2.w * b2;
+      } else {       // the 24 constants, row[48:72]
+        o = row[8 + v];
+      }
+    }
+    out[(static_cast<size_t>(y0 + ly) * width + x0 + lx) * kVec + v] = o;
   }
-  for (int c = 0; c < 24; ++c) a[16 + c] = row[48 + c];
 }
 
 // kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group
@@ -195,10 +237,24 @@ raster_tiles_kernel(const float* __restrict__ rec,
       }
     }
   }
-  if (x >= width || y >= height) return;
-  write_winner<kAttrs>(rec, attr_table, best, best_z, px, py,
-                       static_cast<size_t>(y) * width + x, depth_out,
-                       tri_out, bary_out, attr_out);
+  const bool inside = x < width && y < height;
+  float b1 = 0.0f, b2 = 0.0f;
+  const int tri = inside ? write_winner(rec, best, best_z, px, py,
+                                        static_cast<size_t>(y) * width + x,
+                                        depth_out, tri_out, bary_out, &b1,
+                                        &b2)
+                         : -1;
+  if constexpr (kAttrs) {
+    // every thread reaches the barrier, pixels outside the image too
+    __shared__ int stri[kThreads];
+    __shared__ float sb1[kThreads], sb2[kThreads];
+    stri[threadIdx.x] = tri;
+    sb1[threadIdx.x] = b1;
+    sb2[threadIdx.x] = b2;
+    __syncthreads();
+    write_attrs(attr_table, stri, sb1, sb2, (tile % ntx) * kTile,
+                (tile / ntx) * kTile, width, height, attr_out);
+  }
 }
 
 }  // namespace

@@ -221,6 +221,12 @@ def ptr(t) -> int:
     return t.data_ptr()
 
 
+def aligned(t, nbytes=16):
+    """``t``, or a copy of it whose data starts on an ``nbytes`` boundary
+    (a view's offset can break the alignment vector loads need)."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
 def check(t, name, dtype, shape, device):
     """Raise unless ``t`` has the dtype, shape and device given and is
     contiguous (``None`` in ``shape`` matches any size)."""

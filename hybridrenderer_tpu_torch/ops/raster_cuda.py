@@ -110,9 +110,10 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     CUDA tensors launch kernel K1, which replaces the TPU kernel
     raster_pallas._raster_kernel_t, or with ``keyed`` kernel K1v, which
     replaces raster_pallas._raster_kernel (eval modes v2 / v3); CPU
-    tensors take the plain versions. On the card the kernel's candidate
-    loop runs from shared memory and is bound by its ~20 FLOP per
-    candidate per pixel; see csrc/raster.cu.
+    tensors take the plain versions. On the card the candidate loop runs
+    from shared memory (~20 FLOP per candidate per pixel), and K1's block
+    then writes its tile's attributes as contiguous float4s, so K1 is
+    bound by its 176 B of output a pixel; see csrc/raster.cu.
     """
     if keyed and attr_table is not None:
         raise ValueError("raster_tiles: the keyed mode is vis-only")
@@ -134,6 +135,8 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     if attr_table is not None:
         native.check(attr_table, "attr_table", torch.float32,
                      (None, ATTR_ROW), dev)
+        # the kernel reads rows as float4s
+        attr_table = native.aligned(attr_table)
         attrs = torch.empty((height, width, ATTR_OUT), dtype=torch.float32,
                             device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)

@@ -47,8 +47,10 @@ def filter_moments(signal, moments, normal, motion_plane, phi_luma: float,
 
     CUDA tensors launch the K4 kernel that replaces the TPU kernel
     stencil_pallas.filter_moments; CPU tensors take the plain version.
-    On the card it is bound by its 49 taps of cached reads and one exp
-    and pow per tap; see csrc/stencil.cu."""
+    On the card it reads its window once into shared memory and is bound
+    by the issue of its 49 taps' arithmetic: an accurate exp and two IEEE
+    divisions a tap, the pow of the normals' weight once per pixel pair;
+    see csrc/stencil.cu."""
     if _device(signal, "filter_moments") == "cpu":
         return filter_moments_plain(signal, moments, normal, motion_plane,
                                     phi_luma, phi_normal)
@@ -56,6 +58,8 @@ def filter_moments(signal, moments, normal, motion_plane, phi_luma: float,
     _check_planes(signal.device, H, W, signal=(signal, 4),
                   moments=(moments, 4), normal=(normal, 3),
                   motion_plane=(motion_plane, 4))
+    # the kernel reads signal as float4s and moments as float2s
+    signal, moments = native.aligned(signal), native.aligned(moments)
     out_sig = torch.empty_like(signal)
     out_mom = torch.empty_like(moments)
     KERNELS[0].launch("hr_filter_moments", native.ptr(signal),
@@ -160,14 +164,17 @@ def atrous(signal, normal, motion_plane, step: int, phi_luma_scale: float,
 
     CUDA tensors launch the K4 kernel that replaces the TPU kernel
     stencil_pallas.atrous; CPU tensors take the plain version. On the
-    card it is bound by its 24 taps of cached reads and one exp and pow
-    per tap; see csrc/stencil.cu."""
+    card it reads its window once into shared memory and is bound by the
+    issue of its 24 taps' arithmetic: an accurate exp and two IEEE
+    divisions a tap, the pow of the normals' weight once per pixel pair;
+    background pixels take no taps; see csrc/stencil.cu."""
     if _device(signal, "atrous") == "cpu":
         return atrous_plain(signal, normal, motion_plane, step,
                             phi_luma_scale, phi_normal)
     H, W = signal.shape[:2]
     _check_planes(signal.device, H, W, signal=(signal, 4),
                   normal=(normal, 3), motion_plane=(motion_plane, 4))
+    signal = native.aligned(signal)   # read as float4s
     out = torch.empty_like(signal)
     KERNELS[2].launch("hr_atrous", native.ptr(signal), native.ptr(normal),
                       native.ptr(motion_plane), H, W, int(step),

@@ -37,8 +37,10 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def test_raster_kernel_matches_plain(dev):
-    W, H = 200, 120
+# 203x117 cuts tiles in both axes, and some of its tiles list more than
+# 256 candidates, so the kernel walks several staged chunks
+@pytest.mark.parametrize("W,H", [(200, 120), (203, 117)])
+def test_raster_kernel_matches_plain(dev, W, H):
     data = scenes.stress_scene(num_objects=12).build(dev)
     cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
     vp = cam.proj @ cam.view
@@ -48,6 +50,8 @@ def test_raster_kernel_matches_plain(dev):
     rec, bbox, valid = raster_cuda.pack_candidates(
         raster.clip_triangles(corners, W, H))
     ts, ec = raster_cuda.bin_candidates(bbox, valid, W, H)
+    if (W, H) == (203, 117):
+        assert int((ts[1:] - ts[:-1]).max()) > 256
     before = native.KERNELS["raster_tiles"].launches
     vk, ak = raster_cuda.raster_tiles(rec, ts, ec, data.raster_rows, W, H)
     assert native.KERNELS["raster_tiles"].launches == before + 1
@@ -251,13 +255,17 @@ def test_temporal_kernel_matches_plain(dev, dtype):
                                rtol=0, atol=0)
 
 
-def test_stencil_kernels_match_plain(dev):
+# 5x7 is smaller than atrous' halo at step 4 (8 pixels) and barely
+# wider than filter_moments' 7x7 stencil; 117x203 is not a multiple of
+# the kernels' tiles
+@pytest.mark.parametrize("H,W", [(37, 150), (5, 7), (117, 203)])
+def test_stencil_kernels_match_plain(dev, H, W):
     g = np.random.default_rng(2)
-    H, W = 37, 150
     sig = _t(g.random((H, W, 4)).astype(np.float32), dev)
     mom = _t((g.random((H, W, 4)) * [1, 1, 1, 6]).astype(np.float32), dev)
     mp = g.random((H, W, 4)).astype(np.float32) + 0.5
     mp[2:5, 10:40, 2] = 0.0
+    mp[0, :3, 2] = 2000.0    # beyond atrous' background depth
     mp = _t(mp, dev)
     nrm = _t(g.random((H, W, 3)).astype(np.float32), dev)
     phi_n = float(np.float32(0.02))
