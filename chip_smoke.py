@@ -9,8 +9,9 @@ non-zero without printing a result):
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native BVH builder
-   (g++), from the sources in this checkout, and the SVGF stencils'
-   SASS instruction counts (cuobjdump, where the toolkit has it);
+   (g++), from the sources in this checkout, and the SASS instruction
+   and load counts of the SVGF stencils and of K2 / K2c (cuobjdump,
+   where the toolkit has it);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the inputs the render paths hand it at 1920x1080 (K1 and the K4
    stencils at odd sizes too), with the tolerance stated, timed with
@@ -171,11 +172,15 @@ def phase_build():
 
 # what the SVGF stencils' per-tap arithmetic costs beyond its ~30 FLOP:
 # IEEE divisions (each checked by an FCHK), the accurate expf and powf
-# (built on MUFU.EX2 and MUFU.RCP) and the slow paths they call
-SASS_OPS = ("FCHK", "MUFU.EX2", "MUFU.RCP", "MUFU.RSQ", "CALL")
+# (built on MUFU.EX2 and MUFU.RCP) and the slow paths they call; and the
+# traversals' loads: global (LDG), local (LDL, STL) and shared (LDS, STS)
+SASS_OPS = ("FCHK", "MUFU.EX2", "MUFU.RCP", "MUFU.RSQ", "CALL", "LDG", "LDL",
+            "STL", "LDS", "STS")
+SASS_KERNELS = ("atrous_kernel", "filter_moments_kernel", "trace_any_kernel",
+                "trace_closest_kernel")
 
 
-def sass_counts(lib_path, kernels=("atrous_kernel", "filter_moments_kernel")):
+def sass_counts(lib_path, kernels=SASS_KERNELS):
     """Static SASS instruction counts of ``kernels`` in the built
     library, from cuobjdump -sass: {kernel: {"all": n, op: n, ...}};
     empty where the toolkit has no cuobjdump."""
@@ -295,13 +300,12 @@ def check_raster(dev):
                 tol="exact (tri ids and all outputs), at both sizes")
 
 
-def check_trace(dev):
-    """K2 on the rays of one headline frame: RTShadowPass's shadow query
-    (tmax 10000) and AO query (tmax 10), 2 x 1920*1080 rays, recorded as
-    the renderer hands them to the tracer."""
+def shadow_batches(dev):
+    """The rays of one headline frame at 1920x1080 on the headline
+    camera: RTShadowPass's shadow query (tmax 10000) and AO query (tmax
+    10), recorded as the renderer hands them to the tracer → (the
+    tracer, [(o, d, tmax, active)] x 2, the triangle count)."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
-    from hybridrenderer_tpu_torch.ops import trace_cuda
-    from hybridrenderer_tpu_torch.ops.trace import TMIN
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
     W, H = HEADLINE["width"], HEADLINE["height"]
@@ -317,10 +321,24 @@ def check_trace(dev):
     r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
         taa_enabled=True))
     del tracer.shadow_query
-    if len(batches) != 2:
-        raise AssertionError(f"expected the shadow and AO queries, got "
-                             f"{len(batches)}")
-    kern = lambda: [trace_cuda.intersect_any(tracer.packed, o, d, TMIN, t, a)
+    if len(batches) != 2 or any(o.shape[0] != W * H for o, *_ in batches):
+        raise AssertionError(f"expected the shadow and AO queries of "
+                             f"{W}x{H} rays, got "
+                             f"{[o.shape[0] for o, *_ in batches]}")
+    return tracer, batches, data.num_triangles
+
+
+def check_trace(dev):
+    """K2 on the rays of one headline frame: RTShadowPass's shadow and AO
+    queries, 2 x 1920*1080 rays (``shadow_batches``)."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import TMIN
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    tracer, batches, n_tris = shadow_batches(dev)
+    # image queries: the kernel traces them in 8x4 tiles, as on the path
+    kern = lambda: [trace_cuda.intersect_any(tracer.packed, o, d, TMIN, t, a,
+                                             W)
                     for o, d, t, a in batches]
     plain = lambda: [trace_cuda.intersect_any_plain(tracer.packed, o, d, TMIN,
                                                     t, a)
@@ -330,12 +348,14 @@ def check_trace(dev):
     tps = [trace_cuda.intersect_any_plain(tracer.packed, o, d, TMIN, t, a,
                                           visits=visits)
            for o, d, t, a in batches]
-    mismatch, hit = [], []
+    mismatch, hit, tri_diff = [], [], []
     for (o, d, t, a), tk, tp in zip(batches, tks, tps):
         mismatch.append(((tk >= 0) != (tp >= 0)).float().mean().item())
         hit.append((tp >= 0)[a].float().mean().item())
+        tri_diff.append(int((tk != tp).sum()))
     # both take the same path through the tree with the same arithmetic,
-    # so even the reported triangle agrees; 0.1% slack for grazing rays
+    # so even the reported triangle agrees (tri_diff reports it); 0.1%
+    # slack on visibility for grazing rays
     if max(mismatch) > 1e-3:
         raise AssertionError(f"K2 visibility mismatch (shadow, AO) "
                              f"{mismatch}")
@@ -347,8 +367,10 @@ def check_trace(dev):
                 bound=trace_bound(_tree(tracer.packed), batches, tks, visits),
                 shape=f"2 queries (shadow tmax 10000, AO tmax 10) of {R} rays "
                       f"of one {W}x{H} headline frame, {active} active, "
-                      f"{data.num_triangles} triangles, tree depth {depth}, "
-                      f"hit shadow {hit[0]:.3f} AO {hit[1]:.3f}; ms for both",
+                      f"{n_tris} triangles, tree depth {depth}, "
+                      f"hit shadow {hit[0]:.3f} AO {hit[1]:.3f}; rays whose "
+                      f"triangle differs from the plain version's "
+                      f"{tri_diff}; ms for both",
                 tol="visibility mismatch <= 1e-3 of rays per query")
 
 
@@ -371,15 +393,13 @@ def _tree(packed):
     return packed.nodes, packed.node_tri, packed.tri_verts
 
 
-def check_trace_closest(dev):
-    """K2c on the rays of one full-graph frame at 1920x1080 on the
-    headline camera: RTReflectionPass's reflection rays and
-    RTDiffuseGIPass's GI rays, recorded as the passes hand them to the
-    tracer."""
+def radiance_batches(dev):
+    """The rays of one full-graph frame at 1920x1080 on the headline
+    camera: RTReflectionPass's reflection rays and RTDiffuseGIPass's GI
+    rays, recorded as the passes hand them to the tracer → (the tracer,
+    [(o, d, tmax, active)] x 2)."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.core.types import RenderFlags
-    from hybridrenderer_tpu_torch.ops import trace_cuda
-    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
     W, H = HEADLINE["width"], HEADLINE["height"]
@@ -396,11 +416,22 @@ def check_trace_closest(dev):
     r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
         taa_enabled=True))
     del tracer.trace_radiance
-    if len(batches) != 2:
-        raise AssertionError(f"expected the reflection and GI queries, got "
-                             f"{len(batches)}")
+    if len(batches) != 2 or any(o.shape[0] != W * H for o, *_ in batches):
+        raise AssertionError(f"expected the reflection and GI queries of "
+                             f"{W}x{H} rays, got "
+                             f"{[o.shape[0] for o, *_ in batches]}")
+    return tracer, batches
+
+
+def check_trace_closest(dev):
+    """K2c on the rays of one full-graph frame (``radiance_batches``)."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    tracer, batches = radiance_batches(dev)
     kern = lambda: [trace_cuda.intersect_closest(tracer.packed, o, d,
-                                                 RADIANCE_TMIN, t, a)
+                                                 RADIANCE_TMIN, t, a, W)
                     for o, d, t, a in batches]
     plain = lambda: [trace_cuda.intersect_closest_plain(
         tracer.packed, o, d, RADIANCE_TMIN, t, a) for o, d, t, a in batches]

@@ -14,18 +14,38 @@
 //   reports t = +inf, tri = -1, u = v = 0.
 // Inactive rays do no work and report a miss.
 //
-// Design: one thread per ray, a 64-entry stack per thread over the
-// binary SAH tree of native/bvh_builder.cpp. At an internal node both
-// child boxes are tested (against the best t so far, which shrinks as
-// closest-hit rays find triangles) and the hit children pushed far first,
-// so the nearer one is popped next. The TPU kernel's 8-wide collapse,
-// bf16 records and 2048-ray packets with a shared stack were VMEM and
-// packet workarounds and are not kept. Bound on the card: latency of the
-// dependent node and triangle loads (32 B per node, 36 B per triangle,
-// L2-resident for the 65k-triangle scene) and warp divergence, worst for
-// the incoherent GI rays. The arithmetic is written in the order of the
-// plain version (ops/trace_cuda.py), which takes the same path through
-// the tree.
+// Design: one thread per ray over the binary SAH tree of
+// native/bvh_builder.cpp, in records ops/trace_cuda.pack_bvh lays out
+// for these two kernels:
+// * one 64 B record per internal node that holds both children: the left
+//   child's box and reference, then the right child's (four aligned
+//   float4), so one round trip a step brings both boxes and both
+//   references. A reference is an internal node's index (>= 0), or ~k for
+//   leaf k, whose triangle row is row k;
+// * one 48 B row per leaf, in leaf (SAH) order: v0 and the triangle id,
+//   e1 = v1 - v0, e2 = v2 - v0 (the subtraction tri_hit does, so the same
+//   bits), reached straight from the reference, with no triangle-id
+//   indirection and no step of its own;
+// * the near child kept in a register: both children hit, push the far
+//   one and go on with the near one; one hit, go on with it; none, pop.
+//   That is the order of "push far, push near, pop near" exactly, so a ray
+//   visits the nodes of the plain version (ops/trace_cuda.py, which walks
+//   the per-node records) in its order, and reports its triangle, the
+//   choice among equal-t hits included. A tree of depth D needs D stack
+//   entries (the far children of the current path).
+// * image queries (``width`` > 0): each warp traces an 8x4 pixel tile,
+//   whose rays start close together and, for shadow rays, run parallel.
+// The stack is a 64-entry local array (cached in L1), in blocks of 128
+// threads, one step of either kind a turn of the loop: on the 1080p
+// headline and full-graph rays that beat a stack in shared memory, blocks
+// of 256 and a "while-while" loop (tools/trace_variants.py builds and
+// times each; PERF.md). The TPU kernel's 8-wide collapse, bf16 records
+// and 2048-ray packets with a shared stack were VMEM and packet
+// workarounds and are not kept. Bound on the card: instruction issue
+// (~70 instructions an internal step, its float operations in the plain
+// version's order under -fmad=false) thinned by warp divergence, worst
+// for the incoherent GI rays; the records are L2-resident for the
+// 65k-triangle scene.
 #include "common.cuh"
 
 namespace {
@@ -67,14 +87,12 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d);
 }
 
-// Möller–Trumbore, both-faced; true with (t, u, v) on a hit in
-// [tmin, tmax]
-__device__ __forceinline__ bool tri_hit(const float* tv, V3 org, V3 dir,
-                                        float tmin, float tmax, float* t_out,
-                                        float* u_out, float* v_out) {
-  const V3 p0 = {tv[0], tv[1], tv[2]};
-  const V3 e1 = sub({tv[3], tv[4], tv[5]}, p0);
-  const V3 e2 = sub({tv[6], tv[7], tv[8]}, p0);
+// Möller–Trumbore, both-faced, on the corner p0 and the edges e1 = p1 - p0,
+// e2 = p2 - p0; true with (t, u, v) on a hit in [tmin, tmax]
+__device__ __forceinline__ bool tri_hit_edges(V3 p0, V3 e1, V3 e2, V3 org,
+                                              V3 dir, float tmin, float tmax,
+                                              float* t_out, float* u_out,
+                                              float* v_out) {
   const V3 pvec = cross(dir, e2);
   const float det = dot(e1, pvec);
   const float inv_det = 1.0f / (fabsf(det) < kTriEps ? kTriEps : det);
@@ -90,68 +108,219 @@ __device__ __forceinline__ bool tri_hit(const float* tv, V3 org, V3 dir,
          t >= tmin && t <= tmax;
 }
 
+// the same test on the corners tv[0:9]
+__device__ __forceinline__ bool tri_hit(const float* tv, V3 org, V3 dir,
+                                        float tmin, float tmax, float* t_out,
+                                        float* u_out, float* v_out) {
+  const V3 p0 = {tv[0], tv[1], tv[2]};
+  return tri_hit_edges(p0, sub({tv[3], tv[4], tv[5]}, p0),
+                       sub({tv[6], tv[7], tv[8]}, p0), org, dir, tmin, tmax,
+                       t_out, u_out, v_out);
+}
+
+__device__ __forceinline__ V3 xyz(float4 a) { return {a.x, a.y, a.z}; }
+
+// K2 / K2c's block; where their stack lives (1: shared memory, the
+// tree's depth in entries a thread; 0: a 64-entry array in local memory);
+// and their loop (1: "while-while", internal steps until every ray of the
+// warp is at a leaf, then one leaf step; 0: one step of either kind a
+// turn). tools/trace_variants.py builds and times the other choices.
+#ifndef HR_TRACE_BLOCK
+#define HR_TRACE_BLOCK 128
+#endif
+#ifndef HR_TRACE_SHARED_STACK
+#define HR_TRACE_SHARED_STACK 0
+#endif
+#ifndef HR_TRACE_WHILE_WHILE
+#define HR_TRACE_WHILE_WHILE 0
+#endif
+constexpr int kTraceBlock = HR_TRACE_BLOCK;
+constexpr bool kSharedStack = HR_TRACE_SHARED_STACK != 0;
+constexpr bool kWhileWhile = HR_TRACE_WHILE_WHILE != 0;
+// image queries: each warp traces one 8x4 pixel tile
+constexpr int kTileW = 8, kTileH = 4;
+
+// A ray's stack of references: ``cap`` entries of the block's shared
+// memory, entry k at k * kTraceBlock + threadIdx.x, or a local array
+template <bool kShared>
+struct RayStack {
+  int* base;
+  int cap;
+  int sp = 0;
+  __device__ RayStack(int* smem, int entries)
+      : base(smem + threadIdx.x), cap(entries) {}
+  __device__ void push(int ref) {
+    if (sp < cap) base[kTraceBlock * sp++] = ref;
+  }
+  __device__ bool pop(int* ref) {
+    if (sp == 0) return false;
+    *ref = base[kTraceBlock * --sp];
+    return true;
+  }
+};
+
+template <>
+struct RayStack<false> {
+  int s[kStack];
+  int sp = 0;
+  __device__ RayStack(int*, int) {}
+  __device__ void push(int ref) {
+    if (sp < kStack) s[sp++] = ref;
+  }
+  __device__ bool pop(int* ref) {
+    if (sp == 0) return false;
+    *ref = s[--sp];
+    return true;
+  }
+};
+using Stack = RayStack<kSharedStack>;
+
+// stack entries a thread and the block's shared memory for a tree of
+// depth ``depth``
+constexpr int trace_stack_entries(int depth) {
+  return kSharedStack ? (depth > 0 ? depth : 1) : kStack;
+}
+constexpr int trace_smem(int depth) {
+  return kSharedStack
+             ? trace_stack_entries(depth) * kTraceBlock *
+                   static_cast<int>(sizeof(int))
+             : 0;
+}
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// threads for R rays: R, or for an image ``width`` columns wide whole
+// 8x4 tiles of it
+constexpr int trace_threads(int R, int width) {
+  return width <= 0 ? R
+                    : ceil_div(width, kTileW) *
+                          ceil_div(ceil_div(R, width), kTileH) * 32;
+}
+
+// this thread's ray, or -1: thread i traces ray i, or with ``width`` > 0
+// warp w traces tile w of the image (tiles row-major, rows of a tile
+// row-major too), ray y * width + x at pixel (x, y)
+__device__ __forceinline__ int ray_of_thread(int R, int width) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (width <= 0) return t < R ? t : -1;
+  const int lane = t % 32, tile = t / 32;
+  const int tiles_x = ceil_div(width, kTileW);
+  const int x = tile % tiles_x * kTileW + lane % kTileW;
+  const int i = (tile / tiles_x * kTileH + lane / kTileW) * width + x;
+  return x < width && i < R ? i : -1;
+}
+
+// One internal step at record ``ref``: both child boxes tested against
+// the best t so far. → true with the next reference in *ref (the near
+// child when both are hit, the far one pushed), false when neither is
+// hit (the caller pops).
+__device__ __forceinline__ bool inner_step(const float4* __restrict__ inner,
+                                           int* ref, Stack* stack, V3 org,
+                                           V3 inv_d, float tmin,
+                                           float best_t) {
+  const float4* rec = inner + 4 * static_cast<size_t>(*ref);
+  const float4 lmin = rec[0], lmax = rec[1], rmin = rec[2], rmax = rec[3];
+  float lt, rt;
+  const bool lhit = box_hit(lmin, lmax, org, inv_d, tmin, best_t, &lt);
+  const bool rhit = box_hit(rmin, rmax, org, inv_d, tmin, best_t, &rt);
+  const int left = __float_as_int(lmin.w);
+  const int right = __float_as_int(rmin.w);
+  if (lhit && rhit) {
+    const bool l_nearer = lt <= rt;
+    stack->push(l_nearer ? right : left);
+    *ref = l_nearer ? left : right;
+    return true;
+  }
+  if (lhit || rhit) {
+    *ref = lhit ? left : right;
+    return true;
+  }
+  return false;
+}
+
+// One leaf step at reference ``ref`` (< 0): its triangle row tested; a
+// hit with t <= the best so far replaces it. → true when an any-hit ray
+// is done.
+template <bool kAnyHit>
+__device__ __forceinline__ bool leaf_step(const float4* __restrict__ leaves,
+                                          int ref, V3 org, V3 dir,
+                                          float tmin, int* best_tri,
+                                          float* best_t, float* best_u,
+                                          float* best_v) {
+  const float4* row = leaves + 3 * static_cast<size_t>(~ref);
+  const float4 a = row[0], e1 = row[1], e2 = row[2];
+  const int tri = __float_as_int(a.w);
+  float t, u, v;
+  if (tri >= 0 && tri_hit_edges(xyz(a), xyz(e1), xyz(e2), org, dir, tmin,
+                                *best_t, &t, &u, &v)) {
+    *best_tri = tri;
+    *best_t = t;
+    *best_u = u;
+    *best_v = v;
+    return kAnyHit;
+  }
+  return false;
+}
+
 // One ray's traversal. Returns the hit triangle or -1; closest-hit also
 // leaves the hit's (t, u, v) in *best_t, *best_u, *best_v (best_t enters
-// as the ray's tmax).
+// as the ray's tmax). ``inner`` holds 4 float4 per internal node,
+// ``leaves`` 3 per leaf (the layout above); ``smem`` is the block's
+// dynamic shared memory.
 template <bool kAnyHit>
-__device__ __forceinline__ int traverse(const float4* __restrict__ nodes,
-                                        const int* __restrict__ node_tri,
-                                        const float* __restrict__ tri_verts,
-                                        int n_internal, V3 org, V3 dir,
+__device__ __forceinline__ int traverse(const float4* __restrict__ inner,
+                                        const float4* __restrict__ leaves,
+                                        int n_internal, int* smem,
+                                        int stack_entries, V3 org, V3 dir,
                                         float tmin, float* best_t,
                                         float* best_u, float* best_v) {
   const V3 inv_d = {safe_inv(dir.x), safe_inv(dir.y), safe_inv(dir.z)};
   int best_tri = -1;
-  int stack[kStack];
-  int sp = 1;
-  stack[0] = 0;
-  while (sp > 0) {
-    const int node = stack[--sp];
-    if (node >= n_internal) {
-      const int tri = node_tri[node];
-      if (tri < 0) continue;
-      float t, u, v;
-      if (tri_hit(tri_verts + 9 * static_cast<size_t>(tri), org, dir, tmin,
-                  *best_t, &t, &u, &v)) {
-        if (kAnyHit) return tri;
-        best_tri = tri;
-        *best_t = t;
-        *best_u = u;
-        *best_v = v;
+  Stack stack(smem, stack_entries);
+  // the root: internal node 0, or for one triangle leaf 0 (tested
+  // without a box, as the root is)
+  int ref = n_internal > 0 ? 0 : ~0;
+  if (kWhileWhile) {
+    for (;;) {
+      while (ref >= 0) {
+        if (!inner_step(inner, &ref, &stack, org, inv_d, tmin, *best_t) &&
+            !stack.pop(&ref)) {
+          return best_tri;
+        }
       }
-      continue;
+      if (leaf_step<kAnyHit>(leaves, ref, org, dir, tmin, &best_tri, best_t,
+                             best_u, best_v) ||
+          !stack.pop(&ref)) {
+        return best_tri;
+      }
     }
-    const float4 nlo = nodes[2 * node];
-    const float4 nhi = nodes[2 * node + 1];
-    const int left = __float_as_int(nlo.w);
-    const int right = __float_as_int(nhi.w);
-    float lt, rt;
-    const bool lhit = box_hit(nodes[2 * left], nodes[2 * left + 1], org,
-                              inv_d, tmin, *best_t, &lt);
-    const bool rhit = box_hit(nodes[2 * right], nodes[2 * right + 1], org,
-                              inv_d, tmin, *best_t, &rt);
-    const bool l_nearer = lt <= rt;
-    // far child first, so the near one is popped next
-    const int first = l_nearer ? right : left;
-    const bool first_ok = l_nearer ? rhit : lhit;
-    const int second = l_nearer ? left : right;
-    const bool second_ok = l_nearer ? lhit : rhit;
-    if (first_ok && sp < kStack) stack[sp++] = first;
-    if (second_ok && sp < kStack) stack[sp++] = second;
   }
-  return best_tri;
+  for (;;) {
+    if (ref >= 0) {
+      if (inner_step(inner, &ref, &stack, org, inv_d, tmin, *best_t)) {
+        continue;
+      }
+    } else if (leaf_step<kAnyHit>(leaves, ref, org, dir, tmin, &best_tri,
+                                  best_t, best_u, best_v)) {
+      return best_tri;
+    }
+    if (!stack.pop(&ref)) return best_tri;
+  }
 }
 
-__global__ void trace_any_kernel(const float4* __restrict__ nodes,
-                                 const int* __restrict__ node_tri,
-                                 const float* __restrict__ tri_verts,
-                                 int n_internal, const float* __restrict__ o,
-                                 const float* __restrict__ d,
-                                 const float* __restrict__ tmax_in,
-                                 const uint8_t* __restrict__ active,
-                                 float tmin, int R, int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+__global__ void __launch_bounds__(kTraceBlock)
+trace_any_kernel(const float4* __restrict__ inner,
+                 const float4* __restrict__ leaves, int n_internal,
+                 int stack_entries, const float* __restrict__ o,
+                 const float* __restrict__ d,
+                 const float* __restrict__ tmax_in,
+                 const uint8_t* __restrict__ active, float tmin, int R,
+                 int width, int* __restrict__ out) {
+  extern __shared__ int s_ray_stack[];
+  const int i = ray_of_thread(R, width);
+  if (i < 0) return;
   if (!active[i]) {
     out[i] = -1;
     return;
@@ -159,27 +328,31 @@ __global__ void trace_any_kernel(const float4* __restrict__ nodes,
   const V3 org = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
   const V3 dir = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
   float t = tmax_in[i], u, v;
-  out[i] = traverse<true>(nodes, node_tri, tri_verts, n_internal, org, dir,
-                          tmin, &t, &u, &v);
+  out[i] = traverse<true>(inner, leaves, n_internal, s_ray_stack,
+                          stack_entries, org, dir, tmin, &t, &u, &v);
 }
 
-__global__ void trace_closest_kernel(
-    const float4* __restrict__ nodes, const int* __restrict__ node_tri,
-    const float* __restrict__ tri_verts, int n_internal,
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ tmax_in, const uint8_t* __restrict__ active,
-    float tmin, int R, float* __restrict__ t_out, int* __restrict__ tri_out,
-    float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
+__global__ void __launch_bounds__(kTraceBlock)
+trace_closest_kernel(const float4* __restrict__ inner,
+                     const float4* __restrict__ leaves, int n_internal,
+                     int stack_entries, const float* __restrict__ o,
+                     const float* __restrict__ d,
+                     const float* __restrict__ tmax_in,
+                     const uint8_t* __restrict__ active, float tmin, int R,
+                     int width, float* __restrict__ t_out,
+                     int* __restrict__ tri_out, float* __restrict__ u_out,
+                     float* __restrict__ v_out) {
+  extern __shared__ int s_ray_stack[];
+  const int i = ray_of_thread(R, width);
+  if (i < 0) return;
   int tri = -1;
   float t = 0.0f, u = 0.0f, v = 0.0f;
   if (active[i]) {
     t = tmax_in[i];
     const V3 org = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
     const V3 dir = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-    tri = traverse<false>(nodes, node_tri, tri_verts, n_internal, org, dir,
-                          tmin, &t, &u, &v);
+    tri = traverse<false>(inner, leaves, n_internal, s_ray_stack,
+                          stack_entries, org, dir, tmin, &t, &u, &v);
   }
   t_out[i] = tri < 0 ? __int_as_float(0x7f800000) : t;
   tri_out[i] = tri;
@@ -681,42 +854,44 @@ trace_mimt_kernel(const float* __restrict__ nodes,
 
 }  // namespace
 
-HR_EXPORT int hr_trace_any(const void* nodes, const void* node_tri,
-                           const void* tri_verts, int n_internal,
-                           const void* o, const void* d, const void* tmax,
-                           const void* active, float tmin, int R, void* out,
-                           void* stream) {
-  if (R > 0) {
-    trace_any_kernel<<<(R + kBlock - 1) / kBlock, kBlock, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(nodes), static_cast<const int*>(node_tri),
-        static_cast<const float*>(tri_verts), n_internal,
-        static_cast<const float*>(o), static_cast<const float*>(d),
-        static_cast<const float*>(tmax),
-        static_cast<const uint8_t*>(active), tmin, R,
-        static_cast<int*>(out));
-  }
-  HR_RETURN_LAUNCH_STATUS();
+// inner: (n_internal, 16) f32 records, leaves: (n_internal + 1, 12) f32
+// rows, both 16-byte aligned; depth: the tree's (pack_bvh's check holds
+// it below 64); width: the columns of an image query, whose rays the
+// kernel traces in 8x4 tiles, or 0 for rays in any order
+HR_EXPORT int hr_trace_any(const void* inner, const void* leaves,
+                           int n_internal, int depth, const void* o,
+                           const void* d, const void* tmax,
+                           const void* active, float tmin, int R, int width,
+                           void* out, void* stream) {
+  if (R <= 0) HR_RETURN_LAUNCH_STATUS();
+  const int threads = trace_threads(R, width);
+  return hr_launch(
+      trace_any_kernel, dim3(ceil_div(threads, kTraceBlock)),
+      dim3(kTraceBlock), trace_smem(depth), stream,
+      static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
+      n_internal, trace_stack_entries(depth), static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<const float*>(tmax),
+      static_cast<const uint8_t*>(active), tmin, R, width,
+      static_cast<int*>(out));
 }
 
-HR_EXPORT int hr_trace_closest(const void* nodes, const void* node_tri,
-                               const void* tri_verts, int n_internal,
-                               const void* o, const void* d,
-                               const void* tmax, const void* active,
-                               float tmin, int R, void* t_out, void* tri_out,
+HR_EXPORT int hr_trace_closest(const void* inner, const void* leaves,
+                               int n_internal, int depth, const void* o,
+                               const void* d, const void* tmax,
+                               const void* active, float tmin, int R,
+                               int width, void* t_out, void* tri_out,
                                void* u_out, void* v_out, void* stream) {
-  if (R > 0) {
-    trace_closest_kernel<<<(R + kBlock - 1) / kBlock, kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(nodes), static_cast<const int*>(node_tri),
-        static_cast<const float*>(tri_verts), n_internal,
-        static_cast<const float*>(o), static_cast<const float*>(d),
-        static_cast<const float*>(tmax),
-        static_cast<const uint8_t*>(active), tmin, R,
-        static_cast<float*>(t_out), static_cast<int*>(tri_out),
-        static_cast<float*>(u_out), static_cast<float*>(v_out));
-  }
-  HR_RETURN_LAUNCH_STATUS();
+  if (R <= 0) HR_RETURN_LAUNCH_STATUS();
+  const int threads = trace_threads(R, width);
+  return hr_launch(
+      trace_closest_kernel, dim3(ceil_div(threads, kTraceBlock)),
+      dim3(kTraceBlock), trace_smem(depth), stream,
+      static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
+      n_internal, trace_stack_entries(depth), static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<const float*>(tmax),
+      static_cast<const uint8_t*>(active), tmin, R, width,
+      static_cast<float*>(t_out), static_cast<int*>(tri_out),
+      static_cast<float*>(u_out), static_cast<float*>(v_out));
 }
 
 // any_hit 0 or 1; for any-hit the caller may ignore t, u and v

@@ -152,8 +152,8 @@ class SceneTracer:
 
     def refit(self, scene_data) -> "SceneTracer":
         """The tracer after a dynamic update moved triangles (the
-        topology frozen): the binary tree's boxes refit, K2's records
-        repacked at the known depth, or the wide records refit, and the
+        topology frozen): the binary tree's boxes refit, the records
+        repacked on the known topology, or the wide records refit, and the
         hit-shading rows taken anew from the scene's attribute rows. All
         on the scene's device; only the first refit of a tree walks it on
         the host, for the level order it keeps."""
@@ -168,7 +168,7 @@ class SceneTracer:
         else:
             packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
                               PACKET_STACK_DEPTH if self.packet
-                              else STACK_DEPTH, depth=self.packed.depth)
+                              else STACK_DEPTH, like=self.packed)
         return dataclasses.replace(self, packed=packed, bvh=bvh,
                                    levels=levels, wide=wide,
                                    shade_rows=_shade_rows(scene_data))
@@ -197,21 +197,25 @@ class SceneTracer:
         return (torch.where(inactive, float("inf"), t),
                 torch.where(inactive, -1, tri), u, v)
 
-    def _any(self, o, d, tmin, tmax, active):
+    # ``width`` > 0: the rays are an image of that many columns in pixel
+    # order, which K2 / K2c trace in 8x4 tiles; packet kernels ignore it
+    # (their rays come in their own order)
+    def _any(self, o, d, tmin, tmax, active, width=0):
         if self.wide is not None:
             return self._wide_query(o, d, tmin, tmax, active, True)[1]
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
                                     any_hit=True)[1]
-        return intersect_any(self.packed, o, d, tmin, tmax, active)
+        return intersect_any(self.packed, o, d, tmin, tmax, active, width)
 
-    def _closest(self, o, d, tmin, tmax, active):
+    def _closest(self, o, d, tmin, tmax, active, width=0):
         if self.wide is not None:
             return self._wide_query(o, d, tmin, tmax, active, False)
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
                                     any_hit=False)
-        return intersect_closest(self.packed, o, d, tmin, tmax, active)
+        return intersect_closest(self.packed, o, d, tmin, tmax, active,
+                                 width)
 
     def shadow_rays(self, world_pos, normal, direction, tmax, active=None):
         """The rays of ``shadow_query`` as ``intersect_any`` takes them:
@@ -234,17 +238,19 @@ class SceneTracer:
                                         active)
         lead = world_pos.shape[:2]
         _, pos, (o, d, t, act) = self._packet_order(lead, o, d, t, act)
-        vis = torch.where(self._any(o, d, TMIN, t, act) >= 0, 0.0, 1.0)
+        vis = torch.where(self._any(o, d, TMIN, t, act, lead[1]) >= 0, 0.0,
+                          1.0)
         return _pixel_order(pos, vis, lead)
 
-    def occluded(self, origin, direction, tmax: float, active):
+    def occluded(self, origin, direction, tmax: float, active, width=0):
         """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
-        1.0 unoccluded, 0.0 occluded or inactive."""
+        1.0 unoccluded, 0.0 occluded or inactive. ``width`` > 0: the rays
+        are images of that many columns, in pixel order."""
         R = origin.shape[0]
         t = torch.full((R,), float(tmax), dtype=torch.float32,
                        device=origin.device)
         tri = self._any(origin.contiguous(), direction.contiguous(),
-                        OCCLUSION_TMIN, t, active.contiguous())
+                        OCCLUSION_TMIN, t, active.contiguous(), width)
         return torch.where(active & (tri < 0), 1.0, 0.0)
 
     def radiance_rays(self, origin, direction, active=None):
@@ -270,9 +276,12 @@ class SceneTracer:
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
         fwd, pos, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax,
                                                          act)
-        t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act)
+        # rays of an (H, W) image stay in pixel order for K2 / K2c
+        width = lead[1] if len(lead) == 2 else 0
+        t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act, width)
         hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
-        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, fwd)
+        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, fwd,
+                                  width)
         rgb_miss = sky.sample_environment(
             d, bool(ctx.settings.flags & RenderFlags.IBL),
             has_sky=scene.has_sky_texture)
@@ -280,12 +289,14 @@ class SceneTracer:
         dist = torch.where(hit, t, torch.full_like(t, -1.0))
         return _pixel_order(pos, rgb, lead), _pixel_order(pos, dist, lead)
 
-    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active, ray_idx=None):
+    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active, ray_idx=None,
+                   width=0):
         """closesthit.rchit: interpolate the hit's attributes, evaluate
         its material, sun and emissive-light NEE (both shadowed, with the
         reference's facing gates), IBL ambient and emission. ``active``
         (the hit mask) gates the occlusion rays; ``ray_idx``, the rays'
-        pixel indices (default: their flat index), seeds NEE."""
+        pixel indices (default: their flat index), seeds NEE; ``width``,
+        the columns of the image the rays are in pixel order, or 0."""
         params, flags = ctx.params, ctx.settings.flags
         R = o.shape[0]
         dev = o.device
@@ -345,15 +356,17 @@ class SceneTracer:
         sun_shadow = torch.zeros((R,), device=dev)
         lshadow = None
         if sun_act is not None and nee_act is not None:
+            # two images one above the other: still ``width`` columns
             both = self.occluded(torch.cat([shadow_origin, shadow_origin]),
                                  torch.cat([sun_dir, ldir]), 1000.0,
-                                 torch.cat([sun_act, nee_act]))
+                                 torch.cat([sun_act, nee_act]), width)
             sun_shadow, lshadow = both[:R], both[R:]
         elif sun_act is not None:
             sun_shadow = self.occluded(shadow_origin, sun_dir, 1000.0,
-                                       sun_act)
+                                       sun_act, width)
         elif nee_act is not None:
-            lshadow = self.occluded(shadow_origin, ldir, 1000.0, nee_act)
+            lshadow = self.occluded(shadow_origin, ldir, 1000.0, nee_act,
+                                    width)
         direct = sun_brdf * sun_shadow.unsqueeze(-1)
         if nee_act is not None:
             ok = (has & (lshadow > 0.5) & (sampled_inst >= 0)).unsqueeze(-1)

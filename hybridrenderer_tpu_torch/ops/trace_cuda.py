@@ -4,9 +4,13 @@ the plain version follows ops/trace.py intersect_bvh), and the packet
 traversal K2b (trace_pallas.py _traverse_kernel, trace_backend
 "pallas") with its plain version.
 
-``pack_bvh`` lays the binary BVH out for the kernels: per node two float4
-(min xyz + left child id bits, max xyz + right child id bits), the leaf
-triangle ids, and the triangle corners as (T, 9) floats.
+``pack_bvh`` lays the binary BVH out for the kernels. K2b and the plain
+versions read per node two float4 (min xyz + left child id bits, max xyz
++ right child id bits), the leaf triangle ids, and the triangle corners
+as (T, 9) floats. K2 and K2c read one record per internal node holding
+both children's boxes and references (``inner_records``), and one row
+per leaf holding its triangle's v0, e1 = v1 - v0 and e2 = v2 - v0
+(``leaf_rows``); see csrc/trace.cu.
 ``intersect_any`` returns, per ray, the id of a triangle hit with
 tmin <= t <= tmax, or -1. ``intersect_closest`` returns (t, tri, u, v)
 of the nearest such hit, with t = +inf, tri = -1 and u = v = 0 on a miss.
@@ -27,7 +31,7 @@ included, so they report the reference kernels' triangles.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +71,15 @@ WIDE_ROWS = 8              # K2m: one stack pair per 128-ray row
 INACTIVE_TRI = 1 << 29     # trace_pallas.INACTIVE_TRI
 
 
+class PackTopology(NamedTuple):
+    """What ``pack_bvh`` derives from the tree's shape alone; a refit,
+    which keeps the shape, reuses it."""
+    kids: Any        # (n_internal, 2) i64: each internal node's children
+    refs: Any        # (N, 1) f32: each node's reference bits (child_ref)
+    zero: Any        # (N, 1) f32 zeros
+    leaf_tri: Any    # (n_internal + 1,) i64: leaf k's triangle, >= 0
+
+
 @dataclasses.dataclass
 class PackedBVH:
     nodes: Any       # (N, 8) f32: min xyz, left bits, max xyz, right bits
@@ -74,6 +87,14 @@ class PackedBVH:
     tri_verts: Any   # (T, 9) f32 triangle corners
     n_internal: int
     depth: int       # of the deepest leaf; the root is at depth 0
+    # K2 / K2c: (n_internal, 16) f32, internal node i's children: left
+    # min xyz + ref bits, left max xyz + 0, right min xyz + ref bits,
+    # right max xyz + 0 (``child_ref``)
+    inner_records: Any
+    # (n_internal + 1, 12) f32, leaf k's triangle: v0 xyz + id bits,
+    # e1 = v1 - v0 xyz + 0, e2 = v2 - v0 xyz + 0
+    leaf_rows: Any
+    topology: PackTopology
 
 
 def tree_depth(left, right) -> int:
@@ -94,31 +115,68 @@ def _check_depth(depth, stack):
                          f"{depth + 1} entries; the kernel has {stack}")
 
 
-def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, depth=None) -> PackedBVH:
-    """Raises if the tree is too deep for the traversal's stack of
-    ``stack`` entries (K2's 64, or K2b's 96): popping a node at depth k
-    leaves at most k entries, and its two children make k + 2, so a tree
-    of depth D needs D + 1 entries. Within that bound neither kernel nor
-    its plain version ever drops a child. ``depth``, when the caller
-    knows it (a refit keeps the topology), saves the host walk."""
-    if depth is None:
-        depth = tree_depth(bvh.left, bvh.right)
+def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
+    """Both layouts of the binary tree ``bvh`` over triangles (v0, v1,
+    v2), built on their device with no host sync but the depth walk.
+    Raises if the tree is too deep for the traversal's stack of ``stack``
+    entries (K2's 64, or K2b's 96): popping a node at depth k leaves at
+    most k entries, and its two children make k + 2, so a tree of depth D
+    needs D + 1 entries (K2 and K2c, which keep the near child in a
+    register, need D). Within that bound no kernel nor plain version ever
+    drops a child. ``like``, a packing of a tree of the same shape (a
+    refit's), lends its depth and topology: no host walk, and five device
+    operations for K2's records."""
+    depth = tree_depth(bvh.left, bvh.right) if like is None else like.depth
     _check_depth(depth, stack)
-    bits = lambda x: x.to(torch.int32).view(torch.float32).unsqueeze(-1)
-    nodes = torch.cat([bvh.node_min, bits(bvh.left), bvh.node_max,
-                       bits(bvh.right)], dim=-1).contiguous()
-    return PackedBVH(nodes=nodes, node_tri=bvh.tri.to(torch.int32).contiguous(),
-                     tri_verts=torch.cat([v0, v1, v2], -1).contiguous(),
-                     n_internal=bvh.num_tris - 1, depth=depth)
+    bits = lambda x: x.to(torch.int32).view(torch.float32)
+    n = bvh.num_tris - 1
+    if like is None:
+        node = torch.arange(2 * n + 1, device=bvh.left.device)
+        topo = PackTopology(
+            kids=torch.stack([bvh.left[:n], bvh.right[:n]], dim=-1).long(),
+            refs=bits(child_ref(node, n)).unsqueeze(-1),
+            zero=bvh.node_min.new_zeros((2 * n + 1, 1)),
+            leaf_tri=torch.clamp(bvh.tri[n:], min=0).long())
+    else:
+        topo = like.topology
+    nodes = torch.cat([bvh.node_min, bits(bvh.left).unsqueeze(-1),
+                       bvh.node_max, bits(bvh.right).unsqueeze(-1)], dim=-1)
+    tri = bvh.tri.to(torch.int32).contiguous()
+    tri_verts = torch.cat([v0, v1, v2], -1)
+    # K2 / K2c: each child's box and reference, gathered into its
+    # parent's record
+    inner = torch.cat([bvh.node_min, topo.refs, bvh.node_max, topo.zero],
+                      dim=-1)[topo.kids]
+    # leaf k's triangle: v0 and the id, e1 = v1 - v0, e2 = v2 - v0
+    corners = tri_verts[topo.leaf_tri].view(-1, 3, 3)
+    edges = corners[:, 1:] - corners[:, :1]
+    zero = topo.zero[:n + 1]
+    rows = torch.cat([corners[:, 0], bits(tri[n:]).unsqueeze(-1),
+                      edges[:, 0], zero, edges[:, 1], zero], dim=-1)
+    return PackedBVH(nodes=nodes, node_tri=tri, tri_verts=tri_verts,
+                     n_internal=n, depth=depth,
+                     inner_records=inner.view(n, 16), leaf_rows=rows,
+                     topology=topo)
+
+
+def child_ref(child, n_internal):
+    """K2's reference to node ``child``: an internal node's own index, or
+    ~k (= -1 - k) for leaf k, node ``n_internal + k``, whose triangle row
+    is row k of ``leaf_rows``."""
+    return torch.where(child < n_internal, child, n_internal - 1 - child)
 
 
 def _check_rays(bvh: PackedBVH, o, d, tmax, active, stack=STACK_DEPTH):
     dev = o.device
     R = o.shape[0]
     _check_depth(bvh.depth, stack)
-    native.check(bvh.nodes, "nodes", torch.float32, (None, 8), dev)
-    native.check(bvh.node_tri, "node_tri", torch.int32, (None,), dev)
+    n = bvh.n_internal
+    native.check(bvh.nodes, "nodes", torch.float32, (2 * n + 1, 8), dev)
+    native.check(bvh.node_tri, "node_tri", torch.int32, (2 * n + 1,), dev)
     native.check(bvh.tri_verts, "tri_verts", torch.float32, (None, 9), dev)
+    native.check(bvh.inner_records, "inner_records", torch.float32, (n, 16),
+                 dev)
+    native.check(bvh.leaf_rows, "leaf_rows", torch.float32, (n + 1, 12), dev)
     native.check(o, "o", torch.float32, (R, 3), dev)
     native.check(d, "d", torch.float32, (R, 3), dev)
     native.check(tmax, "tmax", torch.float32, (R,), dev)
@@ -126,34 +184,45 @@ def _check_rays(bvh: PackedBVH, o, d, tmax, active, stack=STACK_DEPTH):
     return R
 
 
-def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active):
+def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active,
+                  width: int = 0):
     """Rays (R, 3) o, d; tmax (R,) f32; active (R,) bool → tri (R,) i32.
+    ``width`` > 0 says the rays are an image's pixels, row-major, that
+    many columns wide: the kernel then traces them in 8x4 pixel tiles,
+    one a warp. The order changes no ray's result.
 
     CUDA tensors launch kernel K2, which replaces the TPU kernel
     trace_pallas._wide_direct_kernel (any-hit); CPU tensors take the
-    plain version. On the card the kernel is bound by the latency of its
-    dependent node loads; see csrc/trace.cu."""
+    plain version. The kernel reads ``bvh.inner_records`` (both children
+    of a node in one 64 B record) and ``bvh.leaf_rows`` (a leaf's
+    triangle, edges pre-subtracted), keeps the near child in a register
+    and the far ones on a stack, and visits the nodes of the plain
+    version in its order; on the card it is bound by instruction issue
+    thinned by warp divergence; see csrc/trace.cu."""
     if o.device.type == "cpu":
         return intersect_any_plain(bvh, o, d, tmin, tmax, active)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_any: unsupported device {o.device}")
     R = _check_rays(bvh, o, d, tmax, active)
     out = torch.empty((R,), dtype=torch.int32, device=o.device)
-    KERNEL.launch("hr_trace_any", native.ptr(bvh.nodes),
-                  native.ptr(bvh.node_tri), native.ptr(bvh.tri_verts),
-                  bvh.n_internal, native.ptr(o), native.ptr(d),
-                  native.ptr(tmax), native.ptr(active), float(tmin), R,
+    KERNEL.launch("hr_trace_any", native.ptr(bvh.inner_records),
+                  native.ptr(bvh.leaf_rows), bvh.n_internal, bvh.depth,
+                  native.ptr(o), native.ptr(d), native.ptr(tmax),
+                  native.ptr(active), float(tmin), R, int(width),
                   native.ptr(out))
     return out
 
 
-def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active):
+def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active,
+                      width: int = 0):
     """Rays (R, 3) o, d; tmax (R,) f32; active (R,) bool → (t, tri, u, v)
-    of the nearest hit, each (R,), tri i32.
+    of the nearest hit, each (R,), tri i32; ``width`` as for
+    ``intersect_any``.
 
     CUDA tensors launch kernel K2c, which replaces the TPU kernel
     trace_pallas._wide_direct_kernel (closest-hit); CPU tensors take the
-    plain version. Bound on the card like K2; see csrc/trace.cu."""
+    plain version. The kernel is K2's traversal in closest-hit mode;
+    see csrc/trace.cu."""
     if o.device.type == "cpu":
         return intersect_closest_plain(bvh, o, d, tmin, tmax, active)
     if o.device.type != "cuda":
@@ -163,10 +232,11 @@ def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active):
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
     KERNEL_CLOSEST.launch(
-        "hr_trace_closest", native.ptr(bvh.nodes), native.ptr(bvh.node_tri),
-        native.ptr(bvh.tri_verts), bvh.n_internal, native.ptr(o),
+        "hr_trace_closest", native.ptr(bvh.inner_records),
+        native.ptr(bvh.leaf_rows), bvh.n_internal, bvh.depth, native.ptr(o),
         native.ptr(d), native.ptr(tmax), native.ptr(active), float(tmin), R,
-        native.ptr(t), native.ptr(tri), native.ptr(u), native.ptr(v))
+        int(width), native.ptr(t), native.ptr(tri), native.ptr(u),
+        native.ptr(v))
     return t, tri, u, v
 
 
@@ -301,8 +371,12 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
 
 def ray_triangle(o, d, p0, p1, p2, tmin, tmax):
     """Möller–Trumbore, both-faced → (hit, t, u, v)."""
-    e1 = p1 - p0
-    e2 = p2 - p0
+    return ray_triangle_edges(o, d, p0, p1 - p0, p2 - p0, tmin, tmax)
+
+
+def ray_triangle_edges(o, d, p0, e1, e2, tmin, tmax):
+    """``ray_triangle`` on the corner p0 and the edges e1 = p1 - p0,
+    e2 = p2 - p0 (K2's leaf rows)."""
     pvec = maths.cross(d, e2)
     det = maths.dot(e1, pvec)
     inv_det = 1.0 / torch.where(torch.abs(det) < TRI_EPS,

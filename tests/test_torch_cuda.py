@@ -147,6 +147,8 @@ def test_trace_kernel_matches_plain(dev):
     p = trace_cuda.intersect_any_plain(*args)
     assert ((k >= 0) != (p >= 0)).float().mean().item() <= 1e-3
     assert (k[~active] == -1).all()
+    # the same path through the tree: even the triangle reported agrees
+    assert torch.equal(k, p)
 
 
 def test_closest_hit_kernel_matches_plain(dev):
@@ -169,6 +171,67 @@ def test_closest_hit_kernel_matches_plain(dev):
     for a, b in ((tk, tp), (uk, up), (vk, vp)):
         torch.testing.assert_close(a[same], b[same], rtol=0, atol=0)
     assert (trik[~active] == -1).all() and torch.isinf(tk[trik < 0]).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["one_triangle", "chain63", "all_inactive",
+                                  "ragged", "ragged_image"])
+def test_trace_kernels_edge_cases(dev, case, any_hit):
+    """K2 / K2c against their plain versions, exactly (tri, and t, u, v
+    for closest-hit): one triangle (the root is a leaf); a chain of depth
+    63, whose rays along -x fill the stack to its 63 entries; every ray
+    inactive; and a ray count that is a multiple of no block, traced in
+    order and as an image 100 pixels wide in 8x4 tiles (its last tile
+    column and its last row of pixels partial)."""
+    from hybridrenderer_tpu_torch.ops import bvh
+
+    from .torch_parity import chain_bvh
+
+    g = np.random.default_rng(9)
+    R = 8192 + 77 if case.startswith("ragged") else 4096
+    width = 100 if case == "ragged_image" else 0
+    if case == "one_triangle":
+        v = tuple(torch.tensor([c], dtype=torch.float32, device=dev) for c in
+                  ([-1.0, 0.0, -1.0], [1.0, 0.0, -1.0], [0.0, 0.0, 1.0]))
+        packed = trace_cuda.pack_bvh(bvh.build_sah(*v), *v)
+        o = g.uniform(-2, 2, (R, 3))
+        d = -o + g.uniform(-1.5, 1.5, (R, 3))
+    elif case == "chain63":
+        tree, *v = chain_bvh(trace_cuda.STACK_DEPTH, dev)
+        packed = trace_cuda.pack_bvh(tree, *v)
+        assert packed.depth == trace_cuda.STACK_DEPTH - 1
+        side = np.arange(R) % 2 == 0
+        o = np.stack([np.where(side, 80.0, -20.0), g.uniform(-0.4, 0.4, R),
+                      g.uniform(-0.4, 0.4, R)], 1)
+        d = np.stack([np.where(side, -1.0, 1.0), g.uniform(-0.01, 0.01, R),
+                      g.uniform(-0.01, 0.01, R)], 1)
+    else:
+        packed = SceneTracer.build(
+            scenes.stress_scene(num_objects=12).build(dev)).packed
+        o = g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3))
+        d = g.standard_normal((R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (_t(x.astype(np.float32), dev) for x in (o, d))
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = _t(g.random(R) < (0.0 if case == "all_inactive" else 0.9), dev)
+    args = (packed, o, d, 0.01, tmax, active)
+    name = "trace_any" if any_hit else "trace_closest"
+    before = native.KERNELS[name].launches
+    if any_hit:
+        k = (trace_cuda.intersect_any(*args, width),)
+        p = (trace_cuda.intersect_any_plain(*args),)
+    else:
+        k = trace_cuda.intersect_closest(*args, width)
+        p = trace_cuda.intersect_closest_plain(*args)
+    assert native.KERNELS[name].launches == before + 1
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    tri = k[-1] if any_hit else k[1]
+    assert (tri[~active] == -1).all()
+    if case == "all_inactive":
+        assert (tri == -1).all()
+    else:
+        assert (tri >= 0).float().mean().item() > 0.05
 
 
 @pytest.mark.parametrize("kernel", ["trace_wide", "trace_mimt"])

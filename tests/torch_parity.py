@@ -74,3 +74,39 @@ def record_secondary_hits(renderer):
         return out
 
     return take
+
+
+def chain_bvh(T, device="cpu"):
+    """(BVH, v0, v1, v2): T triangles facing the x axis in the planes x = 0 ..
+    T - 1, in a tree whose internal nodes form one chain (depth T - 1):
+    internal node i has the chain's next node (for i = T - 2, leaf T - 1)
+    on the left and leaf i on the right; leaf k (node T - 1 + k) holds
+    triangle k. Boxes are the exact unions, built bottom-up."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops.bvh import BVH
+
+    x = np.arange(T, dtype=np.float32)[:, None]
+    v0 = np.concatenate([x, np.full_like(x, -1.0), np.full_like(x, -1.0)], 1)
+    v1 = np.concatenate([x, np.full_like(x, 2.0), np.full_like(x, -1.0)], 1)
+    v2 = np.concatenate([x, np.full_like(x, -1.0), np.full_like(x, 2.0)], 1)
+    N = 2 * T - 1
+    left = np.full(N, -1, np.int32)
+    right = np.full(N, -1, np.int32)
+    tri = np.full(N, -1, np.int32)
+    inner = np.arange(T - 1)
+    left[inner] = inner + 1
+    if T > 1:
+        left[T - 2] = N - 1
+    right[inner] = T - 1 + inner
+    tri[T - 1:] = np.arange(T)
+    nmin = np.zeros((N, 3), np.float32)
+    nmax = np.zeros((N, 3), np.float32)
+    nmin[T - 1:] = np.minimum(np.minimum(v0, v1), v2)
+    nmax[T - 1:] = np.maximum(np.maximum(v0, v1), v2)
+    for i in inner[::-1]:
+        nmin[i] = np.minimum(nmin[left[i]], nmin[right[i]])
+        nmax[i] = np.maximum(nmax[left[i]], nmax[right[i]])
+    t = lambda a: torch.from_numpy(a).to(device)
+    return (BVH(t(nmin), t(nmax), t(left), t(right), t(tri), num_tris=T),
+            t(v0), t(v1), t(v2))
