@@ -173,9 +173,9 @@ def phase_build():
 # what the SVGF stencils' per-tap arithmetic costs beyond its ~30 FLOP:
 # IEEE divisions (each checked by an FCHK), the accurate expf and powf
 # (built on MUFU.EX2 and MUFU.RCP) and the slow paths they call; and the
-# traversals' loads: global (LDG), local (LDL, STL) and shared (LDS, STS)
+# traversals' loads: global (LDG) and of the local stack (LDL, STL)
 SASS_OPS = ("FCHK", "MUFU.EX2", "MUFU.RCP", "MUFU.RSQ", "CALL", "LDG", "LDL",
-            "STL", "LDS", "STS")
+            "STL")
 SASS_KERNELS = ("atrous_kernel", "filter_moments_kernel", "trace_any_kernel",
                 "trace_closest_kernel")
 
@@ -300,12 +300,13 @@ def check_raster(dev):
                 tol="exact (tri ids and all outputs), at both sizes")
 
 
-def shadow_batches(dev):
-    """The rays of one headline frame at 1920x1080 on the headline
-    camera: RTShadowPass's shadow query (tmax 10000) and AO query (tmax
-    10), recorded as the renderer hands them to the tracer → (the
-    tracer, [(o, d, tmax, active)] x 2, the triangle count)."""
+def check_trace(dev):
+    """K2 on the rays of one headline frame: RTShadowPass's shadow query
+    (tmax 10000) and AO query (tmax 10), 2 x 1920*1080 rays, recorded as
+    the renderer hands them to the tracer."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import TMIN
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
     W, H = HEADLINE["width"], HEADLINE["height"]
@@ -325,17 +326,6 @@ def shadow_batches(dev):
         raise AssertionError(f"expected the shadow and AO queries of "
                              f"{W}x{H} rays, got "
                              f"{[o.shape[0] for o, *_ in batches]}")
-    return tracer, batches, data.num_triangles
-
-
-def check_trace(dev):
-    """K2 on the rays of one headline frame: RTShadowPass's shadow and AO
-    queries, 2 x 1920*1080 rays (``shadow_batches``)."""
-    from hybridrenderer_tpu_torch.ops import trace_cuda
-    from hybridrenderer_tpu_torch.ops.trace import TMIN
-
-    W, H = HEADLINE["width"], HEADLINE["height"]
-    tracer, batches, n_tris = shadow_batches(dev)
     # image queries: the kernel traces them in 8x4 tiles, as on the path
     kern = lambda: [trace_cuda.intersect_any(tracer.packed, o, d, TMIN, t, a,
                                              W)
@@ -354,11 +344,12 @@ def check_trace(dev):
         hit.append((tp >= 0)[a].float().mean().item())
         tri_diff.append(int((tk != tp).sum()))
     # both take the same path through the tree with the same arithmetic,
-    # so even the reported triangle agrees (tri_diff reports it); 0.1%
-    # slack on visibility for grazing rays
-    if max(mismatch) > 1e-3:
-        raise AssertionError(f"K2 visibility mismatch (shadow, AO) "
-                             f"{mismatch}")
+    # so even the reported triangle agrees; 0.1% slack on visibility for
+    # grazing rays, none on the triangle
+    if max(mismatch) > 1e-3 or max(tri_diff) > 0:
+        raise AssertionError(f"K2 disagrees with its plain version (shadow, "
+                             f"AO): visibility mismatch {mismatch}, rays "
+                             f"whose triangle differs {tri_diff}")
     depth = tracer.packed.depth
     R = batches[0][0].shape[0]
     active = [int(a.sum()) for *_, a in batches]
@@ -367,11 +358,12 @@ def check_trace(dev):
                 bound=trace_bound(_tree(tracer.packed), batches, tks, visits),
                 shape=f"2 queries (shadow tmax 10000, AO tmax 10) of {R} rays "
                       f"of one {W}x{H} headline frame, {active} active, "
-                      f"{n_tris} triangles, tree depth {depth}, "
+                      f"{data.num_triangles} triangles, tree depth {depth}, "
                       f"hit shadow {hit[0]:.3f} AO {hit[1]:.3f}; rays whose "
                       f"triangle differs from the plain version's "
                       f"{tri_diff}; ms for both",
-                tol="visibility mismatch <= 1e-3 of rays per query")
+                tol="visibility mismatch <= 1e-3 of rays per query; every "
+                    "ray's triangle equal")
 
 
 def trace_bound(tree, batches, outs, visits):
@@ -393,13 +385,15 @@ def _tree(packed):
     return packed.nodes, packed.node_tri, packed.tri_verts
 
 
-def radiance_batches(dev):
-    """The rays of one full-graph frame at 1920x1080 on the headline
-    camera: RTReflectionPass's reflection rays and RTDiffuseGIPass's GI
-    rays, recorded as the passes hand them to the tracer → (the tracer,
-    [(o, d, tmax, active)] x 2)."""
+def check_trace_closest(dev):
+    """K2c on the rays of one full-graph frame at 1920x1080 on the
+    headline camera: RTReflectionPass's reflection rays and
+    RTDiffuseGIPass's GI rays, recorded as the passes hand them to the
+    tracer."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
     W, H = HEADLINE["width"], HEADLINE["height"]
@@ -420,16 +414,6 @@ def radiance_batches(dev):
         raise AssertionError(f"expected the reflection and GI queries of "
                              f"{W}x{H} rays, got "
                              f"{[o.shape[0] for o, *_ in batches]}")
-    return tracer, batches
-
-
-def check_trace_closest(dev):
-    """K2c on the rays of one full-graph frame (``radiance_batches``)."""
-    from hybridrenderer_tpu_torch.ops import trace_cuda
-    from hybridrenderer_tpu_torch.ops.trace import RADIANCE_TMIN
-
-    W, H = HEADLINE["width"], HEADLINE["height"]
-    tracer, batches = radiance_batches(dev)
     kern = lambda: [trace_cuda.intersect_closest(tracer.packed, o, d,
                                                  RADIANCE_TMIN, t, a, W)
                     for o, d, t, a in batches]
@@ -607,11 +591,13 @@ def check_trace_packet(frame):
     if max(errs) > 0.0:
         raise AssertionError(f"K2b differs from the plain version: max err "
                              f"t, u, v {errs}")
-    # the per-ray kernels on the same rays; the bound counts the nodes
-    # and triangles the per-ray plain versions visit, as for K2 and K2c
+    # the per-ray kernels on the same rays, over their records (the
+    # packet tracer packs none); the bound counts the nodes and triangles
+    # the per-ray plain versions visit, as for K2 and K2c
     (o, d, tmin, tmax, act), (o2, d2, tmin2, tmax2, act2) = queries
-    closest = lambda: tc.intersect_closest(packed, o, d, tmin, tmax, act)
-    anyhit = lambda: tc.intersect_any(packed, o2, d2, tmin2, tmax2, act2)
+    per_ray = tc.pack_records(packed)
+    closest = lambda: tc.intersect_closest(per_ray, o, d, tmin, tmax, act)
+    anyhit = lambda: tc.intersect_any(per_ray, o2, d2, tmin2, tmax2, act2)
     c, a = closest(), anyhit()
     visits = {}
     tc.intersect_closest_plain(packed, o, d, tmin, tmax, act, visits=visits)

@@ -13,20 +13,6 @@
 // the C entry points return cudaGetLastError() after their launches
 #define HR_RETURN_LAUNCH_STATUS() return static_cast<int>(cudaGetLastError())
 
-// launch ``kernel`` on ``stream`` → the launch status; dynamic shared
-// memory above the default 48 KB needs the attribute
-template <typename... P, typename... A>
-int hr_launch(void (*kernel)(P...), dim3 grid, dim3 block, int smem,
-              void* stream, A... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  HR_RETURN_LAUNCH_STATUS();
-}
-
 __device__ __forceinline__ int hr_clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }

@@ -207,6 +207,19 @@ struct NormalWeights {
   }
 };
 
+// dynamic shared memory above the default 48 KB needs the attribute
+template <typename... P, typename... A>
+int launch(void (*kernel)(P...), dim3 grid, dim3 block, int smem,
+           void* stream, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  HR_RETURN_LAUNCH_STATUS();
+}
+
 constexpr int kAtrousBX = 32, kAtrousBY = 16;
 using AtrousWindow = Window<kAtrousBX, kAtrousBY, 2, false>;
 using AtrousWeights = NormalWeights<AtrousWindow>;
@@ -388,11 +401,11 @@ HR_EXPORT int hr_atrous(const void* sig, const void* normal, const void* mp,
   // per phase at most ceil(W / step) x ceil(H / step) outputs
   const dim3 grid(ceil_div(ceil_div(W, step), kAtrousBX) * step,
                   ceil_div(ceil_div(H, step), kAtrousBY) * step);
-  return hr_launch(atrous_kernel, grid, dim3(kAtrousBX, kAtrousBY),
-                   kAtrousSmem, stream, static_cast<const float*>(sig),
-                   static_cast<const float*>(normal),
-                   static_cast<const float*>(mp), H, W, step, phi_l_scale,
-                   phi_n, static_cast<float*>(out));
+  return launch(atrous_kernel, grid, dim3(kAtrousBX, kAtrousBY), kAtrousSmem,
+                stream, static_cast<const float*>(sig),
+                static_cast<const float*>(normal),
+                static_cast<const float*>(mp), H, W, step, phi_l_scale, phi_n,
+                static_cast<float*>(out));
 }
 
 // sig, out_sig and out_mom 16-byte aligned, mom 8-byte aligned
@@ -401,13 +414,12 @@ HR_EXPORT int hr_filter_moments(const void* sig, const void* mom,
                                 int W, float phi_luma, float phi_n,
                                 void* out_sig, void* out_mom, void* stream) {
   const dim3 grid(ceil_div(W, kMomentsBX), ceil_div(H, kMomentsBY));
-  return hr_launch(filter_moments_kernel, grid,
-                   dim3(kMomentsBX, kMomentsBY), kMomentsSmem, stream,
-                   static_cast<const float*>(sig),
-                   static_cast<const float*>(mom),
-                   static_cast<const float*>(normal),
-                   static_cast<const float*>(mp), H, W, phi_luma, phi_n,
-                   static_cast<float*>(out_sig), static_cast<float*>(out_mom));
+  return launch(filter_moments_kernel, grid, dim3(kMomentsBX, kMomentsBY),
+                kMomentsSmem, stream, static_cast<const float*>(sig),
+                static_cast<const float*>(mom),
+                static_cast<const float*>(normal),
+                static_cast<const float*>(mp), H, W, phi_luma, phi_n,
+                static_cast<float*>(out_sig), static_cast<float*>(out_mom));
 }
 
 HR_EXPORT int hr_variance_blur(const void* mom, int H, int W, void* out,

@@ -38,14 +38,13 @@
 // The stack is a 64-entry local array (cached in L1), in blocks of 128
 // threads, one step of either kind a turn of the loop: on the 1080p
 // headline and full-graph rays that beat a stack in shared memory, blocks
-// of 256 and a "while-while" loop (tools/trace_variants.py builds and
-// times each; PERF.md). The TPU kernel's 8-wide collapse, bf16 records
-// and 2048-ray packets with a shared stack were VMEM and packet
-// workarounds and are not kept. Bound on the card: instruction issue
-// (~70 instructions an internal step, its float operations in the plain
-// version's order under -fmad=false) thinned by warp divergence, worst
-// for the incoherent GI rays; the records are L2-resident for the
-// 65k-triangle scene.
+// of 256 and a "while-while" loop (PERF.md §6 has the readings). The
+// TPU kernel's 8-wide collapse, bf16 records and 2048-ray packets with a
+// shared stack were VMEM and packet workarounds and are not kept. Bound
+// on the card: instruction issue (~70 instructions an internal step, its
+// float operations in the plain version's order under -fmad=false)
+// thinned by warp divergence, worst for the incoherent GI rays; the
+// records are L2-resident for the 65k-triangle scene.
 #include "common.cuh"
 
 namespace {
@@ -120,50 +119,14 @@ __device__ __forceinline__ bool tri_hit(const float* tv, V3 org, V3 dir,
 
 __device__ __forceinline__ V3 xyz(float4 a) { return {a.x, a.y, a.z}; }
 
-// K2 / K2c's block; where their stack lives (1: shared memory, the
-// tree's depth in entries a thread; 0: a 64-entry array in local memory);
-// and their loop (1: "while-while", internal steps until every ray of the
-// warp is at a leaf, then one leaf step; 0: one step of either kind a
-// turn). tools/trace_variants.py builds and times the other choices.
-#ifndef HR_TRACE_BLOCK
-#define HR_TRACE_BLOCK 128
-#endif
-#ifndef HR_TRACE_SHARED_STACK
-#define HR_TRACE_SHARED_STACK 0
-#endif
-#ifndef HR_TRACE_WHILE_WHILE
-#define HR_TRACE_WHILE_WHILE 0
-#endif
-constexpr int kTraceBlock = HR_TRACE_BLOCK;
-constexpr bool kSharedStack = HR_TRACE_SHARED_STACK != 0;
-constexpr bool kWhileWhile = HR_TRACE_WHILE_WHILE != 0;
-// image queries: each warp traces one 8x4 pixel tile
+// K2 / K2c's block; image queries: each warp traces one 8x4 pixel tile
+constexpr int kTraceBlock = 128;
 constexpr int kTileW = 8, kTileH = 4;
 
-// A ray's stack of references: ``cap`` entries of the block's shared
-// memory, entry k at k * kTraceBlock + threadIdx.x, or a local array
-template <bool kShared>
-struct RayStack {
-  int* base;
-  int cap;
-  int sp = 0;
-  __device__ RayStack(int* smem, int entries)
-      : base(smem + threadIdx.x), cap(entries) {}
-  __device__ void push(int ref) {
-    if (sp < cap) base[kTraceBlock * sp++] = ref;
-  }
-  __device__ bool pop(int* ref) {
-    if (sp == 0) return false;
-    *ref = base[kTraceBlock * --sp];
-    return true;
-  }
-};
-
-template <>
-struct RayStack<false> {
+// A ray's stack of references: a 64-entry array in local memory
+struct Stack {
   int s[kStack];
   int sp = 0;
-  __device__ RayStack(int*, int) {}
   __device__ void push(int ref) {
     if (sp < kStack) s[sp++] = ref;
   }
@@ -173,19 +136,6 @@ struct RayStack<false> {
     return true;
   }
 };
-using Stack = RayStack<kSharedStack>;
-
-// stack entries a thread and the block's shared memory for a tree of
-// depth ``depth``
-constexpr int trace_stack_entries(int depth) {
-  return kSharedStack ? (depth > 0 ? depth : 1) : kStack;
-}
-constexpr int trace_smem(int depth) {
-  return kSharedStack
-             ? trace_stack_entries(depth) * kTraceBlock *
-                   static_cast<int>(sizeof(int))
-             : 0;
-}
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
@@ -267,36 +217,19 @@ __device__ __forceinline__ bool leaf_step(const float4* __restrict__ leaves,
 // One ray's traversal. Returns the hit triangle or -1; closest-hit also
 // leaves the hit's (t, u, v) in *best_t, *best_u, *best_v (best_t enters
 // as the ray's tmax). ``inner`` holds 4 float4 per internal node,
-// ``leaves`` 3 per leaf (the layout above); ``smem`` is the block's
-// dynamic shared memory.
+// ``leaves`` 3 per leaf (the layout above).
 template <bool kAnyHit>
 __device__ __forceinline__ int traverse(const float4* __restrict__ inner,
                                         const float4* __restrict__ leaves,
-                                        int n_internal, int* smem,
-                                        int stack_entries, V3 org, V3 dir,
+                                        int n_internal, V3 org, V3 dir,
                                         float tmin, float* best_t,
                                         float* best_u, float* best_v) {
   const V3 inv_d = {safe_inv(dir.x), safe_inv(dir.y), safe_inv(dir.z)};
   int best_tri = -1;
-  Stack stack(smem, stack_entries);
+  Stack stack;
   // the root: internal node 0, or for one triangle leaf 0 (tested
   // without a box, as the root is)
   int ref = n_internal > 0 ? 0 : ~0;
-  if (kWhileWhile) {
-    for (;;) {
-      while (ref >= 0) {
-        if (!inner_step(inner, &ref, &stack, org, inv_d, tmin, *best_t) &&
-            !stack.pop(&ref)) {
-          return best_tri;
-        }
-      }
-      if (leaf_step<kAnyHit>(leaves, ref, org, dir, tmin, &best_tri, best_t,
-                             best_u, best_v) ||
-          !stack.pop(&ref)) {
-        return best_tri;
-      }
-    }
-  }
   for (;;) {
     if (ref >= 0) {
       if (inner_step(inner, &ref, &stack, org, inv_d, tmin, *best_t)) {
@@ -313,12 +246,11 @@ __device__ __forceinline__ int traverse(const float4* __restrict__ inner,
 __global__ void __launch_bounds__(kTraceBlock)
 trace_any_kernel(const float4* __restrict__ inner,
                  const float4* __restrict__ leaves, int n_internal,
-                 int stack_entries, const float* __restrict__ o,
+                 const float* __restrict__ o,
                  const float* __restrict__ d,
                  const float* __restrict__ tmax_in,
                  const uint8_t* __restrict__ active, float tmin, int R,
                  int width, int* __restrict__ out) {
-  extern __shared__ int s_ray_stack[];
   const int i = ray_of_thread(R, width);
   if (i < 0) return;
   if (!active[i]) {
@@ -328,21 +260,20 @@ trace_any_kernel(const float4* __restrict__ inner,
   const V3 org = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
   const V3 dir = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
   float t = tmax_in[i], u, v;
-  out[i] = traverse<true>(inner, leaves, n_internal, s_ray_stack,
-                          stack_entries, org, dir, tmin, &t, &u, &v);
+  out[i] = traverse<true>(inner, leaves, n_internal, org, dir, tmin, &t, &u,
+                          &v);
 }
 
 __global__ void __launch_bounds__(kTraceBlock)
 trace_closest_kernel(const float4* __restrict__ inner,
                      const float4* __restrict__ leaves, int n_internal,
-                     int stack_entries, const float* __restrict__ o,
+                     const float* __restrict__ o,
                      const float* __restrict__ d,
                      const float* __restrict__ tmax_in,
                      const uint8_t* __restrict__ active, float tmin, int R,
                      int width, float* __restrict__ t_out,
                      int* __restrict__ tri_out, float* __restrict__ u_out,
                      float* __restrict__ v_out) {
-  extern __shared__ int s_ray_stack[];
   const int i = ray_of_thread(R, width);
   if (i < 0) return;
   int tri = -1;
@@ -351,8 +282,8 @@ trace_closest_kernel(const float4* __restrict__ inner,
     t = tmax_in[i];
     const V3 org = {o[3 * i], o[3 * i + 1], o[3 * i + 2]};
     const V3 dir = {d[3 * i], d[3 * i + 1], d[3 * i + 2]};
-    tri = traverse<false>(inner, leaves, n_internal, s_ray_stack,
-                          stack_entries, org, dir, tmin, &t, &u, &v);
+    tri = traverse<false>(inner, leaves, n_internal, org, dir, tmin, &t, &u,
+                          &v);
   }
   t_out[i] = tri < 0 ? __int_as_float(0x7f800000) : t;
   tri_out[i] = tri;
@@ -855,43 +786,43 @@ trace_mimt_kernel(const float* __restrict__ nodes,
 }  // namespace
 
 // inner: (n_internal, 16) f32 records, leaves: (n_internal + 1, 12) f32
-// rows, both 16-byte aligned; depth: the tree's (pack_bvh's check holds
-// it below 64); width: the columns of an image query, whose rays the
-// kernel traces in 8x4 tiles, or 0 for rays in any order
+// rows, both 16-byte aligned (pack_bvh's check holds the tree's depth
+// below 64); width: the columns of an image query, whose rays the kernel
+// traces in 8x4 tiles, or 0 for rays in any order
 HR_EXPORT int hr_trace_any(const void* inner, const void* leaves,
-                           int n_internal, int depth, const void* o,
-                           const void* d, const void* tmax,
-                           const void* active, float tmin, int R, int width,
-                           void* out, void* stream) {
-  if (R <= 0) HR_RETURN_LAUNCH_STATUS();
-  const int threads = trace_threads(R, width);
-  return hr_launch(
-      trace_any_kernel, dim3(ceil_div(threads, kTraceBlock)),
-      dim3(kTraceBlock), trace_smem(depth), stream,
-      static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
-      n_internal, trace_stack_entries(depth), static_cast<const float*>(o),
-      static_cast<const float*>(d), static_cast<const float*>(tmax),
-      static_cast<const uint8_t*>(active), tmin, R, width,
-      static_cast<int*>(out));
+                           int n_internal, const void* o, const void* d,
+                           const void* tmax, const void* active, float tmin,
+                           int R, int width, void* out, void* stream) {
+  if (R > 0) {
+    trace_any_kernel<<<ceil_div(trace_threads(R, width), kTraceBlock),
+                       kTraceBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
+        n_internal, static_cast<const float*>(o),
+        static_cast<const float*>(d), static_cast<const float*>(tmax),
+        static_cast<const uint8_t*>(active), tmin, R, width,
+        static_cast<int*>(out));
+  }
+  HR_RETURN_LAUNCH_STATUS();
 }
 
 HR_EXPORT int hr_trace_closest(const void* inner, const void* leaves,
-                               int n_internal, int depth, const void* o,
-                               const void* d, const void* tmax,
-                               const void* active, float tmin, int R,
-                               int width, void* t_out, void* tri_out,
-                               void* u_out, void* v_out, void* stream) {
-  if (R <= 0) HR_RETURN_LAUNCH_STATUS();
-  const int threads = trace_threads(R, width);
-  return hr_launch(
-      trace_closest_kernel, dim3(ceil_div(threads, kTraceBlock)),
-      dim3(kTraceBlock), trace_smem(depth), stream,
-      static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
-      n_internal, trace_stack_entries(depth), static_cast<const float*>(o),
-      static_cast<const float*>(d), static_cast<const float*>(tmax),
-      static_cast<const uint8_t*>(active), tmin, R, width,
-      static_cast<float*>(t_out), static_cast<int*>(tri_out),
-      static_cast<float*>(u_out), static_cast<float*>(v_out));
+                               int n_internal, const void* o, const void* d,
+                               const void* tmax, const void* active,
+                               float tmin, int R, int width, void* t_out,
+                               void* tri_out, void* u_out, void* v_out,
+                               void* stream) {
+  if (R > 0) {
+    trace_closest_kernel<<<ceil_div(trace_threads(R, width), kTraceBlock),
+                           kTraceBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
+        n_internal, static_cast<const float*>(o),
+        static_cast<const float*>(d), static_cast<const float*>(tmax),
+        static_cast<const uint8_t*>(active), tmin, R, width,
+        static_cast<float*>(t_out), static_cast<int*>(tri_out),
+        static_cast<float*>(u_out), static_cast<float*>(v_out));
+  }
+  HR_RETURN_LAUNCH_STATUS();
 }
 
 // any_hit 0 or 1; for any-hit the caller may ignore t, u and v

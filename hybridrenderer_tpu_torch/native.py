@@ -115,9 +115,9 @@ _SIGNATURES = {
     "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "hr_trace_packet": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P,
                         _P, _P, _P],
-    "hr_trace_any": [_P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
-    "hr_trace_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P,
-                         _P, _P, _P],
+    "hr_trace_any": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
+    "hr_trace_closest": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P,
+                         _P, _P],
     "hr_trace_wide": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,
                       _P, _P, _P, _P, _P],
     "hr_trace_mimt": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,

@@ -30,7 +30,7 @@ from .bvh_wide import build_wide, refit_wide
 from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
                          PackedBVH, check_wide_stacks, intersect_any,
                          intersect_closest, intersect_mimt, intersect_packet,
-                         intersect_wide, pack_bvh)
+                         intersect_wide, pack_binary, pack_bvh)
 
 TMIN = 0.01  # shadow_query's ray start, past the normal offset
 OCCLUSION_TMIN = 1e-3   # occluded's ray start
@@ -136,8 +136,10 @@ class SceneTracer:
         bvh = build_sah(soup.v0, soup.v1, soup.v2)
         packed = wide = None
         if kernel is None:
-            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
-                              PACKET_STACK_DEPTH if packet else STACK_DEPTH)
+            # K2b reads the per-node layout only
+            pack = pack_binary if packet else pack_bvh
+            packed = pack(bvh, soup.v0, soup.v1, soup.v2,
+                          PACKET_STACK_DEPTH if packet else STACK_DEPTH)
         else:
             wide = build_wide(bvh, soup.v0, soup.v1, soup.v2)
             if wide.vmem_bytes > VMEM_SCENE_BUDGET:
@@ -166,9 +168,10 @@ class SceneTracer:
             wide = refit_wide(self.wide, bvh.node_min, bvh.node_max,
                               soup.v0, soup.v1, soup.v2)
         else:
-            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
-                              PACKET_STACK_DEPTH if self.packet
-                              else STACK_DEPTH, like=self.packed)
+            pack = pack_binary if self.packet else pack_bvh
+            packed = pack(bvh, soup.v0, soup.v1, soup.v2,
+                          PACKET_STACK_DEPTH if self.packet else STACK_DEPTH,
+                          like=self.packed)
         return dataclasses.replace(self, packed=packed, bvh=bvh,
                                    levels=levels, wide=wide,
                                    shade_rows=_shade_rows(scene_data))

@@ -14,7 +14,9 @@ import torch
 from hybridrenderer_tpu.ops import bvh as ref_bvh
 from hybridrenderer_tpu.ops import trace as ref_trace
 from hybridrenderer_tpu.scene import scene as ref_scenes
+from hybridrenderer_tpu_torch.core.config import RenderSettings
 from hybridrenderer_tpu_torch.ops import bvh, trace_cuda
+from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .torch_parity import chain_bvh, flatten
@@ -234,3 +236,28 @@ def test_kernel_order_matches_reference():
     assert 0.1 < ref_vis.mean() < 0.9
     # at most 0.1% of rays may flip, for grazing hits
     assert ((tri >= 0) != ref_vis).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("backend", ["pallas", "auto"])
+def test_records_only_where_k2_traces(backend):
+    """SceneTracer packs K2 / K2c's records for the per-ray kernels only:
+    the packet tracer (K2b) gets pack_binary's per-node layout, the same
+    as pack_bvh's, before and after a refit, and pack_records adds the
+    records pack_bvh builds."""
+    ref_data = ref_scenes.stress_scene(num_objects=12, seed=3).build()
+    data = scene_from_numpy(flatten(ref_data), "cpu")
+    tracer = SceneTracer.build(data, RenderSettings(trace_backend=backend))
+    soup = data.triangles
+    full = trace_cuda.pack_bvh(tracer.bvh, soup.v0, soup.v1, soup.v2,
+                               trace_cuda.PACKET_STACK_DEPTH)
+    for packed in (tracer.packed, tracer.refit(data).packed):
+        names = ["nodes", "node_tri", "tri_verts"]
+        if backend == "pallas":
+            assert packed.inner_records is None and packed.leaf_rows is None
+            # records added later, as for a per-ray comparison
+            packed = trace_cuda.pack_records(packed)
+        names += ["inner_records", "leaf_rows"]
+        for name in names:   # the child-id bits are NaNs as floats
+            assert torch.equal(_bits(getattr(packed, name)),
+                               _bits(getattr(full, name))), name
+        assert packed.depth == full.depth
