@@ -693,11 +693,20 @@ def abs_diff_nan(a, b) -> float:
     return (a - b).abs().nan_to_num(nan=inf, posinf=inf)[~same].max().item()
 
 
+# float operations of one slab test and one Moller-Trumbore test
+# (csrc/trace.cu wide_slab, wide_leaf)
+SLAB_FLOP, TRIANGLE_FLOP = 25, 54
+
+
 def check_wide(dev):
     """K2w and K2m on the four wide queries of the 1080p paths (all rays),
     each exact against its plain version (t, tri, u, v apart), then
     against the per-ray K2 (any-hit) and K2c (closest-hit) over the
-    binary tree on the same rays: no visibility flip, closest t equal."""
+    binary tree on the same rays: no visibility flip, closest t equal.
+    Beside each kernel's time: the plain version's step counters, the
+    contract's own tests (every pop against every ray of its packet or
+    row) as FLOP at the fp32 peak, and the build's registers, local
+    memory (stack frame and spills) and blocks an SM."""
     from hybridrenderer_tpu_torch.ops import trace_cuda as tc
     from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 
@@ -725,6 +734,11 @@ def check_wide(dev):
         deep = int(wide.deep_pushes.item()) - deep0
         steps = {}
         ps = [plain(wide, *r, m, visits=steps) for r, m in zip(rays, modes)]
+        # the plain version counts its deep pushes on the same counter
+        plain_deep = int(wide.deep_pushes.item()) - deep0 - deep
+        if deep != plain_deep:
+            raise AssertionError(f"{name}: {deep} leaf pushes past 128 "
+                                 f"entries, the plain version {plain_deep}")
         err, tri_bad = 0.0, 0   # max |kernel - plain| over t, u, v
         for (qn, *_), k, p in zip(queries, ks, ps):
             bad = [f for f, a, b in zip("t tri u v".split(), k, p)
@@ -762,7 +776,12 @@ def check_wide(dev):
                         [k if not m else k[1] for k, m in zip(ks, modes)],
                         visits)
         active = [int(r[4].sum()) for r in rays]
-        unit = "row" if name == "trace_mimt" else "packet"
+        mimt = name == "trace_mimt"
+        unit = "row" if mimt else "packet"
+        rays_per_unit = tc.WIDE_PACKET // (tc.WIDE_ROWS if mimt else 1)
+        contract = rays_per_unit * (8 * SLAB_FLOP * steps["internal"]
+                                    + 4 * TRIANGLE_FLOP * steps["leaf"])
+        info = tc.wide_kernel_info(mimt)
         out[name] = dict(
             err=err, ms=sum(times), plain_ms=plain_ms, bound=b,
             shape=f"the shadow, AO (any-hit) and primary (closest-hit) rays "
@@ -778,9 +797,15 @@ def check_wide(dev):
                   + f" ms on the same rays ({flips} visibility flips, "
                   f"closest t within {t_diff:.3g}, {ties} equal-t triangle "
                   f"ties; {tri_bad} triangles differ from the plain "
-                  f"version's); {unit} steps {steps} vs per-ray node visits "
-                  f"{visits}; {deep} leaf pushes past the reference's 128 "
-                  f"entries; ms for all four",
+                  f"version's); {unit} pops {steps['internal']} nodes, "
+                  f"{steps['leaf']} clusters in {steps['steps']} program "
+                  f"steps, {steps['idle_internal']} / {steps['idle_leaf']} "
+                  f"{unit} steps popping no node / no cluster; contract "
+                  f"tests {contract / 1e9:.2f} GFLOP = "
+                  f"{contract / FP32_FLOPS_PER_S * 1e3:.4f} ms at the fp32 "
+                  f"peak; per-ray node visits {visits}; {deep} leaf pushes "
+                  f"past the reference's 128 entries; build {info}; ms for "
+                  f"all four",
             tol="exact (t, tri, u, v)")
     return out
 

@@ -425,45 +425,71 @@ trace_packet_kernel(const float4* __restrict__ nodes,
 // Replace hybridrenderer_tpu/ops/trace_pallas.py _wide_traverse_kernel
 // (:457, entry intersect_wide :746) and _mimt_traverse_kernel (:1518,
 // entry intersect_mimt :1757). Same contract: a packet is 1024
-// consecutive rays; a program, here one block of 1024 threads, runs two
-// packets, thread i holding ray i of each; inactive rays (and the padding
-// past R: o = 0, d = 1) carry tmax -1 and start with the sentinel id
-// INACTIVE_TRI, so they never hit and count as done for any-hit; tmax is
-// clamped to 1e6. Each step pops one internal node and one leaf cluster
-// (per packet, or per 128-ray row for K2m), runs the 4 Moller-Trumbore
-// tests of the cluster (a hit with t <= the best so far replaces it, in
-// any-hit mode too) and the 8 slab tests of the node against each ray's
-// best t (any-hit rays with a hit test against -inf), ORs the hits of the
-// packet's (row's) rays per child slot and pushes the hit children of
-// each kind, masked by the meta masks (empty slots' inverted boxes pass
-// every slab test). The block tests liveness every 16 steps and runs
-// while either packet has stack entries and, any-hit, a ray without a
-// hit: a finished packet keeps popping beside its live sibling, as the
-// reference's chunked loop does, so the kernels report the reference's
-// triangles, any-hit included.
+// consecutive rays and a program, here one block, runs two packets;
+// inactive rays (and the padding past R: o = 0, d = 1) carry tmax -1 and
+// start with the sentinel id INACTIVE_TRI, so they never hit and count
+// as done for any-hit; tmax is clamped to 1e6. Each step pops one
+// internal node and one leaf cluster (per packet, or per 128-ray row for
+// K2m), runs the 4 Moller-Trumbore tests of the cluster (a hit with t <=
+// the best so far replaces it, in any-hit mode too) and then the 8 slab
+// tests of the node against each ray's best t (any-hit rays with a hit
+// test against -inf), ORs the hits of the packet's (row's) rays per
+// child slot and pushes the hit children of each kind, masked by the
+// meta masks (empty slots' inverted boxes pass every slab test). The
+// block tests liveness every 16 steps and runs while either packet has
+// stack entries and, any-hit, a ray without a hit: a finished packet
+// keeps popping beside its live sibling, as the reference's chunked loop
+// does, so the kernels report the reference's triangles, any-hit
+// included.
 // * K2w: one stack per kind per packet of compressed entries
 //   (node << 8 | pending child mask); a pop takes the lowest pending
-//   slot and decodes its id with the meta popcount rule; the entry leaves
-//   the stack with its last bit. Votes: __reduce_or_sync per warp, then a
-//   shared atomicOr per packet; thread 0 writes the stacks.
-// * K2m: each row (4 warps) has its own stacks of direct ids; a row pushes
-//   its hit children at sp + popcount(hits below), id base +
-//   popcount(mask below), threads 0..7 of the row one slot each, and pops
-//   the last pushed first.
-// Stacks live in shared memory. Internal stacks hold 128 entries (the TPU
-// kernels' 128 register lanes), enough for any tree ops/trace_cuda.
-// check_wide_stacks accepts. Leaf stacks hold 512: the TPU kernels drop
-// leaf pushes past 128 and miss their triangles (a packet's leaf stack
-// reaches ~150 on the stress scene); here a packet (row) whose leaf stack
-// could overflow pops no internal node that step, only a leaf, so the
-// visiting order is the reference's wherever the reference drops nothing
-// and no push is ever dropped. Leaf pushes past 128 are counted in
-// *deep_pushes. Arithmetic in the order of the plain versions
-// (ops/trace_cuda.py); -fmad=false makes the card check exact.
-// Bound on the card: two block barriers and a vote per step for 1024
-// threads, and the step count, which is the union of the nodes the
-// packet's (row's) rays visit; records are read from L2 (5 MB for the
-// 65k-triangle scene), each once per step, broadcast to the block.
+//   slot; the entry leaves the stack with its last bit.
+// * K2m: each row has its own stacks of direct ids; a row pushes its
+//   hit children at sp + popcount(hits below), id base + popcount(mask
+//   below), and pops the last pushed first.
+// Internal stacks hold 128 entries (the TPU kernels' 128 register
+// lanes), enough for any tree ops/trace_cuda.check_wide_stacks accepts.
+// Leaf stacks hold 512: the TPU kernels drop leaf pushes past 128 and
+// miss their triangles (a packet's leaf stack reaches ~150 on the stress
+// scene); here a packet (row) whose leaf stack could overflow pops no
+// internal node that step, only a leaf, so the visiting order is the
+// reference's wherever the reference drops nothing and no push is ever
+// dropped. Leaf pushes past 128 are counted in *deep_pushes. Arithmetic
+// in the order of the plain versions (ops/trace_cuda.py); -fmad=false
+// makes the card check exact.
+//
+// Design for the card:
+// * No test that cannot change a result, skipped a warp at a time: a
+//   packet (row) with nothing to pop of a kind runs no tests of that
+//   kind (its vote is dropped, the dummy leaf has ids -1); a warp whose
+//   rays are all any-hit rays with a hit runs no slab tests (against
+//   -inf only an empty slot's box can pass, and the meta masks drop
+//   those); a warp whose rays all have t < tmin (inactive rays) runs no
+//   triangle tests. A packet (row) with both stacks empty is done for
+//   good and waits for the next liveness test. Closest-hit inactive rays
+//   keep their slab tests: their bound is -1, which a box around the
+//   origin passes.
+// * 4 rays a thread, so that each record load serves them all: records
+//   are read as float4 broadcasts, 12 for a node and 12 for a leaf.
+// * K2w: a packet runs on its own half of the block (8 warps) behind a
+//   named barrier, one a step; each thread keeps the tops of its
+//   packet's stacks, with the meta word their decode needs, in
+//   registers, so only an entry that leaves the stack sends the threads
+//   to shared memory for the one below, and one thread writes an entry
+//   only when a push covers it. The votes rotate through three words per
+//   packet, each cleared two steps before it is used again.
+// * K2m: a row is one warp; its steps need only __syncwarp, and the
+//   block meets only at the liveness test.
+// Bound on the card (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the issue
+// of the tests that remain, at one block of 16 warps an SM (120-123
+// registers, no spills), and the warps that wait: a program runs the
+// steps of its longest packet (row), rounded up to 16, and a packet
+// (row) done early leaves its warps idle until then. On the four 1080p
+// wide queries of chip_smoke.py, the contract's own tests (every pop
+// tested against every ray of its packet or row) are ~67 GFLOP for K2w
+// and ~28 for K2m, 1.0 and 0.4 ms at the fp32 peak; most program steps
+// pop nothing of a kind (54% of K2w's packet steps no node, 61% of
+// K2m's row steps).
 constexpr int kWidePacket = 1024;
 constexpr int kWideChunk = 16;
 constexpr int kWideMaxSteps = 1 << 16;
@@ -472,10 +498,18 @@ constexpr int kWideLeafStack = 512;
 constexpr int kWideRows = 8;
 constexpr int kRowRays = kWidePacket / kWideRows;
 constexpr int kInactiveTri = 1 << 29;
+// both kernels: 4 rays a thread, a program on a block of 512 threads;
+// K2w's packets on its two halves, K2m's rows a warp each
+constexpr int kWideRays = 4;
+constexpr int kWideThreads = 2 * kWidePacket / kWideRays;
+constexpr int kWideHalf = kWideThreads / 2;
+constexpr int kMimtWarps = kWideThreads / kWarp;
+static_assert(kRowRays == kWarp * kWideRays, "K2m walks a row a warp");
 
+// a ray's state but its (u, v), which only a hit writes
 struct WideRay {
   V3 o, d, inv;
-  float t, u, v;
+  float t;
   int tri;
 };
 
@@ -496,13 +530,12 @@ __device__ __forceinline__ WideRay wide_ray(const float* __restrict__ o,
   }
   r.inv = {safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z)};
   r.t = tm;
-  r.u = 0.0f;
-  r.v = 0.0f;
   r.tri = tm < 0.0f ? kInactiveTri : -1;
   return r;
 }
 
-__device__ __forceinline__ void wide_store(const WideRay& r, long i, int R,
+__device__ __forceinline__ void wide_store(const WideRay& r, float u,
+                                           float v, long i, int R,
                                            float* __restrict__ t_out,
                                            int* __restrict__ tri_out,
                                            float* __restrict__ u_out,
@@ -510,91 +543,185 @@ __device__ __forceinline__ void wide_store(const WideRay& r, long i, int R,
   if (i >= R) return;
   t_out[i] = r.tri < 0 ? __int_as_float(0x7f800000) : r.t;
   tri_out[i] = r.tri;
-  u_out[i] = r.u;
-  v_out[i] = r.v;
+  u_out[i] = u;
+  v_out[i] = v;
 }
 
-// the 4 triangles of leaf record `rec`
-__device__ __forceinline__ void wide_leaf(const float* __restrict__ rec,
-                                          WideRay& r, float tmin) {
+// whether a warp's leaf tests can change a ray of it: some ray has
+// t >= tmin (a hit needs tmin <= t' <= t)
+template <int N>
+__device__ __forceinline__ bool warp_can_hit(const WideRay (&r)[N],
+                                             float tmin) {
+  bool any = false;
 #pragma unroll
+  for (int n = 0; n < N; ++n) any = any || r[n].t >= tmin;
+  return __any_sync(kFull, any);
+}
+
+// whether a warp's slab tests can vote for a real slot: closest-hit, or
+// some ray without a hit
+template <int N>
+__device__ __forceinline__ bool warp_can_vote(const WideRay (&r)[N],
+                                              bool any_hit) {
+  bool any = !any_hit;
+#pragma unroll
+  for (int n = 0; n < N; ++n) any = any || r[n].tri < 0;
+  return __any_sync(kFull, any);
+}
+
+// the 4 triangles of leaf record `rec` (12 float4: triangle k is v0,
+// e1, e2, id, 0, 0 at float4 3k..3k+2) against each of the N rays, whose
+// (u, v) are u[n], v[n]; the loop over the triangles unrolled kUnroll
+// times
+template <int kUnroll, int N>
+__device__ __forceinline__ void wide_leaf(const float4* __restrict__ rec,
+                                          WideRay (&r)[N], float (&u)[N],
+                                          float (&v)[N], float tmin) {
+#pragma unroll kUnroll
   for (int k = 0; k < 4; ++k) {
-    const float* f = rec + 12 * k;
-    const float p0x = __ldg(f + 0), p0y = __ldg(f + 1), p0z = __ldg(f + 2);
-    const float a1x = __ldg(f + 3), a1y = __ldg(f + 4), a1z = __ldg(f + 5);
-    const float a2x = __ldg(f + 6), a2y = __ldg(f + 7), a2z = __ldg(f + 8);
-    const float tid = __ldg(f + 9);
-    const float pvx = r.d.y * a2z - r.d.z * a2y;
-    const float pvy = r.d.z * a2x - r.d.x * a2z;
-    const float pvz = r.d.x * a2y - r.d.y * a2x;
-    const float det = a1x * pvx + a1y * pvy + a1z * pvz;
-    const float inv_det = 1.0f / (fabsf(det) < kTriEps ? kTriEps : det);
-    const float tvx = r.o.x - p0x;
-    const float tvy = r.o.y - p0y;
-    const float tvz = r.o.z - p0z;
-    const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    const float qvx = tvy * a1z - tvz * a1y;
-    const float qvy = tvz * a1x - tvx * a1z;
-    const float qvz = tvx * a1y - tvy * a1x;
-    const float vv = (r.d.x * qvx + r.d.y * qvy + r.d.z * qvz) * inv_det;
-    const float tt = (a2x * qvx + a2y * qvy + a2z * qvz) * inv_det;
-    if (fabsf(det) >= kTriEps && uu >= 0.0f && vv >= 0.0f &&
-        uu + vv <= 1.0f && tt >= tmin && tt <= r.t && tid >= 0.0f) {
-      r.t = tt;
-      r.tri = static_cast<int>(tid);
-      r.u = uu;
-      r.v = vv;
+    const float4 a = __ldg(rec + 3 * k), b = __ldg(rec + 3 * k + 1),
+                 c = __ldg(rec + 3 * k + 2);
+    const float p0x = a.x, p0y = a.y, p0z = a.z;
+    const float a1x = a.w, a1y = b.x, a1z = b.y;
+    const float a2x = b.z, a2y = b.w, a2z = c.x;
+    const float tid = c.y;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      WideRay& q = r[n];
+      const float pvx = q.d.y * a2z - q.d.z * a2y;
+      const float pvy = q.d.z * a2x - q.d.x * a2z;
+      const float pvz = q.d.x * a2y - q.d.y * a2x;
+      const float det = a1x * pvx + a1y * pvy + a1z * pvz;
+      const float inv_det = 1.0f / (fabsf(det) < kTriEps ? kTriEps : det);
+      const float tvx = q.o.x - p0x;
+      const float tvy = q.o.y - p0y;
+      const float tvz = q.o.z - p0z;
+      const float uu = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+      const float qvx = tvy * a1z - tvz * a1y;
+      const float qvy = tvz * a1x - tvx * a1z;
+      const float qvz = tvx * a1y - tvy * a1x;
+      const float vv = (q.d.x * qvx + q.d.y * qvy + q.d.z * qvz) * inv_det;
+      const float tt = (a2x * qvx + a2y * qvy + a2z * qvz) * inv_det;
+      if (fabsf(det) >= kTriEps && uu >= 0.0f && vv >= 0.0f &&
+          uu + vv <= 1.0f && tt >= tmin && tt <= q.t && tid >= 0.0f) {
+        q.t = tt;
+        q.tri = static_cast<int>(tid);
+        u[n] = uu;
+        v[n] = vv;
+      }
     }
   }
 }
 
-// the mask of the 8 child boxes of node record `rec` that the ray hits
-__device__ __forceinline__ unsigned wide_votes(const float* __restrict__ rec,
-                                               const WideRay& r, float tmin,
-                                               bool any_hit) {
-  const float tb = (any_hit && r.tri >= 0) ? -__int_as_float(0x7f800000)
-                                           : r.t;
+// one slab test of box (lo, hi) against ray q and bound tb
+__device__ __forceinline__ bool wide_slab(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          const WideRay& q, float tmin,
+                                          float tb) {
+  const float t0x = (lx - q.o.x) * q.inv.x;
+  const float t1x = (hx - q.o.x) * q.inv.x;
+  const float t0y = (ly - q.o.y) * q.inv.y;
+  const float t1y = (hy - q.o.y) * q.inv.y;
+  const float t0z = (lz - q.o.z) * q.inv.z;
+  const float t1z = (hz - q.o.z) * q.inv.z;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+  return tn <= tf && tf >= tmin && tn <= tb;
+}
+
+// the mask of the 8 child boxes of node record `rec` (12 float4: the
+// boxes of children 2k and 2k+1 at float4 3k..3k+2) that any of the N
+// rays hits
+template <int N>
+__device__ __forceinline__ unsigned wide_votes(const float4* __restrict__ rec,
+                                               const WideRay (&r)[N],
+                                               float tmin, bool any_hit) {
+  float tb[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    tb[n] = (any_hit && r[n].tri >= 0) ? -__int_as_float(0x7f800000)
+                                       : r[n].t;
+  }
   unsigned hm = 0;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float* f = rec + 6 * c;
-    const float t0x = (__ldg(f + 0) - r.o.x) * r.inv.x;
-    const float t1x = (__ldg(f + 3) - r.o.x) * r.inv.x;
-    const float t0y = (__ldg(f + 1) - r.o.y) * r.inv.y;
-    const float t1y = (__ldg(f + 4) - r.o.y) * r.inv.y;
-    const float t0z = (__ldg(f + 2) - r.o.z) * r.inv.z;
-    const float t1z = (__ldg(f + 5) - r.o.z) * r.inv.z;
-    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fminf(t0z, t1z));
-    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fmaxf(t0z, t1z));
-    if (tn <= tf && tf >= tmin && tn <= tb) hm |= 1u << c;
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = __ldg(rec + 3 * k), b = __ldg(rec + 3 * k + 1),
+                 c = __ldg(rec + 3 * k + 2);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      if (wide_slab(a.x, a.y, a.z, a.w, b.x, b.y, r[n], tmin, tb[n])) {
+        hm |= 1u << (2 * k);
+      }
+      if (wide_slab(b.z, b.w, c.x, c.y, c.z, c.w, r[n], tmin, tb[n])) {
+        hm |= 2u << (2 * k);
+      }
+    }
   }
   return hm;
 }
 
-// K2w's pop decode: entry (parent << 8 | pending mask) → the id of its
-// lowest pending child of kind `col` (0 internal, 1 leaf); *rem gets the
-// mask without that bit
-__device__ __forceinline__ int wide_decode(int e, const int2* __restrict__ meta,
-                                           int n_meta, int col, int* rem) {
+// K2w's pop: entry (parent << 8 | pending mask), with m the parent's
+// meta word of the stack's kind → the id of the lowest pending child;
+// *rem gets the mask without that bit
+__device__ __forceinline__ int wide_decode(int e, int m, int* rem) {
   const int bits = e & 255;
   const int below = (bits & -bits) - 1;
-  const int2 mm = __ldg(meta + max(min(e >> 8, n_meta - 1), 0));
-  const int m = col ? mm.y : mm.x;
   *rem = bits & (bits - 1);
   return (m >> 8) + __popc((m & 255) & below);
 }
 
-// OR of `v` over the warp, added into *dst by lane 0
-__device__ __forceinline__ void vote_or(unsigned v, unsigned* dst) {
-  v = __reduce_or_sync(kFull, v);
-  if ((threadIdx.x & (kWarp - 1)) == 0 && v) atomicOr(dst, v);
+// a named barrier over the `count` threads that use barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
-__global__ void __launch_bounds__(kWidePacket)
-trace_wide_kernel(const float* __restrict__ nodes,
-                  const float* __restrict__ leaves,
+// One of K2w's compressed stacks as its packet's threads see it: the top
+// entry and its meta word in registers (every thread of the packet
+// holds the same), the entries below it in shared memory.
+struct WideStack {
+  int sp, e, m;
+
+  // after a pop that took `child` from the top and left it `rem`
+  // (`popped`), and a push of `pushed` (entry, meta) if `push`: the new
+  // top. `lead` writes shared memory: the top when a push covers it, the
+  // pushed entry; the others read the entry below when the top leaves.
+  // Entries past `cap` are dropped on push and read as (0, *m0), the
+  // super-root's meta word, as the plain version's stack reads them.
+  __device__ __forceinline__ void update(int2* __restrict__ s, int cap,
+                                         bool popped, int rem, bool push,
+                                         int2 pushed,
+                                         const int* __restrict__ m0,
+                                         bool lead) {
+    if (popped) {
+      if (rem) {
+        e = ((e >> 8) << 8) | rem;
+      } else {
+        --sp;
+      }
+    }
+    if (push) {
+      if (lead) {
+        if (popped && rem && sp - 1 < cap) s[sp - 1] = make_int2(e, m);
+        if (sp < cap) s[sp] = pushed;
+      }
+      const bool kept = sp < cap;
+      e = kept ? pushed.x : 0;
+      m = kept ? pushed.y : __ldg(m0);
+      ++sp;
+    } else if (popped && !rem && sp > 0) {
+      const int2 below =
+          sp - 1 < cap ? s[sp - 1] : make_int2(0, __ldg(m0));
+      e = below.x;
+      m = below.y;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kWideThreads)
+trace_wide_kernel(const float4* __restrict__ nodes,
+                  const float4* __restrict__ leaves,
                   const int2* __restrict__ meta, int n_nodes, int n_leaves,
                   int n_meta, const float* __restrict__ o,
                   const float* __restrict__ d,
@@ -603,96 +730,88 @@ trace_wide_kernel(const float* __restrict__ nodes,
                   int any_hit, float* __restrict__ t_out,
                   int* __restrict__ tri_out, float* __restrict__ u_out,
                   float* __restrict__ v_out, int* __restrict__ deep_pushes) {
-  __shared__ int s_istack[2][kWideStack];
-  __shared__ int s_lstack[2][kWideLeafStack];
-  __shared__ unsigned s_vote[2][2];  // [buffer][packet]
-  const int tid = threadIdx.x;
-  const long base = static_cast<long>(blockIdx.x) * 2 * kWidePacket + tid;
-  WideRay ray[2];
-  for (int p = 0; p < 2; ++p) {
-    ray[p] = wide_ray(o, d, tmax, active, base + p * kWidePacket, R);
+  constexpr int N = kWideRays;
+  __shared__ int2 s_istack[2][kWideStack];
+  __shared__ int2 s_lstack[2][kWideLeafStack];
+  __shared__ unsigned s_vote[2][3];  // [packet][step % 3]
+  // the rays' (u, v), in shared memory: registers are the scarce resource
+  __shared__ float s_u[kWideThreads][N], s_v[kWideThreads][N];
+  // packet p on threads [p * kWideHalf, (p + 1) * kWideHalf), thread j
+  // holding its rays N j .. N j + N - 1
+  const int p = threadIdx.x / kWideHalf, j = threadIdx.x % kWideHalf;
+  const bool lead = j == 0;
+  const long first = (2L * blockIdx.x + p) * kWidePacket + N * j;
+  WideRay ray[N];
+  float(&u)[N] = s_u[threadIdx.x];
+  float(&v)[N] = s_v[threadIdx.x];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ray[n] = wide_ray(o, d, tmax, active, first + n, R);
+    u[n] = 0.0f;
+    v[n] = 0.0f;
   }
+  if (threadIdx.x < 6) s_vote[threadIdx.x / 3][threadIdx.x % 3] = 0u;
+  // the super-root's meta words
+  const int* m0 = reinterpret_cast<const int*>(meta);
   // the bootstrap entry (super-root 0, mask 1) decodes to the root
-  int isp[2] = {1, 1}, lsp[2] = {0, 0};
-  if (tid < 2) {
-    s_istack[tid][0] = 1;
-    s_lstack[tid][0] = 0;
-  }
-  if (tid < 4) s_vote[tid / 2][tid % 2] = 0u;
-  __syncthreads();
+  WideStack is{1, 1, __ldg(m0)}, ls{0, 0, 0};
   int buf = 0;
+  __syncthreads();
   for (int steps = 0; steps < kWideMaxSteps; steps += kWideChunk) {
-    bool live = false;
-    for (int p = 0; p < 2; ++p) {
-      bool pl = isp[p] > 0 || lsp[p] > 0;
-      if (any_hit) pl = pl && !__syncthreads_and(ray[p].tri >= 0);
-      live = live || pl;
+    bool done = true;
+#pragma unroll
+    for (int n = 0; n < N; ++n) done = done && ray[n].tri >= 0;
+    // the packet's stack state is the same in all its threads
+    if (!__syncthreads_or((is.sp > 0 || ls.sp > 0) && !(any_hit && done))) {
+      break;
     }
-    if (!live) break;
     for (int s = 0; s < kWideChunk; ++s) {
-      int node[2], itop[2], ltop[2], ient[2], lent[2];
-      bool ivalid[2], lvalid[2];
-      for (int p = 0; p < 2; ++p) {
-        // a packet whose leaf stack is full pops no node this step
-        ivalid[p] = isp[p] > 0 && lsp[p] < kWideLeafStack;
-        itop[p] = max(isp[p] - 1, 0);
-        // an empty stack's top is never read: it may hold anything
-        const int ie = (isp[p] > 0 && itop[p] < kWideStack)
-                           ? s_istack[p][itop[p]] : 0;
-        int irem, lrem;
-        const int ichild = wide_decode(ie, meta, n_meta, 0, &irem);
-        ient[p] = ((ie >> 8) << 8) | irem;
-        lvalid[p] = lsp[p] > 0;
-        ltop[p] = max(lsp[p] - 1, 0);
-        const int le = lsp[p] > 0 ? s_lstack[p][ltop[p]] : 0;
-        const int lchild = wide_decode(le, meta, n_meta, 1, &lrem);
-        lent[p] = ((le >> 8) << 8) | lrem;
-        node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : 0;
-        const int leaf = lvalid[p] ? min(lchild, n_leaves - 1)
-                                   : n_leaves - 1;
-        wide_leaf(leaves + 48L * leaf, ray[p], tmin);
-        vote_or(wide_votes(nodes + 48L * node[p], ray[p], tmin, any_hit),
-                &s_vote[buf][p]);
-        // the entry leaves the stack with its last pending bit
-        isp[p] -= (ivalid[p] && irem == 0) ? 1 : 0;
-        lsp[p] -= (lvalid[p] && lrem == 0) ? 1 : 0;
+      // a packet whose leaf stack is full pops no node this step
+      const bool ivalid = is.sp > 0 && ls.sp < kWideLeafStack;
+      const bool lvalid = ls.sp > 0;
+      if (!ivalid && !lvalid) break;  // both stacks empty: done for good
+      int irem = 0, lrem = 0;
+      const int ichild = ivalid ? wide_decode(is.e, is.m, &irem) : 0;
+      const int lchild = lvalid ? wide_decode(ls.e, ls.m, &lrem) : 0;
+      const int node = ivalid ? min(ichild, n_nodes - 1) : 0;
+      const int2 mm =
+          ivalid ? __ldg(meta + min(node, n_meta - 1)) : make_int2(0, 0);
+      if (lvalid && warp_can_hit(ray, tmin)) {
+        wide_leaf<4>(leaves + 12L * min(lchild, n_leaves - 1), ray, u, v,
+                     tmin);
       }
-      __syncthreads();  // votes in; every thread has read the tops
-      for (int p = 0; p < 2; ++p) {
-        const unsigned hm = ivalid[p] ? s_vote[buf][p] : 0u;
-        const int2 mm = __ldg(meta + min(node[p], n_meta - 1));
-        const int hi = static_cast<int>(hm) & mm.x & 255;
-        const int hl = static_cast<int>(hm) & mm.y & 255;
-        if (tid == 0) {
-          if (ivalid[p] && itop[p] < kWideStack) {
-            s_istack[p][itop[p]] = ient[p];
-          }
-          if (lvalid[p]) s_lstack[p][ltop[p]] = lent[p];
-          if (hi && isp[p] < kWideStack) {
-            s_istack[p][isp[p]] = (node[p] << 8) | hi;
-          }
-          if (hl) {
-            s_lstack[p][lsp[p]] = (node[p] << 8) | hl;
-            if (lsp[p] >= kWideStack) atomicAdd(deep_pushes, 1);
-          }
-          s_vote[buf ^ 1][p] = 0u;
+      if (ivalid && warp_can_vote(ray, any_hit)) {
+        const unsigned hits = __reduce_or_sync(
+            kFull, wide_votes(nodes + 12L * node, ray, tmin, any_hit));
+        if ((threadIdx.x & (kWarp - 1)) == 0 && hits) {
+          atomicOr(&s_vote[p][buf], hits);
         }
-        isp[p] += hi != 0;
-        lsp[p] += hl != 0;
       }
-      __syncthreads();  // stacks written before the next step's pops
-      buf ^= 1;
+      named_sync(1 + p, kWideHalf);  // votes in
+      const unsigned hm = ivalid ? s_vote[p][buf] : 0u;
+      if (lead) s_vote[p][buf == 0 ? 2 : buf - 1] = 0u;  // used at step + 2
+      buf = buf == 2 ? 0 : buf + 1;
+      const int hi = static_cast<int>(hm) & mm.x & 255;
+      const int hl = static_cast<int>(hm) & mm.y & 255;
+      // the leaf push goes to the slot above the popped stack
+      const int lpos = ls.sp - (lvalid && !lrem ? 1 : 0);
+      if (lead && hl && lpos >= kWideStack) atomicAdd(deep_pushes, 1);
+      is.update(s_istack[p], kWideStack, ivalid, irem, hi != 0,
+                make_int2((node << 8) | hi, mm.x), m0, lead);
+      ls.update(s_lstack[p], kWideLeafStack, lvalid, lrem, hl != 0,
+                make_int2((node << 8) | hl, mm.y), m0 + 1, lead);
     }
   }
-  for (int p = 0; p < 2; ++p) {
-    wide_store(ray[p], base + p * kWidePacket, R, t_out, tri_out, u_out,
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    wide_store(ray[n], u[n], v[n], first + n, R, t_out, tri_out, u_out,
                v_out);
   }
 }
 
-__global__ void __launch_bounds__(kWidePacket)
-trace_mimt_kernel(const float* __restrict__ nodes,
-                  const float* __restrict__ leaves,
+__global__ void __launch_bounds__(kWideThreads)
+trace_mimt_kernel(const float4* __restrict__ nodes,
+                  const float4* __restrict__ leaves,
                   const int2* __restrict__ meta, int n_nodes, int n_leaves,
                   int n_meta, const float* __restrict__ o,
                   const float* __restrict__ d,
@@ -701,84 +820,96 @@ trace_mimt_kernel(const float* __restrict__ nodes,
                   int any_hit, float* __restrict__ t_out,
                   int* __restrict__ tri_out, float* __restrict__ u_out,
                   float* __restrict__ v_out, int* __restrict__ deep_pushes) {
-  __shared__ int s_istack[2][kWideRows][kWideStack];
-  __shared__ int s_lstack[2][kWideRows][kWideLeafStack];
-  __shared__ unsigned s_vote[2][2][kWideRows];  // [buffer][packet][row]
-  const int tid = threadIdx.x;
-  const int row = tid / kRowRays, lane = tid % kRowRays;
-  const long base = static_cast<long>(blockIdx.x) * 2 * kWidePacket + tid;
-  WideRay ray[2];
-  for (int p = 0; p < 2; ++p) {
-    ray[p] = wide_ray(o, d, tmax, active, base + p * kWidePacket, R);
+  constexpr int N = kWideRays;
+  __shared__ int s_istack[kMimtWarps][kWideStack];
+  __shared__ int s_lstack[kMimtWarps][kWideLeafStack];
+  // each row's liveness at the last two tests: bit 0 stack entries, bit
+  // 1 a ray without a hit
+  __shared__ unsigned s_live[2][kMimtWarps];
+  // warp w walks row w % 8 of packet w / 8, lane l holding its rays
+  // N l .. N l + N - 1
+  const int w = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long first = blockIdx.x * 2L * kWidePacket + w * kRowRays + N * lane;
+  WideRay ray[N];
+  float u[N], v[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    ray[n] = wide_ray(o, d, tmax, active, first + n, R);
+    u[n] = 0.0f;
+    v[n] = 0.0f;
   }
-  // every row starts on the super-root's id 0; sp is the thread's row's
-  int isp[2] = {1, 1}, lsp[2] = {0, 0};
-  if (lane < 2) {
-    s_istack[lane][row][0] = 0;
-    s_lstack[lane][row][0] = 0;
-  }
-  if (lane < 4) s_vote[lane / 2][lane % 2][row] = 0u;
-  __syncthreads();
-  int buf = 0;
-  for (int steps = 0; steps < kWideMaxSteps; steps += kWideChunk) {
+  int* istack = s_istack[w];
+  int* lstack = s_lstack[w];
+  // every row starts on the super-root's id 0
+  int isp = 1, lsp = 0;
+  if (lane == 0) istack[0] = 0;
+  __syncwarp();
+  for (int steps = 0, test = 0; steps < kWideMaxSteps;
+       steps += kWideChunk, test ^= 1) {
+    bool open = false;
+#pragma unroll
+    for (int n = 0; n < N; ++n) open = open || ray[n].tri < 0;
+    open = __any_sync(kFull, open);
+    if (lane == 0) s_live[test][w] = (isp > 0 || lsp > 0) | (open << 1);
+    __syncthreads();
+    unsigned f[2] = {0u, 0u};
+#pragma unroll
+    for (int x = 0; x < kMimtWarps; ++x) f[x / kWideRows] |= s_live[test][x];
     bool live = false;
-    for (int p = 0; p < 2; ++p) {
-      bool pl = __syncthreads_or(isp[p] > 0 || lsp[p] > 0);
-      if (any_hit) pl = pl && !__syncthreads_and(ray[p].tri >= 0);
-      live = live || pl;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      live = live || ((f[q] & 1u) && (!any_hit || (f[q] & 2u)));
     }
     if (!live) break;
     for (int s = 0; s < kWideChunk; ++s) {
-      int node[2];
-      bool ivalid[2];
-      for (int p = 0; p < 2; ++p) {
-        // a row whose leaf stack could overflow pops no node this step
-        ivalid[p] = isp[p] > 0 && lsp[p] <= kWideLeafStack - 8;
-        const int itop = max(isp[p] - 1, 0);
-        const int ichild = (isp[p] > 0 && itop < kWideStack)
-                               ? s_istack[p][row][itop] : 0;
-        const bool lvalid = lsp[p] > 0;
-        const int ltop = max(lsp[p] - 1, 0);
-        const int lchild = lvalid ? s_lstack[p][row][ltop] : 0;
-        node[p] = ivalid[p] ? min(ichild, n_nodes - 1) : n_nodes - 1;
-        const int leaf = lvalid ? min(lchild, n_leaves - 1) : n_leaves - 1;
-        wide_leaf(leaves + 48L * leaf, ray[p], tmin);
-        vote_or(wide_votes(nodes + 48L * node[p], ray[p], tmin, any_hit),
-                &s_vote[buf][p][row]);
-        isp[p] -= ivalid[p] ? 1 : 0;
-        lsp[p] -= lvalid ? 1 : 0;
+      // a row whose leaf stack could overflow pops no node this step
+      const bool ivalid = isp > 0 && lsp <= kWideLeafStack - 8;
+      const bool lvalid = lsp > 0;
+      if (!ivalid && !lvalid) break;  // both stacks empty: done for good
+      const int ichild =
+          (ivalid && isp - 1 < kWideStack) ? istack[isp - 1] : 0;
+      const int lchild = lvalid ? lstack[lsp - 1] : 0;
+      isp -= ivalid ? 1 : 0;
+      lsp -= lvalid ? 1 : 0;
+      const int node = min(ichild, n_nodes - 1);
+      const int2 mm =
+          ivalid ? __ldg(meta + min(node, n_meta - 1)) : make_int2(0, 0);
+      if (lvalid && warp_can_hit(ray, tmin)) {
+        // one triangle at a time (3% faster than all four at once)
+        wide_leaf<1>(leaves + 12L * min(lchild, n_leaves - 1), ray, u, v,
+                     tmin);
       }
-      __syncthreads();  // votes in; every thread has read the tops
-      for (int p = 0; p < 2; ++p) {
-        const unsigned hm = ivalid[p] ? s_vote[buf][p][row] : 0u;
-        const int2 mm = __ldg(meta + min(node[p], n_meta - 1));
-        const int hi = static_cast<int>(hm) & mm.x & 255;
-        const int hl = static_cast<int>(hm) & mm.y & 255;
-        if (lane < 8) {
-          // thread c of the row pushes child slot c of each kind
-          const int bit = 1 << lane, below = bit - 1;
-          if (hi & bit) {
-            const int pos = isp[p] + __popc(hi & below);
-            if (pos < kWideStack) {
-              s_istack[p][row][pos] = (mm.x >> 8) + __popc(mm.x & 255 & below);
-            }
-          }
-          if (hl & bit) {
-            const int pos = lsp[p] + __popc(hl & below);
-            s_lstack[p][row][pos] = (mm.y >> 8) + __popc(mm.y & 255 & below);
-            if (pos >= kWideStack) atomicAdd(deep_pushes, 1);
+      unsigned hm = 0u;
+      if (ivalid && warp_can_vote(ray, any_hit)) {
+        hm = __reduce_or_sync(
+            kFull, wide_votes(nodes + 12L * node, ray, tmin, any_hit));
+      }
+      const int hi = static_cast<int>(hm) & mm.x & 255;
+      const int hl = static_cast<int>(hm) & mm.y & 255;
+      __syncwarp();  // every lane has read the tops
+      if (lane < 8) {
+        // lane c pushes child slot c of each kind
+        const int bit = 1 << lane, below = bit - 1;
+        if (hi & bit) {
+          const int pos = isp + __popc(hi & below);
+          if (pos < kWideStack) {
+            istack[pos] = (mm.x >> 8) + __popc(mm.x & 255 & below);
           }
         }
-        if (lane == 0) s_vote[buf ^ 1][p][row] = 0u;
-        isp[p] += __popc(hi);
-        lsp[p] += __popc(hl);
+        if (hl & bit) {
+          const int pos = lsp + __popc(hl & below);
+          lstack[pos] = (mm.y >> 8) + __popc(mm.y & 255 & below);
+          if (pos >= kWideStack) atomicAdd(deep_pushes, 1);
+        }
       }
-      __syncthreads();  // stacks written before the next step's pops
-      buf ^= 1;
+      __syncwarp();  // pushes in before the next pops
+      isp += __popc(hi);
+      lsp += __popc(hl);
     }
   }
-  for (int p = 0; p < 2; ++p) {
-    wide_store(ray[p], base + p * kWidePacket, R, t_out, tri_out, u_out,
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    wide_store(ray[n], u[n], v[n], first + n, R, t_out, tri_out, u_out,
                v_out);
   }
 }
@@ -846,8 +977,9 @@ HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
   HR_RETURN_LAUNCH_STATUS();
 }
 
-// K2w / K2m: meta is (n_meta, 2) i32; n_nodes and n_leaves are the record
-// rows; any_hit 0 or 1; deep_pushes a device int the kernel adds to
+// K2w / K2m: meta is (n_meta, 2) i32; nodes and leaves (n_nodes, 48) and
+// (n_leaves, 48) f32, 16-byte aligned; any_hit 0 or 1; deep_pushes a
+// device int the kernel adds to
 #define HR_WIDE_ENTRY(NAME, KERNEL)                                          \
   HR_EXPORT int NAME(const void* nodes, const void* leaves, const void* meta, \
                      int n_nodes, int n_leaves, int n_meta, const void* o,    \
@@ -857,10 +989,10 @@ HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
                      void* deep_pushes, void* stream) {                      \
     if (R > 0) {                                                             \
       const int programs = (R + 2 * kWidePacket - 1) / (2 * kWidePacket);    \
-      KERNEL<<<programs, kWidePacket, 0,                                     \
+      KERNEL<<<programs, kWideThreads, 0,                                    \
                static_cast<cudaStream_t>(stream)>>>(                         \
-          static_cast<const float*>(nodes),                                  \
-          static_cast<const float*>(leaves),                                 \
+          static_cast<const float4*>(nodes),                                 \
+          static_cast<const float4*>(leaves),                                \
           static_cast<const int2*>(meta), n_nodes, n_leaves, n_meta,         \
           static_cast<const float*>(o), static_cast<const float*>(d),        \
           static_cast<const float*>(tmax),                                   \
@@ -874,3 +1006,25 @@ HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
 
 HR_WIDE_ENTRY(hr_trace_wide, trace_wide_kernel)
 HR_WIDE_ENTRY(hr_trace_mimt, trace_mimt_kernel)
+
+// K2w (mimt 0) or K2m (1) as built: registers a thread, local memory
+// bytes a thread (stack frame and spills), static shared memory bytes,
+// threads a block and the blocks an SM holds → out[0..4] (host ints)
+HR_EXPORT int hr_wide_info(int mimt, void* out) {
+  const void* f = mimt ? reinterpret_cast<const void*>(trace_mimt_kernel)
+                       : reinterpret_cast<const void*>(trace_wide_kernel);
+  cudaFuncAttributes a{};
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f,
+                                                      kWideThreads, 0);
+  }
+  int* v = static_cast<int*>(out);
+  v[0] = a.numRegs;
+  v[1] = static_cast<int>(a.localSizeBytes);
+  v[2] = static_cast<int>(a.sharedSizeBytes);
+  v[3] = kWideThreads;
+  v[4] = blocks;
+  return static_cast<int>(e);
+}

@@ -142,6 +142,8 @@ def kernel_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    lib.hr_wide_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.hr_wide_info.restype = ctypes.c_int
     lib.hr_error_string.argtypes = [ctypes.c_int]
     lib.hr_error_string.restype = ctypes.c_char_p
     return lib

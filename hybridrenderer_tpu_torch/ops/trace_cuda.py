@@ -31,6 +31,7 @@ included, so they report the reference kernels' triangles.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Any, NamedTuple
 
@@ -550,8 +551,10 @@ def _launch_wide(kernel, entry, wide, o, d, tmin, tmax, active, any_hit):
     t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
-    kernel.launch(entry, native.ptr(wide.nodes_flat),
-                  native.ptr(wide.leaves_flat), native.ptr(wide.meta),
+    # the kernels read the records as float4 (48-float rows)
+    kernel.launch(entry, native.ptr(native.aligned(wide.nodes_flat)),
+                  native.ptr(native.aligned(wide.leaves_flat)),
+                  native.ptr(wide.meta),
                   wide.nodes_flat.shape[0], wide.leaves_flat.shape[0],
                   wide.meta.shape[0], native.ptr(o), native.ptr(d),
                   native.ptr(tmax), native.ptr(active), float(tmin), R,
@@ -569,8 +572,8 @@ def intersect_wide(wide, o, d, tmin: float, tmax, active, any_hit: bool):
 
     CUDA tensors launch kernel K2w, which replaces the TPU kernel
     trace_pallas._wide_traverse_kernel; CPU tensors take the plain
-    version. On the card a block of 1024 threads runs a program of two
-    packets, every step voting over the block; see csrc/trace.cu."""
+    version. On the card a block runs a program of two packets, each on
+    its own half of the block, 4 rays a thread; see csrc/trace.cu."""
     if o.device.type == "cpu":
         return intersect_wide_plain(wide, o, d, tmin, tmax, active, any_hit)
     if o.device.type != "cuda":
@@ -587,7 +590,7 @@ def intersect_mimt(wide, o, d, tmin: float, tmax, active, any_hit: bool):
 
     CUDA tensors launch kernel K2m, which replaces the TPU kernel
     trace_pallas._mimt_traverse_kernel; CPU tensors take the plain
-    version. On the card four warps are a row and vote together; see
+    version. On the card a warp walks a row, 4 rays a lane; see
     csrc/trace.cu."""
     if o.device.type == "cpu":
         return intersect_mimt_plain(wide, o, d, tmin, tmax, active, any_hit)
@@ -595,6 +598,20 @@ def intersect_mimt(wide, o, d, tmin: float, tmax, active, any_hit: bool):
         raise ValueError(f"intersect_mimt: unsupported device {o.device}")
     return _launch_wide(KERNEL_MIMT, "hr_trace_mimt", wide, o, d, tmin, tmax,
                         active, any_hit)
+
+
+def wide_kernel_info(mimt: bool) -> dict:
+    """K2w's (or K2m's) build as the card runs it: registers a thread,
+    local memory bytes a thread (stack frame and spills), static shared
+    memory bytes, threads a block and the blocks an SM holds."""
+    out = (ctypes.c_int * 5)()
+    lib = native.kernel_library()
+    rc = lib.hr_wide_info(int(mimt), out)
+    if rc != 0:
+        raise RuntimeError(f"hr_wide_info: CUDA error {rc} "
+                           f"({lib.hr_error_string(rc).decode()})")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), out))
 
 
 _POP8 = torch.tensor([bin(i).count("1") for i in range(256)])
@@ -719,8 +736,9 @@ def _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit, mimt,
         st["istack"][:, 0] = 1
     steps = torch.zeros((P // WIDE_PAIR,), dtype=torch.long, device=dev)
     meta = wide.meta.long()
-    # node visits, leaf visits, leaf pushes past the reference's 128
-    count = torch.zeros(3, dtype=torch.long, device=dev)
+    # node visits, leaf visits, leaf pushes past the reference's 128,
+    # packet (row) steps
+    count = torch.zeros(4, dtype=torch.long, device=dev)
     step = _mimt_step if mimt else _wide_step
     while True:
         live = (st["isp"] > 0) | (st["lsp"] > 0)
@@ -741,8 +759,12 @@ def _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit, mimt,
             x[pk] = sub[k]
     wide.deep_pushes += count[2].to(wide.deep_pushes.dtype)
     if visits is not None:
-        visits["internal"] = visits.get("internal", 0) + int(count[0])
-        visits["leaf"] = visits.get("leaf", 0) + int(count[1])
+        # the packet (row) steps that popped nothing of a kind
+        for key, n in (("internal", int(count[0])), ("leaf", int(count[1])),
+                       ("steps", int(steps.sum())),
+                       ("idle_internal", int(count[3] - count[0])),
+                       ("idle_leaf", int(count[3] - count[1]))):
+            visits[key] = visits.get(key, 0) + n
     t, tri, u, v = (st[k].reshape(-1)[:o.shape[0]]
                     for k in ("t", "tri", "u", "v"))
     return torch.where(tri < 0, float("inf"), t), tri, u, v
@@ -766,7 +788,8 @@ def _put(stack, pos, val, where):
 
 def _wide_step(wide, meta, st, ray, tmin, any_hit, count):
     """One K2w step of every packet in ``st`` (updated in place); adds
-    the node and leaf visits and the deep leaf pushes to ``count``."""
+    the node and leaf visits, the deep leaf pushes and the packet steps
+    to ``count``."""
     n_meta = meta.shape[0]
 
     def pop(kind, col, enabled):
@@ -807,13 +830,14 @@ def _wide_step(wide, meta, st, ray, tmin, any_hit, count):
         if kind == "l":
             deep = (push & (sp >= WIDE_STACK)).sum()
         st[kind + "sp"] = sp + push.long()
-    count += torch.stack([ivalid.sum(), lvalid.sum(), deep])
+    count += torch.stack([ivalid.sum(), lvalid.sum(), deep,
+                          count.new_tensor(ivalid.numel())])
 
 
 def _mimt_step(wide, meta, st, ray, tmin, any_hit, count):
     """One K2m step of every row of every packet in ``st`` (updated in
-    place); adds the node and leaf visits (one a row step) and the deep
-    leaf pushes to ``count``."""
+    place); adds the node and leaf visits (one a row step), the deep
+    leaf pushes and the row steps to ``count``."""
     n_meta = meta.shape[0]
 
     def pop(kind, enabled):
@@ -851,13 +875,17 @@ def _mimt_step(wide, meta, st, ray, tmin, any_hit, count):
             if kind == "l":
                 deep = deep + (has & (pos >= WIDE_STACK)).sum()
         st[kind + "sp"] = sp + _popcount8(h)
-    count += torch.stack([ivalid.sum(), lvalid.sum(), deep])
+    count += torch.stack([ivalid.sum(), lvalid.sum(), deep,
+                          count.new_tensor(ivalid.numel())])
 
 
 def intersect_wide_plain(wide, o, d, tmin: float, tmax, active,
                          any_hit: bool, visits=None):
     """Plain PyTorch version of kernel K2w; ``visits``, a dict, receives
-    the number of node and leaf-cluster visits (one each a packet step)."""
+    the number of node and leaf-cluster visits (one each a packet step),
+    the steps the programs ran ("steps", a multiple of 16 each) and the
+    packet steps that popped no node ("idle_internal") or no leaf
+    cluster ("idle_leaf")."""
     KERNEL_WIDE.note_plain(o)
     return _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit,
                                 False, visits)
@@ -865,8 +893,8 @@ def intersect_wide_plain(wide, o, d, tmin: float, tmax, active,
 
 def intersect_mimt_plain(wide, o, d, tmin: float, tmax, active,
                          any_hit: bool, visits=None):
-    """Plain PyTorch version of kernel K2m; ``visits`` counts node and
-    leaf-cluster visits, one each a row step."""
+    """Plain PyTorch version of kernel K2m; ``visits`` as for K2w, with
+    row steps in place of packet steps."""
     KERNEL_MIMT.note_plain(o)
     return _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit,
                                 True, visits)

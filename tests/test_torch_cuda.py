@@ -289,6 +289,64 @@ def test_wide_kernels_match_plain(dev, kernel, any_hit):
     assert int(tracer.wide.deep_pushes.item()) == 0
 
 
+@pytest.mark.parametrize("case", ["all_inactive", "r1025", "near_wall",
+                                  "half_inactive", "one_active"])
+@pytest.mark.parametrize("kernel", ["trace_wide", "trace_mimt"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_kernels_edge_cases(dev, kernel, any_hit, case):
+    """K2w and K2m against their plain versions where the kernels skip
+    tests, exact in t, tri, u and v: every ray inactive; 1,025 rays, a
+    program whose second packet is all padding but one ray; a packet of
+    rays that all hit the floor right below them beside a packet of
+    random rays (any-hit: the finished packet keeps popping beside its
+    live sibling, and its later hits decide its triangle ids); half the
+    rays inactive (closest-hit: their votes still count); one active ray
+    a packet, cast downwards."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    tracer = SceneTracer.build(data, RenderSettings(
+        trace_backend="pallas-wide",
+        wide_kernel="mimt" if kernel == "trace_mimt" else "compressed"))
+    f = getattr(trace_cuda, "intersect_" + kernel[6:])
+    plain = getattr(trace_cuda, "intersect_" + kernel[6:] + "_plain")
+    g = np.random.default_rng(11)
+    R = {"r1025": 1025, "one_active": 4096}.get(case, 2048)
+    o = g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3))
+    d = g.standard_normal((R, 3))
+    if case == "near_wall":
+        # packet 0: straight down onto the floor from 0.05-0.3 above it
+        o[:1024, 1] = g.uniform(0.05, 0.3, 1024)
+        d[:1024] = [0.0, -1.0, 0.0] + g.uniform(-0.05, 0.05, (1024, 3))
+    elif case == "one_active":
+        d[:, 1] = -np.abs(d[:, 1]) - 1.0   # downwards: the floor or above
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (_t(x.astype(np.float32), dev) for x in (o, d))
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = {"all_inactive": np.zeros(R, bool),
+              "half_inactive": g.random(R) < 0.5,
+              "one_active": np.arange(R) % 1024 == 517}.get(
+        case, g.random(R) < 0.9)
+    active = _t(active, dev)
+    args = (o, d, 0.01, tmax, active, any_hit)
+    before = native.KERNELS[kernel].launches
+    k = f(tracer.wide, *args)
+    assert native.KERNELS[kernel].launches == before + 1
+    p = plain(tracer.wide, *args)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (k[1][~active] == trace_cuda.INACTIVE_TRI).all()
+    assert (k[0][~active] == -1.0).all()
+    hit = (k[1] >= 0) & active
+    if case == "all_inactive":
+        assert not hit.any()
+    elif case == "near_wall":
+        assert hit[:1024][active[:1024]].all() and hit[1024:].any()
+    else:
+        assert hit.any()
+    assert int(tracer.wide.deep_pushes.item()) == 0
+
+
 def test_window_sample_kernel_matches_plain(dev):
     g = np.random.default_rng(4)
     img = _t(g.random((45, 70, 3)).astype(np.float32), dev)
