@@ -10,8 +10,8 @@ non-zero without printing a result):
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: the CUDA kernels (nvcc, sm_90a) and the native BVH builder
    (g++), from the sources in this checkout, and the SASS instruction
-   and load counts of the SVGF stencils and of K2 / K2c (cuobjdump,
-   where the toolkit has it);
+   and load counts of the SVGF stencils and of K2 / K2c / K2b
+   (cuobjdump, where the toolkit has it);
 3. kernels: each kernel against its plain PyTorch version on the card,
    on the inputs the render paths hand it at 1920x1080 (K1 and the K4
    stencils at odd sizes too), with the tolerance stated, timed with
@@ -177,7 +177,7 @@ def phase_build():
 SASS_OPS = ("FCHK", "MUFU.EX2", "MUFU.RCP", "MUFU.RSQ", "CALL", "LDG", "LDL",
             "STL")
 SASS_KERNELS = ("atrous_kernel", "filter_moments_kernel", "trace_any_kernel",
-                "trace_closest_kernel")
+                "trace_closest_kernel", "trace_packet_kernel")
 
 
 def sass_counts(lib_path, kernels=SASS_KERNELS):
@@ -473,8 +473,9 @@ def packet_frame(dev):
     """One 1920x1080 frame of the ray-traced path with raster_eval "v2"
     and trace_backend "pallas" on the headline camera, recording what
     the depth prepass hands K1v (bins of the jittered clip) and what the
-    tracer hands K2b: the primary rays (closest-hit, 8x4 tile order)
-    and their sun-occlusion rays (any-hit)."""
+    tracer hands K2b: the primary rays (closest-hit) and their
+    sun-occlusion rays (any-hit), in pixel order with the image width,
+    which K2b traces in 8x4 tile packets."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.ops import raster_cuda, trace
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
@@ -506,7 +507,7 @@ def packet_frame(dev):
         raise AssertionError(f"expected one K1v call and two K2b queries, "
                              f"got {len(vis_calls)} and {len(ray_calls)}")
     return dict(tracer=r.tracer, vis=vis_calls[0], rays=ray_calls,
-                triangles=data.num_triangles)
+                data=data, triangles=data.num_triangles)
 
 
 def check_packet_path(dev):
@@ -531,30 +532,73 @@ def _vis_mismatch(name, k, p):
 
 def check_raster_vis(frame):
     """K1v, and K1 vis-only (the default depth prepass), on the 1080p
-    ray-traced depth prepass's bins, each against its plain version."""
+    ray-traced depth prepass's bins and on a 203x117 prepass of the same
+    camera, each against its plain version; the 1080p bins' entry counts
+    a tile, and both kernels timed on a launch that holds only the
+    heaviest tile's list (the other tiles empty)."""
+    import torch
+
     from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    def exact(args, where):
+        k, _ = rc.raster_tiles(*args, keyed=True)
+        err = _vis_mismatch(f"K1v ({where})", k, rc.raster_vis_plain(
+            *args[:3], *args[4:]))
+        k1, _ = rc.raster_tiles(*args)
+        _vis_mismatch(f"K1 vis-only ({where})", k1,
+                      rc.raster_tiles_plain(*args)[0])
+        return err, k, k1
 
     rec, ts, ec, _, W, H = frame["vis"]
     args = (rec, ts, ec, None, W, H)
-    k, _ = rc.raster_tiles(*args, keyed=True)
-    err = _vis_mismatch("K1v", k, rc.raster_vis_plain(rec, ts, ec, W, H))
-    k1, _ = rc.raster_tiles(*args)
-    _vis_mismatch("K1 vis-only", k1, rc.raster_tiles_plain(*args)[0])
+    err, k, k1 = exact(args, f"{W}x{H}")
+    Wo, Ho = 203, 117
+    rec_o, bbox_o, valid_o = rc.pack_candidates(
+        _clipped(frame["data"], Wo, Ho, HEADLINE_CAM))
+    ts_o, ec_o = rc.bin_candidates(bbox_o, valid_o, Wo, Ho)
+    exact((rec_o, ts_o, ec_o, None, Wo, Ho), f"{Wo}x{Ho}")
+    most_o = int((ts_o[1:] - ts_o[:-1]).max())
+    # entries a tile, and the heaviest tile's list alone
+    counts = (ts[1:] - ts[:-1]).long()
+    heavy = int(counts.argmax())
+    ts_h = torch.zeros_like(ts)
+    ts_h[heavy + 1:] = int(counts[heavy])
+    ec_h = ec[int(ts[heavy]):int(ts[heavy + 1])].contiguous()
+    heavy_args = (rec, ts_h, ec_h, None, W, H)
+    exact(heavy_args, "heaviest tile alone")
+    hist = (f"entries a tile: max {int(counts.max())} (tile {heavy}), p99 "
+            f"{float(torch.quantile(counts.float(), 0.99)):.0f}, mean "
+            f"{float(counts.float().mean()):.2f}, {int((counts > 0).sum())} "
+            f"of {counts.numel()} tiles non-empty, "
+            f"{int((counts > rc.GROUP).sum())} over {rc.GROUP}, "
+            f"{int((counts > 1024).sum())} over 1024")
     ties = (k1.tri_id != k.tri_id).float().mean().item()
     ms = cuda_time(lambda: rc.raster_tiles(*args, keyed=True), 20)
     k1_ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
-    # K1's ~20 FLOP per (candidate, pixel) coverage test and key
+    heavy_ms = cuda_time(lambda: rc.raster_tiles(*heavy_args, keyed=True),
+                         20)
+    heavy_k1_ms = cuda_time(lambda: rc.raster_tiles(*heavy_args), 20)
+    log(f"[kernel] raster_vis bins: {hist}; the heaviest tile alone K1v "
+        f"{heavy_ms:.4f} ms, K1 vis-only {heavy_k1_ms:.4f} ms; all tiles "
+        f"K1v {ms:.4f} ms, K1 vis-only {k1_ms:.4f} ms")
+    # K1's ~20 FLOP per (candidate, pixel) coverage test and key; the
+    # same bound holds K1 vis-only on these bins
     b = bound(nbytes(rec, ts, ec, k.tri_id, k.depth, k.bary1, k.bary2),
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
     return dict(err=err, ms=ms, plain_ms=cuda_time(
                     lambda: rc.raster_vis_plain(rec, ts, ec, W, H), 2),
                 bound=b,
                 shape=f"{W}x{H} depth prepass, {ec.shape[0]} tile entries, "
-                      f"{rec.shape[0]} candidates; K1 vis-only on the same "
-                      f"bins {k1_ms:.4f} ms (exact against its plain "
-                      f"version), winner differs from K1's on {ties:.2e} "
-                      f"of pixels (2^-17 near-ties)",
-                tol="exact (tri ids and all outputs), K1 vis-only too")
+                      f"{rec.shape[0]} candidates ({hist}); the heaviest "
+                      f"tile alone {heavy_ms:.4f} ms; K1 vis-only on the "
+                      f"same bins {k1_ms:.4f} ms (bound {b[0]:.4f} ms too; "
+                      f"heaviest tile alone {heavy_k1_ms:.4f} ms), winner "
+                      f"differs from K1's on {ties:.2e} of pixels (2^-17 "
+                      f"near-ties); both exact too at {Wo}x{Ho} "
+                      f"({ec_o.shape[0]} tile entries, up to {most_o} in a "
+                      f"tile) and on the heaviest tile alone",
+                tol="exact (tri ids and all outputs), K1 vis-only too, at "
+                    "both sizes")
 
 
 def check_trace_packet(frame):
@@ -567,14 +611,16 @@ def check_trace_packet(frame):
     W, H = HEADLINE["width"], HEADLINE["height"]
     packed = frame["tracer"].packed
     # (o, d, tmin, tmax, active) and the mode of each recorded query
-    queries = [a[1:] for a, _ in frame["rays"]]
-    modes = [kw["any_hit"] for _, kw in frame["rays"]]
-    if modes != [False, True]:
-        raise AssertionError(f"expected closest-hit then any-hit, {modes}")
-    kern = lambda: [tc.intersect_packet(packed, *q, any_hit=m)
+    queries = [a[1:6] for a, _ in frame["rays"]]
+    modes = [a[6] for a, _ in frame["rays"]]
+    widths = [a[7] for a, _ in frame["rays"]]
+    if modes != [False, True] or widths != [W, W]:
+        raise AssertionError(f"expected closest-hit then any-hit, each "
+                             f"with width {W}: {modes}, {widths}")
+    kern = lambda: [tc.intersect_packet(packed, *q, m, W)
                     for q, m in zip(queries, modes)]
     plain = lambda visits=None: [
-        tc.intersect_packet_plain(packed, *q, any_hit=m, visits=visits)
+        tc.intersect_packet_plain(packed, *q, m, W, visits=visits)
         for q, m in zip(queries, modes)]
     packet_visits = {}
     ks, ps = kern(), plain(packet_visits)
@@ -591,13 +637,13 @@ def check_trace_packet(frame):
     if max(errs) > 0.0:
         raise AssertionError(f"K2b differs from the plain version: max err "
                              f"t, u, v {errs}")
-    # the per-ray kernels on the same rays, over their records (the
-    # packet tracer packs none); the bound counts the nodes and triangles
-    # the per-ray plain versions visit, as for K2 and K2c
+    # the per-ray kernels on the same rays over the same records, in 8x4
+    # tiles a warp as the ray-traced path traces them; the bound counts
+    # the nodes and triangles the per-ray plain versions visit, as for K2
+    # and K2c
     (o, d, tmin, tmax, act), (o2, d2, tmin2, tmax2, act2) = queries
-    per_ray = tc.pack_records(packed)
-    closest = lambda: tc.intersect_closest(per_ray, o, d, tmin, tmax, act)
-    anyhit = lambda: tc.intersect_any(per_ray, o2, d2, tmin2, tmax2, act2)
+    closest = lambda: tc.intersect_closest(packed, o, d, tmin, tmax, act, W)
+    anyhit = lambda: tc.intersect_any(packed, o2, d2, tmin2, tmax2, act2, W)
     c, a = closest(), anyhit()
     visits = {}
     tc.intersect_closest_plain(packed, o, d, tmin, tmax, act, visits=visits)
@@ -609,7 +655,7 @@ def check_trace_packet(frame):
                              f"flips, closest t differs by {t_diff}")
     tri_diff = ((c[1] != ks[0][1]) & act).sum().item()
     times = [cuda_time(lambda q=q, m=m: tc.intersect_packet(
-        packed, *q, any_hit=m), 10) for q, m in zip(queries, modes)]
+        packed, *q, m, W), 10) for q, m in zip(queries, modes)]
     per_ray_ms = cuda_time(closest, 10), cuda_time(anyhit, 10)
     active = [int(q[4].sum()) for q in queries]
     hit = [(p[1] >= 0)[q[4]].float().mean().item()
@@ -630,7 +676,8 @@ def check_trace_packet(frame):
                       f"on the same rays (closest t equal, {tri_diff} "
                       f"equal-t triangle ties, no visibility flip); nodes "
                       f"visited by packets {packet_visits} (one a step) vs "
-                      f"by rays {visits}; ms for both",
+                      f"by rays {visits}; build {tc.packet_kernel_info()}; "
+                      f"ms for both",
                 tol="exact (tri, t, u, v)")
 
 

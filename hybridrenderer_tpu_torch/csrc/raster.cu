@@ -9,10 +9,9 @@
 // attribute channels (16 vertex attributes interpolated with those
 // barycentrics + the triangle's 24 constants, from scene raster_rows).
 //
-// K1v (raster_vis, K1's keyed vis-only mode) replaces raster_pallas.py
-// _raster_kernel (:519) in its vis-only eval modes v2 / v3
-// (eval_block_v2 :621, eval_block_v3 :682):
-// the tile's candidate list is cut into groups of 128 consecutive
+// K1v (raster_vis) replaces raster_pallas.py _raster_kernel (:519) in
+// its vis-only eval modes v2 / v3 (eval_block_v2 :621, eval_block_v3
+// :682): the tile's candidate list is cut into groups of 128 consecutive
 // entries (the Pallas kernel's 128-lane record blocks). Inside a group
 // the largest integer key (clip(Z * 131071, 0, 131071) << 7 | position)
 // wins, so a near-tie within 2^-17 of depth goes to the later entry;
@@ -31,12 +30,12 @@
 // up to ~1e-3 in barycentrics; following the jnp order keeps the port's
 // images on the reference's.
 //
-// Design: one 16x16 pixel tile per block, one thread per pixel. The
-// block walks its tile's candidate list (ops/raster_cuda.bin_candidates:
-// every candidate whose screen bbox touches the tile, in ascending
-// candidate order; nothing is capped or dropped) in chunks staged
-// through shared memory (256 records for K1, one group of 128 for K1v),
-// and each thread keeps only its running winner. K1 breaks depth ties
+// Design of K1: one 16x16 pixel tile per block, one thread per pixel.
+// The block walks its tile's candidate list (ops/raster_cuda
+// .bin_candidates: every candidate whose screen bbox touches the tile, in
+// ascending candidate order; nothing is capped or dropped) in chunks of
+// 256 records staged through shared memory as six float4 each, and each
+// thread keeps only its running winner. K1 breaks depth ties
 // to the lowest candidate index, so its result does not depend on list
 // order. Barycentrics and attributes are evaluated once, for the winner
 // only: each thread writes its pixel's depth, triangle and barycentrics
@@ -53,6 +52,22 @@
 // blocks, one-hot MXU picks and quantized depth keys were TPU
 // workarounds; K1 does not keep them, K1v keeps only the key's winner
 // rule, which is its contract.
+//
+// Design of K1v: its two rounds run in parallel, as its plain version
+// computes them (ops/raster_cuda.raster_vis_plain). A tile's groups
+// would run in series in one block, and one heavy tile would set the
+// kernel's pace; so a block takes one (tile, group) work item instead,
+// one thread per pixel, and keeps its group's largest key per pixel.
+// The items need no map built on the host nor any scan: block t <
+// ntiles takes group 0 of tile t, and block ntiles + j takes the group
+// that starts inside entries [128 j, 128 j + 128) of the whole list, if
+// one does past a tile's first (at most one can: such a group's tile
+// holds the 128 entries before it, which covers any other start there),
+// in the tile that holds entry 128 j. A tile of one group writes its
+// pixels at once; a group of a larger tile leaves (depth bits, entry)
+// of its winner per pixel in a scratch slot of its own, and a second
+// pass, one block per such tile, keeps the winner of largest exact
+// depth, the earliest group on a tie, and writes it.
 #include "common.cuh"
 
 namespace {
@@ -60,6 +75,7 @@ namespace {
 constexpr int kTile = 16;                 // tile edge in pixels
 constexpr int kThreads = kTile * kTile;   // one thread per pixel
 constexpr int kRec = 24;                  // floats per candidate record
+constexpr int kRec4 = kRec / 4;           // float4s per candidate record
 constexpr int kAttrRow = 72;              // raster_rows width
 constexpr int kAttrOut = 40;              // 16 interpolated + 24 constant
 constexpr int kGroup = 128;               // K1v's candidates per key group
@@ -90,23 +106,56 @@ __device__ __forceinline__ bool cover_depth(const float* r, float px,
   return *z >= 0.0f && *z <= 1.0f;
 }
 
-// The winner's visibility outputs at pixel p → its triangle id (-1 for
+// cover_depth on a record staged as float4s (its first 14 floats)
+__device__ __forceinline__ bool cover_depth4(const float4* s, float px,
+                                             float py, float* z) {
+  const float4 q0 = s[0], q1 = s[1], q2 = s[2], q3 = s[3];
+  const float r[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                       q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
+  return cover_depth(r, px, py, z);
+}
+
+// Stage tile-list entries [base, base + n) with the block's kT threads:
+// their candidates into scand and their records, six float4 each, into
+// srec; the caller syncs after.
+template <int kT>
+__device__ __forceinline__ void stage(const float4* __restrict__ rec4,
+                                      const int* __restrict__ entry_cand,
+                                      int base, int n, float4* srec,
+                                      int* scand) {
+  for (int e = threadIdx.x; e < n; e += kT) {
+    scand[e] = entry_cand[base + e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * kRec4; i += kT) {
+    const int e = i / kRec4;
+    srec[i] = rec4[static_cast<size_t>(scand[e]) * kRec4 + (i - e * kRec4)];
+  }
+}
+
+// A pixel's background: no winner
+__device__ __forceinline__ void write_background(
+    size_t p, float* __restrict__ depth_out, int* __restrict__ tri_out,
+    float* __restrict__ bary_out) {
+  depth_out[p] = 0.0f;
+  tri_out[p] = -1;
+  bary_out[2 * p] = 0.0f;
+  bary_out[2 * p + 1] = 0.0f;
+}
+
+// The visibility outputs at pixel p of the winner whose record is r
+// (null for none; in global or shared memory) → its triangle id (-1 for
 // none) and original-triangle barycentrics b1, b2.
 __device__ __forceinline__ int write_winner(
-    const float* __restrict__ rec, int best, float best_z, float px,
-    float py, size_t p, float* __restrict__ depth_out,
-    int* __restrict__ tri_out, float* __restrict__ bary_out, float* b1_out,
-    float* b2_out) {
-  if (best < 0) {
-    depth_out[p] = 0.0f;
-    tri_out[p] = -1;
-    bary_out[2 * p] = 0.0f;
-    bary_out[2 * p + 1] = 0.0f;
+    const float* r, float best_z, float px, float py, size_t p,
+    float* __restrict__ depth_out, int* __restrict__ tri_out,
+    float* __restrict__ bary_out, float* b1_out, float* b2_out) {
+  if (r == nullptr) {
+    write_background(p, depth_out, tri_out, bary_out);
     *b1_out = 0.0f;
     *b2_out = 0.0f;
     return -1;
   }
-  const float* r = rec + static_cast<size_t>(best) * kRec;
   const float sgn = r[9];
   const float inv_area = r[10];
   const float l0 = edge(r, sgn, px, py) * inv_area;
@@ -168,19 +217,17 @@ __device__ __forceinline__ void write_attrs(
   }
 }
 
-// kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group
-template <bool kAttrs, bool kKeyed>
+template <bool kAttrs>
 __global__ void __launch_bounds__(kThreads)
-raster_tiles_kernel(const float* __restrict__ rec,
+raster_tiles_kernel(const float4* __restrict__ rec4,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ entry_cand,
                     const float* __restrict__ attr_table, int width,
                     int height, int ntx, float* __restrict__ depth_out,
                     int* __restrict__ tri_out, float* __restrict__ bary_out,
                     float* __restrict__ attr_out) {
-  constexpr int kChunk = kKeyed ? kGroup : kThreads;
-  __shared__ float srec[kChunk * kRec];
-  __shared__ int scand[kChunk];
+  __shared__ float4 srec[kThreads * kRec4];
+  __shared__ int scand[kThreads];
 
   const int tile = blockIdx.x;
   const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
@@ -193,57 +240,32 @@ raster_tiles_kernel(const float* __restrict__ rec,
   // depth must beat 0 (the cleared far plane) to win
   float best_z = 0.0f;
   int best = -1;
-  for (int base = start; base < end; base += kChunk) {
-    const int n = min(kChunk, end - base);
+  for (int base = start; base < end; base += kThreads) {
+    const int n = min(kThreads, end - base);
     __syncthreads();
-    for (int i = threadIdx.x; i < n * kRec; i += kThreads) {
-      const int e = i / kRec;
-      srec[i] = rec[static_cast<size_t>(entry_cand[base + e]) * kRec +
-                    (i - e * kRec)];
-    }
-    if (threadIdx.x < n) scand[threadIdx.x] = entry_cand[base + threadIdx.x];
+    stage<kThreads>(rec4, entry_cand, base, n, srec, scand);
     __syncthreads();
-    if constexpr (kKeyed) {
-      // the group's winner: the largest key; positions make keys unique
-      int key = -1, win = -1;
-      float win_z = 0.0f;
-      for (int e = 0; e < n; ++e) {
-        float z;
-        if (cover_depth(&srec[e * kRec], px, py, &z)) {
-          const int k = (static_cast<int>(
-                            fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
-                        << 7) | e;
-          if (k > key) {
-            key = k;
-            win = scand[e];
-            win_z = z;
-          }
-        }
-      }
-      if (win >= 0 && win_z > best_z) {
-        best_z = win_z;
-        best = win;
-      }
-    } else {
-      for (int e = 0; e < n; ++e) {
-        float z;
-        if (cover_depth(&srec[e * kRec], px, py, &z)) {
-          const int c = scand[e];
-          if (z > best_z || (z == best_z && best >= 0 && c < best)) {
-            best_z = z;
-            best = c;
-          }
+    for (int e = 0; e < n; ++e) {
+      float z;
+      if (cover_depth4(&srec[e * kRec4], px, py, &z)) {
+        const int c = scand[e];
+        if (z > best_z || (z == best_z && best >= 0 && c < best)) {
+          best_z = z;
+          best = c;
         }
       }
     }
   }
+  const float* rec = reinterpret_cast<const float*>(rec4);
   const bool inside = x < width && y < height;
   float b1 = 0.0f, b2 = 0.0f;
-  const int tri = inside ? write_winner(rec, best, best_z, px, py,
-                                        static_cast<size_t>(y) * width + x,
-                                        depth_out, tri_out, bary_out, &b1,
-                                        &b2)
-                         : -1;
+  const int tri =
+      inside ? write_winner(best < 0 ? nullptr
+                                     : rec + static_cast<size_t>(best) * kRec,
+                            best_z, px, py,
+                            static_cast<size_t>(y) * width + x, depth_out,
+                            tri_out, bary_out, &b1, &b2)
+             : -1;
   if constexpr (kAttrs) {
     // every thread reaches the barrier, pixels outside the image too
     __shared__ int stri[kThreads];
@@ -257,25 +279,230 @@ raster_tiles_kernel(const float* __restrict__ rec,
   }
 }
 
+// The tile that holds list entry e < E: the last tile whose list starts
+// at or before e (empty tiles start where the next one does)
+__device__ __forceinline__ int tile_of_entry(const int* __restrict__ ts,
+                                             int ntiles, int e) {
+  int lo = 0, hi = ntiles;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (__ldg(ts + mid) <= e) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// K1v's scratch slot of the group that starts at list entry ``base``:
+// two a 128-entry window of the list, one for a tile's first group (of
+// a tile of more than one group: one can start in a window) and one for
+// a later group (one can start in a window)
+__device__ __forceinline__ size_t group_slot(int base, bool first) {
+  return (2 * static_cast<size_t>(base / kGroup) + (first ? 0 : 1)) *
+         kThreads;
+}
+
+#ifndef HR_VIS_PIX
+#define HR_VIS_PIX 1
+#endif
+constexpr int kVisPix = HR_VIS_PIX;   // K1v's pixels a thread
+
+// K1v, first pass: one (tile, group) work item a block (the file's
+// header says which), kPix pixels a thread
+template <int kPix>
+__global__ void __launch_bounds__(kThreads / kPix)
+raster_vis_groups_kernel(const float4* __restrict__ rec4,
+                         const int* __restrict__ tile_start,
+                         const int* __restrict__ entry_cand, int width,
+                         int height, int ntx, int ntiles,
+                         unsigned long long* __restrict__ scratch,
+                         float* __restrict__ depth_out,
+                         int* __restrict__ tri_out,
+                         float* __restrict__ bary_out) {
+  constexpr int kT = kThreads / kPix;
+  __shared__ float4 srec[kGroup * kRec4];
+  __shared__ int scand[kGroup];
+
+  int tile = blockIdx.x, g = 0;
+  if (tile >= ntiles) {
+    const int e0 = (tile - ntiles) * kGroup;
+    tile = tile_of_entry(tile_start, ntiles, e0);
+    g = (e0 - tile_start[tile] + kGroup - 1) / kGroup;
+    if (g == 0 || tile_start[tile] + g * kGroup >= tile_start[tile + 1]) {
+      return;   // no later group starts in this window
+    }
+  }
+  // pixel j of this thread: tile pixel threadIdx.x + j * kT
+  int x[kPix], y[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    const int q = threadIdx.x + j * kT;
+    x[j] = (tile % ntx) * kTile + q % kTile;
+    y[j] = (tile / ntx) * kTile + q / kTile;
+  }
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+  if (start == end) {
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) {
+      if (x[j] < width && y[j] < height) {
+        write_background(static_cast<size_t>(y[j]) * width + x[j],
+                         depth_out, tri_out, bary_out);
+      }
+    }
+    return;
+  }
+  const int base = start + g * kGroup;
+  const int n = min(kGroup, end - base);
+  stage<kT>(rec4, entry_cand, base, n, srec, scand);
+  __syncthreads();
+  // the group's winner: the largest key; positions make keys unique
+  int key[kPix], win[kPix];
+  float win_z[kPix];
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    key[j] = -1;
+    win[j] = -1;
+    win_z[j] = 0.0f;
+  }
+  for (int e = 0; e < n; ++e) {
+    const float4* s4 = &srec[e * kRec4];
+    const float4 q0 = s4[0], q1 = s4[1], q2 = s4[2], q3 = s4[3];
+    const float r[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                         q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
+#pragma unroll
+    for (int j = 0; j < kPix; ++j) {
+      float z;
+      if (cover_depth(r, static_cast<float>(x[j]) + 0.5f,
+                      static_cast<float>(y[j]) + 0.5f, &z)) {
+        const int k = (static_cast<int>(
+                           fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
+                       << 7) |
+                      e;
+        if (k > key[j]) {
+          key[j] = k;
+          win[j] = e;
+          win_z[j] = z;
+        }
+      }
+    }
+  }
+  const bool only = end - start <= kGroup;
+#pragma unroll
+  for (int j = 0; j < kPix; ++j) {
+    if (only) {
+      // the tile's only group: its winner must beat the far plane, and
+      // its record is still staged
+      if (x[j] < width && y[j] < height) {
+        float b1, b2;
+        write_winner(win[j] >= 0 && win_z[j] > 0.0f
+                         ? reinterpret_cast<const float*>(
+                               &srec[win[j] * kRec4])
+                         : nullptr,
+                     win_z[j], static_cast<float>(x[j]) + 0.5f,
+                     static_cast<float>(y[j]) + 0.5f,
+                     static_cast<size_t>(y[j]) * width + x[j], depth_out,
+                     tri_out, bary_out, &b1, &b2);
+      }
+    } else {
+      scratch[group_slot(base, g == 0) + threadIdx.x + j * kT] =
+          win[j] < 0
+              ? 0ull
+              : (static_cast<unsigned long long>(__float_as_uint(win_z[j]))
+                 << 32) |
+                    static_cast<unsigned>(base + win[j]);
+    }
+  }
+}
+
+// K1v, second pass: block j combines the groups of the tile whose second
+// group starts inside list window j, if one does
+__global__ void __launch_bounds__(kThreads)
+raster_vis_combine_kernel(const float* __restrict__ rec,
+                          const int* __restrict__ tile_start,
+                          const int* __restrict__ entry_cand, int width,
+                          int height, int ntx, int ntiles,
+                          const unsigned long long* __restrict__ scratch,
+                          float* __restrict__ depth_out,
+                          int* __restrict__ tri_out,
+                          float* __restrict__ bary_out) {
+  const int e0 = blockIdx.x * kGroup;
+  const int tile = tile_of_entry(tile_start, ntiles, e0);
+  const int start = tile_start[tile];
+  const int end = tile_start[tile + 1];
+  const int second = start + kGroup;
+  if (second < e0 || second >= e0 + kGroup || second >= end) return;
+  const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
+  const int y = (tile / ntx) * kTile + threadIdx.x / kTile;
+  if (x >= width || y >= height) return;
+  // strictly larger exact depth replaces: the earliest group wins a tie,
+  // and the winner must beat the far plane
+  float best_z = 0.0f;
+  int best_entry = -1;
+  for (int base = start; base < end; base += kGroup) {
+    const unsigned long long v =
+        scratch[group_slot(base, base == start) + threadIdx.x];
+    const float z = __uint_as_float(static_cast<unsigned>(v >> 32));
+    if (z > best_z) {
+      best_z = z;
+      best_entry = static_cast<int>(v & 0xffffffffull);
+    }
+  }
+  float b1, b2;
+  write_winner(best_entry >= 0
+                   ? rec + static_cast<size_t>(entry_cand[best_entry]) * kRec
+                   : nullptr,
+               best_z, static_cast<float>(x) + 0.5f,
+               static_cast<float>(y) + 0.5f,
+               static_cast<size_t>(y) * width + x, depth_out, tri_out,
+               bary_out, &b1, &b2);
+}
+
 }  // namespace
 
-// attr_table and attrs null: vis-only; keyed (vis-only): K1v
+// K1: attr_table and attrs null for vis-only. rec is 16-byte aligned.
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
-                              int keyed, int width, int height, int ntx,
-                              void* depth, void* tri, void* bary,
-                              void* attrs, void* stream) {
-  if (keyed && attr_table) return static_cast<int>(cudaErrorInvalidValue);
+                              int width, int height, int ntx, void* depth,
+                              void* tri, void* bary, void* attrs,
+                              void* stream) {
   const int nty = (height + kTile - 1) / kTile;
-  auto kernel = keyed        ? raster_tiles_kernel<false, true>
-                : attr_table ? raster_tiles_kernel<true, false>
-                             : raster_tiles_kernel<false, false>;
+  auto kernel = attr_table ? raster_tiles_kernel<true>
+                           : raster_tiles_kernel<false>;
   kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rec), static_cast<const int*>(tile_start),
+      static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
       static_cast<const float*>(attr_table), width, height, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(bary), static_cast<float*>(attrs));
+  HR_RETURN_LAUNCH_STATUS();
+}
+
+// K1v: n_entries is the tile lists' total length E; scratch holds
+// 2 * ceil(E / 128) * 256 u64 (group_slot), uninitialized
+HR_EXPORT int hr_raster_vis(const void* rec, const void* tile_start,
+                            const void* entry_cand, int n_entries, int width,
+                            int height, int ntx, void* scratch, void* depth,
+                            void* tri, void* bary, void* stream) {
+  const int ntiles = ntx * ((height + kTile - 1) / kTile);
+  const int windows = (n_entries + kGroup - 1) / kGroup;
+  const auto s = static_cast<cudaStream_t>(stream);
+  raster_vis_groups_kernel<kVisPix>
+      <<<ntiles + windows, kThreads / kVisPix, 0, s>>>(
+      static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
+      static_cast<const int*>(entry_cand), width, height, ntx, ntiles,
+      static_cast<unsigned long long*>(scratch), static_cast<float*>(depth),
+      static_cast<int*>(tri), static_cast<float*>(bary));
+  if (windows > 0) {
+    raster_vis_combine_kernel<<<windows, kThreads, 0, s>>>(
+        static_cast<const float*>(rec), static_cast<const int*>(tile_start),
+        static_cast<const int*>(entry_cand), width, height, ntx, ntiles,
+        static_cast<const unsigned long long*>(scratch),
+        static_cast<float*>(depth), static_cast<int*>(tri),
+        static_cast<float*>(bary));
+  }
   HR_RETURN_LAUNCH_STATUS();
 }
 

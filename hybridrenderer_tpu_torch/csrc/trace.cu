@@ -1,8 +1,9 @@
 // K2 and K2c: ray / BVH traversal, any-hit (shadow, AO and shading
 // occlusion rays) and closest-hit (reflection and GI radiance rays).
-// K2b (trace_packet): the same queries as packet traversal, one warp per
-// packet of 32 rays. K2w (trace_wide) and K2m (trace_mimt), at the end of
-// the file: packet traversals of the 8-wide BVH (ops/bvh_wide.py).
+// K2b (trace_packet): the same queries as packet traversal over the same
+// records, one warp per packet of 32 rays (an image query's 8x4 pixel
+// tile). K2w (trace_wide) and K2m (trace_mimt), at the end of the file:
+// packet traversals of the 8-wide BVH (ops/bvh_wide.py).
 //
 // Replaces hybridrenderer_tpu/ops/trace_pallas.py _wide_direct_kernel
 // (:869) in both its modes. Same contracts:
@@ -291,39 +292,60 @@ trace_closest_kernel(const float4* __restrict__ inner,
   v_out[i] = v;
 }
 
-constexpr int kBlock = 128;
-
 // ---------------------------------------------------------------------------
 // K2b: packet traversal.
 //
 // Replaces hybridrenderer_tpu/ops/trace_pallas.py _traverse_kernel (:132,
 // entry intersect_packed :338), the binary-BVH packet traversal of
 // trace_backend="pallas". The TPU kernel's packet is 8x128 rays sharing
-// one scalar stack of 96 entries; here a packet is one warp of 32
-// consecutive rays (the caller orders coherent rays in 8x4 pixel tiles)
-// sharing one 96-entry stack in shared memory. Same rules:
-// * the warp pops one node at a time;
+// one scalar stack of 96 entries; here a packet is one warp of 32 rays
+// sharing one stack of 96 entries: 32 consecutive rays, or for an image
+// query (``width`` > 0) the 8x4 pixel tile ray_of_thread gives the warp,
+// row-major inside the tile (ragged edge tiles leave lanes dead). Same
+// rules:
+// * the warp visits one node at a time;
 // * at an internal node each live lane slab-tests both child boxes
 //   against its own best t (any-hit: only lanes without a hit yet); a
-//   child is pushed if any lane hits it (__ballot_sync), the far one
-//   first; near and far come from the warp's sums of entry distances
-//   over the lanes that hit each box (trace_pallas.py:281-290), summed
-//   in the xor-butterfly order the plain version repeats;
+//   child is taken if any lane hits it (__any_sync); near and far come
+//   from the warp's sums of entry distances over the lanes that hit each
+//   box (trace_pallas.py:281-290), summed in the xor-butterfly order the
+//   plain version repeats;
 // * at a leaf each live lane runs K2's Moller-Trumbore with the
 //   t <= best replacement (:244), in any-hit mode too;
 // * any-hit: the warp stops once every live lane has a hit;
 // * tmax is clamped to 1e6 (:359-360). Inactive rays do no work, take
 //   no part in the warp's votes and report a miss (the TPU kernel has
 //   no active mask: inactive rays there get tmax 0).
-// A tree of depth D needs D + 1 entries (ops/trace_cuda.pack_bvh raises
-// above 96), so no child is dropped.
-// Bound on the card: as K2, the latency of dependent node loads, now
-// shared by the warp: one node load serves 32 rays, and lanes of a
-// coherent packet agree on most boxes; an incoherent packet visits the
-// union of its rays' nodes.
+//
+// Design for the card: K2's records (ops/trace_cuda.pack_bvh), one 64 B
+// record an internal step, read as four float4 broadcasts that carry
+// both child boxes and both references, and a leaf's 48 B row reached
+// straight from its reference (no node_tri indirection, no step of its
+// own round trip). The near child stays in a register: both children
+// taken, push the far one and go on with the near one; one taken, go on
+// with it; none, pop. That is the plain version's "push far, push near,
+// pop" exactly, so the warp visits the plain version's nodes in its
+// order. The warp-uniform stack lives in registers across the lanes:
+// entry k in lane k % 32, slot k / 32, three slots for 96 entries; a
+// push is one predicated move in one lane, a pop one __shfl_sync, and no
+// shared memory or __syncwarp is needed. A tree of depth D needs D
+// entries (pack_bvh holds it to D + 1 <= 96, the plain version's need).
+// Bound on the card: the latency of the serial chain of steps a warp
+// takes (one record load, two slab tests, two votes and two 5-shuffle
+// sums a step); one load serves 32 rays, and the lanes of a coherent
+// packet agree on most boxes.
 constexpr int kPacketStack = 96;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
+#ifndef HR_PACKET_BLOCK
+#define HR_PACKET_BLOCK 128
+#endif
+constexpr int kPacketBlock = HR_PACKET_BLOCK;
+#if defined(HR_PACKET_MIN_BLOCKS)
+#define HR_PACKET_BOUNDS __launch_bounds__(kPacketBlock, HR_PACKET_MIN_BLOCKS)
+#else
+#define HR_PACKET_BOUNDS __launch_bounds__(kPacketBlock)
+#endif
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = kWarp / 2; off > 0; off >>= 1) {
@@ -332,21 +354,62 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kBlock)
-trace_packet_kernel(const float4* __restrict__ nodes,
-                    const int* __restrict__ node_tri,
-                    const float* __restrict__ tri_verts, int n_internal,
+#if defined(HR_PACKET_SMEM_STACK)
+// the warp's stack in shared memory: lane 0 writes, every lane reads
+struct PacketStack {
+  int* s;
+  int sp = 0;
+  __device__ void push(int lane, int ref) {
+    if (lane == 0) s[sp] = ref;
+    ++sp;
+  }
+  __device__ int pop() {
+    __syncwarp();  // the push is in
+    const int ref = s[--sp];
+    __syncwarp();  // every lane has read the top before it is rewritten
+    return ref;
+  }
+};
+#else
+// The warp's stack of references in registers across its lanes: entry k
+// is slot k / 32 of lane k % 32. sp is the same in every lane.
+struct PacketStack {
+  int s0 = 0, s1 = 0, s2 = 0;
+  int sp = 0;
+  __device__ __forceinline__ void push(int lane, int ref) {
+    if (lane == (sp & (kWarp - 1))) {
+      const int slot = sp >> 5;
+      if (slot == 0) {
+        s0 = ref;
+      } else if (slot == 1) {
+        s1 = ref;
+      } else {
+        s2 = ref;
+      }
+    }
+    ++sp;
+  }
+  __device__ __forceinline__ int pop() {
+    --sp;
+    const int slot = sp >> 5;
+    const int mine = slot == 0 ? s0 : (slot == 1 ? s1 : s2);
+    return __shfl_sync(kFull, mine, sp & (kWarp - 1));
+  }
+};
+#endif
+
+__global__ void HR_PACKET_BOUNDS
+trace_packet_kernel(const float4* __restrict__ inner,
+                    const float4* __restrict__ leaves, int n_internal,
                     const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ tmax_in,
                     const uint8_t* __restrict__ active_in, float tmin, int R,
-                    int any_hit, float* __restrict__ t_out,
+                    int width, int any_hit, float* __restrict__ t_out,
                     int* __restrict__ tri_out, float* __restrict__ u_out,
                     float* __restrict__ v_out) {
-  __shared__ int stacks[kBlock / kWarp][kPacketStack];
   const int lane = threadIdx.x % kWarp;
-  int* stack = stacks[threadIdx.x / kWarp];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < R && active_in[i];
+  const int i = ray_of_thread(R, width);
+  const bool active = i >= 0 && active_in[i];
 
   V3 org = {0.0f, 0.0f, 0.0f}, dir = {0.0f, 0.0f, 1.0f};
   float best_t = 0.0f;
@@ -359,56 +422,101 @@ trace_packet_kernel(const float4* __restrict__ nodes,
   int best_tri = -1;
   float best_u = 0.0f, best_v = 0.0f;
 
-  // sp is the same in every lane; only lane 0 writes the stack
-  int sp = __any_sync(kFull, active) ? 1 : 0;
-  if (lane == 0) stack[0] = 0;
-  __syncwarp();
-  while (sp > 0) {
-    if (any_hit && __all_sync(kFull, !active || best_tri >= 0)) break;
-    const int node = stack[--sp];
-    __syncwarp();  // every lane has read the top before it is rewritten
-    if (node >= n_internal) {
-      const int tri = node_tri[node];
-      float t, u, v;
-      if (tri >= 0 && active &&
-          tri_hit(tri_verts + 9 * static_cast<size_t>(tri), org, dir, tmin,
-                  best_t, &t, &u, &v)) {
-        best_tri = tri;
-        best_t = t;
-        best_u = u;
-        best_v = v;
+  PacketStack stack;
+#if defined(HR_PACKET_SMEM_STACK)
+  __shared__ int stacks[kPacketBlock / kWarp][kPacketStack];
+  stack.s = stacks[threadIdx.x / kWarp];
+#endif
+  // the root: internal node 0, or for one triangle leaf 0
+  int ref = n_internal > 0 ? 0 : ~0;
+#if defined(HR_PACKET_SPECULATIVE)
+  // the payload of ``ref``: its record, or its leaf row in c0..c2
+  float4 c0, c1, c2, c3;
+  auto fetch = [&](int r, float4& a0, float4& a1, float4& a2, float4& a3) {
+    if (r >= 0) {
+      const float4* q = inner + 4 * static_cast<size_t>(r);
+      a0 = q[0]; a1 = q[1]; a2 = q[2]; a3 = q[3];
+    } else {
+      const float4* q = leaves + 3 * static_cast<size_t>(~r);
+      a0 = q[0]; a1 = q[1]; a2 = q[2];
+    }
+  };
+  fetch(ref, c0, c1, c2, c3);
+#endif
+  if (__any_sync(kFull, active)) {
+    for (;;) {
+      if (ref >= 0) {
+#if defined(HR_PACKET_SPECULATIVE)
+        const float4 lmin = c0, lmax = c1, rmin = c2, rmax = c3;
+#else
+        const float4* rec = inner + 4 * static_cast<size_t>(ref);
+        const float4 lmin = rec[0], lmax = rec[1], rmin = rec[2],
+                     rmax = rec[3];
+#endif
+        const int left = __float_as_int(lmin.w);
+        const int right = __float_as_int(rmin.w);
+#if defined(HR_PACKET_SPECULATIVE)
+        // both children's payloads in flight before the votes settle
+        float4 l0, l1, l2, l3, r0, r1, r2, r3;
+        fetch(left, l0, l1, l2, l3);
+        fetch(right, r0, r1, r2, r3);
+#endif
+        const bool live = active && !(any_hit && best_tri >= 0);
+        float lt = 0.0f, rt = 0.0f;
+        const bool lhit =
+            live && box_hit(lmin, lmax, org, inv_d, tmin, best_t, &lt);
+        const bool rhit =
+            live && box_hit(rmin, rmax, org, inv_d, tmin, best_t, &rt);
+        // bit 0: some lane hits the left box, bit 1: the right one
+        const unsigned votes =
+            __reduce_or_sync(kFull, (lhit ? 1u : 0u) | (rhit ? 2u : 0u));
+        if (votes != 0u) {
+          bool go_left = votes == 1u;
+          if (votes == 3u) {
+            // both: the near one is next, the far one waits on the stack
+            const float l_sum = warp_sum(lhit ? lt : 0.0f);
+            const float r_sum = warp_sum(rhit ? rt : 0.0f);
+            go_left = l_sum <= r_sum;
+            stack.push(lane, go_left ? right : left);
+          }
+          ref = go_left ? left : right;
+#if defined(HR_PACKET_SPECULATIVE)
+          c0 = go_left ? l0 : r0;
+          c1 = go_left ? l1 : r1;
+          c2 = go_left ? l2 : r2;
+          c3 = go_left ? l3 : r3;
+#endif
+          continue;
+        }
+      } else {
+#if defined(HR_PACKET_SPECULATIVE)
+        const float4 a = c0, e1 = c1, e2 = c2;
+#else
+        const float4* row = leaves + 3 * static_cast<size_t>(~ref);
+        const float4 a = row[0], e1 = row[1], e2 = row[2];
+#endif
+        const int tri = __float_as_int(a.w);
+        float t, u, v;
+        if (tri >= 0 && active &&
+            tri_hit_edges(xyz(a), xyz(e1), xyz(e2), org, dir, tmin, best_t,
+                          &t, &u, &v)) {
+          best_tri = tri;
+          best_t = t;
+          best_u = u;
+          best_v = v;
+        }
+        // only a leaf gives a ray its hit: any-hit, the warp is done
+        // once every active lane has one
+        if (any_hit && __all_sync(kFull, !active || best_tri >= 0)) break;
       }
-      continue;
+      if (stack.sp == 0) break;
+      ref = stack.pop();
+#if defined(HR_PACKET_SPECULATIVE)
+      fetch(ref, c0, c1, c2, c3);
+#endif
     }
-    const float4 nlo = nodes[2 * node];
-    const float4 nhi = nodes[2 * node + 1];
-    const int left = __float_as_int(nlo.w);
-    const int right = __float_as_int(nhi.w);
-    const bool live = active && !(any_hit && best_tri >= 0);
-    float lt = 0.0f, rt = 0.0f;
-    const bool lhit = live && box_hit(nodes[2 * left], nodes[2 * left + 1],
-                                      org, inv_d, tmin, best_t, &lt);
-    const bool rhit = live && box_hit(nodes[2 * right],
-                                      nodes[2 * right + 1], org, inv_d,
-                                      tmin, best_t, &rt);
-    const bool l_any = __any_sync(kFull, lhit);
-    const bool r_any = __any_sync(kFull, rhit);
-    const float l_sum = warp_sum(lhit ? lt : 0.0f);
-    const float r_sum = warp_sum(rhit ? rt : 0.0f);
-    const bool l_nearer = l_sum <= r_sum;
-    // far child first, so the near one is popped next
-    const int first = l_nearer ? right : left;
-    const bool first_ok = l_nearer ? r_any : l_any;
-    const int second = l_nearer ? left : right;
-    const bool second_ok = l_nearer ? l_any : r_any;
-    if (lane == 0) {
-      if (first_ok) stack[sp] = first;
-      if (second_ok) stack[sp + first_ok] = second;
-    }
-    sp += first_ok + second_ok;
-    __syncwarp();
   }
-  if (i >= R) return;
+  if (i < 0) return;
   t_out[i] = best_tri < 0 ? __int_as_float(0x7f800000) : best_t;
   tri_out[i] = best_tri;
   u_out[i] = best_u;
@@ -956,21 +1064,22 @@ HR_EXPORT int hr_trace_closest(const void* inner, const void* leaves,
   HR_RETURN_LAUNCH_STATUS();
 }
 
-// any_hit 0 or 1; for any-hit the caller may ignore t, u and v
-HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
-                              const void* tri_verts, int n_internal,
-                              const void* o, const void* d, const void* tmax,
-                              const void* active, float tmin, int R,
-                              int any_hit, void* t_out, void* tri_out,
-                              void* u_out, void* v_out, void* stream) {
+// K2b over K2's records; width as for K2; any_hit 0 or 1, for any-hit the
+// caller may ignore t, u and v
+HR_EXPORT int hr_trace_packet(const void* inner, const void* leaves,
+                              int n_internal, const void* o, const void* d,
+                              const void* tmax, const void* active,
+                              float tmin, int R, int width, int any_hit,
+                              void* t_out, void* tri_out, void* u_out,
+                              void* v_out, void* stream) {
   if (R > 0) {
-    trace_packet_kernel<<<(R + kBlock - 1) / kBlock, kBlock, 0,
+    trace_packet_kernel<<<ceil_div(trace_threads(R, width), kPacketBlock),
+                          kPacketBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(nodes), static_cast<const int*>(node_tri),
-        static_cast<const float*>(tri_verts), n_internal,
-        static_cast<const float*>(o), static_cast<const float*>(d),
-        static_cast<const float*>(tmax),
-        static_cast<const uint8_t*>(active), tmin, R, any_hit,
+        static_cast<const float4*>(inner), static_cast<const float4*>(leaves),
+        n_internal, static_cast<const float*>(o),
+        static_cast<const float*>(d), static_cast<const float*>(tmax),
+        static_cast<const uint8_t*>(active), tmin, R, width, any_hit,
         static_cast<float*>(t_out), static_cast<int*>(tri_out),
         static_cast<float*>(u_out), static_cast<float*>(v_out));
   }
@@ -1007,24 +1116,29 @@ HR_EXPORT int hr_trace_packet(const void* nodes, const void* node_tri,
 HR_WIDE_ENTRY(hr_trace_wide, trace_wide_kernel)
 HR_WIDE_ENTRY(hr_trace_mimt, trace_mimt_kernel)
 
-// K2w (mimt 0) or K2m (1) as built: registers a thread, local memory
-// bytes a thread (stack frame and spills), static shared memory bytes,
-// threads a block and the blocks an SM holds → out[0..4] (host ints)
-HR_EXPORT int hr_wide_info(int mimt, void* out) {
-  const void* f = mimt ? reinterpret_cast<const void*>(trace_mimt_kernel)
-                       : reinterpret_cast<const void*>(trace_wide_kernel);
+// K2w (which 0), K2m (1) or K2b (2) as built: registers a thread, local
+// memory bytes a thread (stack frame and spills), static shared memory
+// bytes, threads a block and the blocks an SM holds → out[0..4] (host
+// ints)
+HR_EXPORT int hr_trace_info(int which, void* out) {
+  const void* f = which == 2
+                      ? reinterpret_cast<const void*>(trace_packet_kernel)
+                  : which == 1
+                      ? reinterpret_cast<const void*>(trace_mimt_kernel)
+                      : reinterpret_cast<const void*>(trace_wide_kernel);
+  const int threads = which == 2 ? kPacketBlock : kWideThreads;
   cudaFuncAttributes a{};
   int blocks = 0;
   cudaError_t e = cudaFuncGetAttributes(&a, f);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f,
-                                                      kWideThreads, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads,
+                                                      0);
   }
   int* v = static_cast<int*>(out);
   v[0] = a.numRegs;
   v[1] = static_cast<int>(a.localSizeBytes);
   v[2] = static_cast<int>(a.sharedSizeBytes);
-  v[3] = kWideThreads;
+  v[3] = threads;
   v[4] = blocks;
   return static_cast<int>(e);
 }

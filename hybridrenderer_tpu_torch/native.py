@@ -112,8 +112,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name → argument types (every one ends with the stream)
 _SIGNATURES = {
-    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "hr_trace_packet": [_P, _P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P,
+    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hr_raster_vis": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hr_trace_packet": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
                         _P, _P, _P],
     "hr_trace_any": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
     "hr_trace_closest": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P,
@@ -142,8 +143,8 @@ def kernel_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    lib.hr_wide_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.hr_wide_info.restype = ctypes.c_int
+    lib.hr_trace_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.hr_trace_info.restype = ctypes.c_int
     lib.hr_error_string.argtypes = [ctypes.c_int]
     lib.hr_error_string.restype = ctypes.c_char_p
     return lib
@@ -185,7 +186,6 @@ KERNELS = {
     k.name: k for k in (
         Kernel("raster_tiles", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:784"),
-        # K1's keyed vis-only mode (csrc/raster.cu), counted on its own
         Kernel("raster_vis", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:519"),
         Kernel("trace_any", _CSRC + "trace.cu",

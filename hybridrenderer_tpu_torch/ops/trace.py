@@ -10,10 +10,11 @@ K2b instead; with ``trace_backend="pallas-wide"`` and ``wide_kernel``
 
 The reference relayouts rays tile- or pattern-major for its TPU packets;
 a relayout changes no per-ray result, so the per-ray kernels trace in
-pixel order. K2b's packets are 32 consecutive rays, so image queries
-are relayouted into 8x4 pixel tiles for it, one tile a packet; the wide
-kernels' packets are 1024 rays, so image queries take the reference's
-32x32 tile-major order for them (``to_tile_major``, edge-padded).
+pixel order. K2b traces image queries in pixel order too: handed the
+image's width, it takes one 8x4 pixel tile a packet itself, as K2 / K2c
+take one a warp. The wide kernels' packets are 1024 rays, so image
+queries take the reference's 32x32 tile-major order for them
+(``to_tile_major``, edge-padded).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from .bvh_wide import build_wide, refit_wide
 from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
                          PackedBVH, check_wide_stacks, intersect_any,
                          intersect_closest, intersect_mimt, intersect_packet,
-                         intersect_wide, pack_binary, pack_bvh)
+                         intersect_wide, pack_bvh)
 
 TMIN = 0.01  # shadow_query's ray start, past the normal offset
 OCCLUSION_TMIN = 1e-3   # occluded's ray start
@@ -43,23 +44,10 @@ HIT_ID_LIMIT = 1 << 29  # ids at or above it are the TPU kernel's sentinels
 SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
               + list(range(45, 54)) + [66] + list(range(67, 83)))
 SHADE_ROWS_MAX = 98304
-TILE_W, TILE_H = 8, 4   # K2b's packet of 32 image rays
 WIDE_TILE = 32          # K2w / K2m: a 1024-ray packet is a 32x32 tile
 # trace_pallas.VMEM_SCENE_BUDGET: above it the reference traces bf16
 # records (bvh_wide.quantize_bf16), which change the image
 VMEM_SCENE_BUDGET = 96 * 1024 * 1024
-
-
-def tile_order(H, W, device):
-    """Permutation of the H * W pixel indices into 8x4 tiles, row-major
-    within a tile and tile-major across the image; ragged edge tiles are
-    shorter, so a packet may span two of them."""
-    y = torch.arange(H, device=device).unsqueeze(1)
-    x = torch.arange(W, device=device).unsqueeze(0)
-    ntx = -(-W // TILE_W)
-    key = ((y // TILE_H) * ntx + x // TILE_W) * (TILE_W * TILE_H) \
-        + (y % TILE_H) * TILE_W + x % TILE_W
-    return torch.argsort(key.reshape(-1))
 
 
 def tile_major(H, W, device, tile=WIDE_TILE):
@@ -101,7 +89,7 @@ def wide_kernel_of(settings) -> "str | None":
 
 @dataclasses.dataclass
 class SceneTracer:
-    # K2 / K2c / K2b's records of the binary tree; None when a wide
+    # K2 / K2c / K2b's packing of the binary tree; None when a wide
     # kernel traces
     packed: "PackedBVH | None"
     # (T, 53) hit-shading rows: vertex k's normal, tangent, uv at 9k;
@@ -136,10 +124,8 @@ class SceneTracer:
         bvh = build_sah(soup.v0, soup.v1, soup.v2)
         packed = wide = None
         if kernel is None:
-            # K2b reads the per-node layout only
-            pack = pack_binary if packet else pack_bvh
-            packed = pack(bvh, soup.v0, soup.v1, soup.v2,
-                          PACKET_STACK_DEPTH if packet else STACK_DEPTH)
+            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+                              PACKET_STACK_DEPTH if packet else STACK_DEPTH)
         else:
             wide = build_wide(bvh, soup.v0, soup.v1, soup.v2)
             if wide.vmem_bytes > VMEM_SCENE_BUDGET:
@@ -168,27 +154,21 @@ class SceneTracer:
             wide = refit_wide(self.wide, bvh.node_min, bvh.node_max,
                               soup.v0, soup.v1, soup.v2)
         else:
-            pack = pack_binary if self.packet else pack_bvh
-            packed = pack(bvh, soup.v0, soup.v1, soup.v2,
-                          PACKET_STACK_DEPTH if self.packet else STACK_DEPTH,
-                          like=self.packed)
+            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+                              PACKET_STACK_DEPTH if self.packet
+                              else STACK_DEPTH, like=self.packed)
         return dataclasses.replace(self, packed=packed, bvh=bvh,
                                    levels=levels, wide=wide,
                                    shade_rows=_shade_rows(scene_data))
 
     def _packet_order(self, lead, *rays):
-        """The order packet kernels trace the rays of an (H, W) image in:
-        K2b 8x4 pixel tiles, K2w / K2m 32x32 tiles → (each traced ray's
-        pixel, each pixel's traced position, the flat rays in traced
-        order), or (None, None, rays) for pixel order."""
-        if len(lead) != 2 or not (self.packet or self.wide is not None):
+        """The order the wide kernels trace the rays of an (H, W) image
+        in, 32x32 tiles → (each traced ray's pixel, each pixel's traced
+        position, the flat rays in traced order), or (None, None, rays)
+        for pixel order."""
+        if len(lead) != 2 or self.wide is None:
             return None, None, rays
-        dev = rays[0].device
-        if self.packet:
-            fwd = tile_order(*lead, dev)
-            pos = torch.argsort(fwd)
-        else:
-            fwd, pos = tile_major(*lead, dev)
+        fwd, pos = tile_major(*lead, rays[0].device)
         return fwd, pos, tuple(x[fwd].contiguous() for x in rays)
 
     def _wide_query(self, o, d, tmin, tmax, active, any_hit):
@@ -201,14 +181,15 @@ class SceneTracer:
                 torch.where(inactive, -1, tri), u, v)
 
     # ``width`` > 0: the rays are an image of that many columns in pixel
-    # order, which K2 / K2c trace in 8x4 tiles; packet kernels ignore it
-    # (their rays come in their own order)
+    # order, which K2 / K2c trace in 8x4 tiles a warp and K2b in 8x4
+    # tiles a packet; the wide kernels ignore it (their rays come in
+    # their own order)
     def _any(self, o, d, tmin, tmax, active, width=0):
         if self.wide is not None:
             return self._wide_query(o, d, tmin, tmax, active, True)[1]
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
-                                    any_hit=True)[1]
+                                    True, width)[1]
         return intersect_any(self.packed, o, d, tmin, tmax, active, width)
 
     def _closest(self, o, d, tmin, tmax, active, width=0):
@@ -216,7 +197,7 @@ class SceneTracer:
             return self._wide_query(o, d, tmin, tmax, active, False)
         if self.packet:
             return intersect_packet(self.packed, o, d, tmin, tmax, active,
-                                    any_hit=False)
+                                    False, width)
         return intersect_closest(self.packed, o, d, tmin, tmax, active,
                                  width)
 
@@ -274,12 +255,12 @@ class SceneTracer:
         (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
         rays trace nothing and take the miss value. The NEE seed of a ray
         is its flat index, the reference's original pixel index, also
-        where packet kernels trace (H, W) rays in tile order."""
+        where the wide kernels trace (H, W) rays in tile order."""
         lead = origin.shape[:-1]
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
         fwd, pos, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax,
                                                          act)
-        # rays of an (H, W) image stay in pixel order for K2 / K2c
+        # rays of an (H, W) image stay in pixel order for K2 / K2c / K2b
         width = lead[1] if len(lead) == 2 else 0
         t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act, width)
         hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act

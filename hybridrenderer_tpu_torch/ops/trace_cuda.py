@@ -4,21 +4,21 @@ the plain version follows ops/trace.py intersect_bvh), and the packet
 traversal K2b (trace_pallas.py _traverse_kernel, trace_backend
 "pallas") with its plain version.
 
-``pack_binary`` lays the binary BVH out for K2b and the plain versions,
-``pack_bvh`` for K2 and K2c as well. K2b and the plain versions read per
+``pack_bvh`` lays the binary BVH out twice. The plain versions read per
 node two float4 (min xyz + left child id bits, max xyz + right child id
-bits), the leaf triangle ids, and the triangle corners as (T, 9)
-floats. K2 and K2c read one record per internal node holding both
-children's boxes and references (``inner_records``), and one row per
-leaf holding its triangle's v0, e1 = v1 - v0 and e2 = v2 - v0
-(``leaf_rows``); see csrc/trace.cu.
+bits), the leaf triangle ids, and the triangle corners as (T, 9) floats
+(``pack_binary``'s layout). K2, K2c and K2b read one record per internal
+node holding both children's boxes and references (``inner_records``),
+and one row per leaf holding its triangle's v0, e1 = v1 - v0 and
+e2 = v2 - v0 (``leaf_rows``); see csrc/trace.cu.
 ``intersect_any`` returns, per ray, the id of a triangle hit with
 tmin <= t <= tmax, or -1. ``intersect_closest`` returns (t, tri, u, v)
 of the nearest such hit, with t = +inf, tri = -1 and u = v = 0 on a miss.
 Neither caps its iterations: the reference's ``max_iters`` batch cap of
 10,000 steps is never reached on a tree the stack can hold.
-``intersect_packet`` answers either query for packets of 32 consecutive
-rays that share one stack; its visiting order, and so its choice among
+``intersect_packet`` answers either query for packets of 32 rays that
+share one stack: 32 consecutive rays, or the 8x4 pixel tiles of an
+image (``packet_lanes``); its visiting order, and so its choice among
 equal-t hits, is the packet's, not a ray's.
 
 ``intersect_wide`` (K2w, trace_pallas.py _wide_traverse_kernel) and
@@ -46,6 +46,7 @@ STACK_DEPTH = 64
 PACKET = 32                # rays per packet: one warp
 PACKET_STACK_DEPTH = 96    # trace_pallas.STACK_DEPTH
 PACKET_TMAX = 1e6          # intersect_packed's tmax clamp
+PACKET_TILE_W, PACKET_TILE_H = 8, 4   # an image packet's pixel tile
 KERNEL = native.KERNELS["trace_any"]
 KERNEL_CLOSEST = native.KERNELS["trace_closest"]
 KERNEL_PACKET = native.KERNELS["trace_packet"]
@@ -89,7 +90,7 @@ class PackedBVH:
     tri_verts: Any   # (T, 9) f32 triangle corners
     n_internal: int
     depth: int       # of the deepest leaf; the root is at depth 0
-    # K2 / K2c's records (None from ``pack_binary``): (n_internal, 16)
+    # K2, K2c and K2b's records (None from ``pack_binary``): (n_internal, 16)
     # f32, internal node i's children: left min xyz + ref bits, left max
     # xyz + 0, right min xyz + ref bits, right max xyz + 0 (``child_ref``)
     inner_records: Any = None
@@ -123,13 +124,14 @@ def _bits(x):
 
 def pack_binary(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
     """The per-node layout of the binary tree ``bvh`` over triangles (v0,
-    v1, v2), which K2b and the plain versions read, built on their device
+    v1, v2), which the plain versions read, built on their device
     with no host sync but the depth walk. Raises if the tree is too deep
     for the traversal's stack of ``stack`` entries (K2's 64, or K2b's
     96): popping a node at depth k leaves at most k entries, and its two
-    children make k + 2, so a tree of depth D needs D + 1 entries (K2 and
-    K2c, which keep the near child in a register, need D). Within that
-    bound no kernel nor plain version ever drops a child. ``like``, a
+    children make k + 2, so a tree of depth D needs D + 1 entries in the
+    plain versions (the kernels, which keep the near child in a register,
+    need D). Within that bound no kernel nor plain version ever drops a
+    child. ``like``, a
     packing of a tree of the same shape (a refit's), lends its depth: no
     host walk."""
     depth = tree_depth(bvh.left, bvh.right) if like is None else like.depth
@@ -142,7 +144,7 @@ def pack_binary(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
 
 
 def pack_records(packed: PackedBVH, like=None) -> PackedBVH:
-    """``packed`` (``pack_binary``'s layout) with K2 / K2c's records
+    """``packed`` (``pack_binary``'s layout) with the kernels' records
     beside it, derived from it on its device with no host sync.
     ``like``, a packing with records of a tree of the same shape (a
     refit's), lends its topology: five device operations."""
@@ -170,7 +172,7 @@ def pack_records(packed: PackedBVH, like=None) -> PackedBVH:
 
 
 def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
-    """``pack_binary``'s layout and K2 / K2c's records (``pack_records``),
+    """``pack_binary``'s layout and the kernels' records (``pack_records``),
     with ``like`` lending depth and topology to both."""
     return pack_records(pack_binary(bvh, v0, v1, v2, stack, like), like)
 
@@ -198,10 +200,10 @@ def _check_rays(bvh: PackedBVH, o, d, tmax, active, stack=STACK_DEPTH):
 
 
 def _check_records(bvh: PackedBVH, dev):
-    """K2 / K2c's records, which ``pack_bvh`` and ``pack_records`` build
+    """The kernels' records, which ``pack_bvh`` and ``pack_records`` build
     and ``pack_binary`` does not."""
     if bvh.inner_records is None:
-        raise ValueError("K2 / K2c need the records of pack_bvh or "
+        raise ValueError("K2, K2c and K2b need the records of pack_bvh or "
                          "pack_records; this BVH has pack_binary's only")
     n = bvh.n_internal
     native.check(bvh.inner_records, "inner_records", torch.float32, (n, 16),
@@ -268,31 +270,56 @@ def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active,
 
 
 def intersect_packet(bvh: PackedBVH, o, d, tmin: float, tmax, active,
-                     any_hit: bool):
+                     any_hit: bool, width: int = 0):
     """Packet traversal of rays (R, 3) o, d; tmax (R,) f32; active (R,)
-    bool, in packets of 32 consecutive rays → (t, tri, u, v), each (R,),
-    as ``intersect_closest`` reports them; any-hit's tri is a triangle
-    hit, or -1, and its t, u, v are those of that hit.
+    bool → (t, tri, u, v), each (R,), as ``intersect_closest`` reports
+    them; any-hit's tri is a triangle hit, or -1, and its t, u, v are
+    those of that hit. A packet is 32 consecutive rays, or with
+    ``width`` > 0, for an image's pixels in row-major order that many
+    columns wide, one 8x4 pixel tile (``packet_lanes``).
 
     CUDA tensors launch kernel K2b, which replaces the TPU kernel
     trace_pallas._traverse_kernel; CPU tensors take the plain version.
-    On the card a warp is a packet: one node load serves its 32 rays;
-    see csrc/trace.cu."""
+    On the card a warp is a packet: one record load serves its 32 rays,
+    the near child stays in a register and the warp's stack in registers
+    across its lanes; see csrc/trace.cu."""
     if o.device.type == "cpu":
-        return intersect_packet_plain(bvh, o, d, tmin, tmax, active, any_hit)
+        return intersect_packet_plain(bvh, o, d, tmin, tmax, active, any_hit,
+                                      width)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_packet: unsupported device {o.device}")
     R = _check_rays(bvh, o, d, tmax, active, PACKET_STACK_DEPTH)
+    _check_records(bvh, o.device)
     t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
     KERNEL_PACKET.launch(
-        "hr_trace_packet", native.ptr(bvh.nodes), native.ptr(bvh.node_tri),
-        native.ptr(bvh.tri_verts), bvh.n_internal, native.ptr(o),
+        "hr_trace_packet", native.ptr(bvh.inner_records),
+        native.ptr(bvh.leaf_rows), bvh.n_internal, native.ptr(o),
         native.ptr(d), native.ptr(tmax), native.ptr(active), float(tmin), R,
-        int(any_hit), native.ptr(t), native.ptr(tri), native.ptr(u),
-        native.ptr(v))
+        int(width), int(any_hit), native.ptr(t), native.ptr(tri),
+        native.ptr(u), native.ptr(v))
     return t, tri, u, v
+
+
+def packet_lanes(R, width, device):
+    """K2b's packets of R rays → (P, 32) i64, the ray of each lane, -1
+    for a dead lane: 32 consecutive rays; or, with ``width`` > 0, the
+    8x4 pixel tiles of an image ``width`` columns wide, tiles row-major
+    and lanes row-major inside a tile (the kernel's ray_of_thread);
+    ragged edge tiles leave lanes dead."""
+    if width <= 0:
+        i = torch.arange(-(-R // PACKET) * PACKET, device=device)
+        return torch.where(i < R, i, -1).view(-1, PACKET)
+    tiles_x = -(-width // PACKET_TILE_W)
+    tiles_y = -(-(-(-R // width)) // PACKET_TILE_H)
+    k = torch.arange(tiles_x * tiles_y * PACKET, device=device)
+    lane, tile = k % PACKET, torch.div(k, PACKET, rounding_mode="floor")
+    x = tile % tiles_x * PACKET_TILE_W + lane % PACKET_TILE_W
+    y = torch.div(tile, tiles_x, rounding_mode="floor") * PACKET_TILE_H \
+        + torch.div(lane, PACKET_TILE_W, rounding_mode="floor")
+    i = y * width + x
+    return torch.where((x < width) & (i < R), i, -1).view(-1, PACKET)
 
 
 def _warp_sum(x):
@@ -305,22 +332,28 @@ def _warp_sum(x):
 
 
 def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
-                           any_hit: bool, visits=None):
+                           any_hit: bool, width: int = 0, visits=None,
+                           trail=None):
     """Plain PyTorch version of kernel K2b: all packets step together,
-    one node per packet per step, with the kernel's votes, sums and
-    visiting order. ``visits``, a dict, receives the number of internal
-    and leaf nodes the packets visit."""
+    one node per packet per step, with the kernel's packets
+    (``packet_lanes``), votes, sums and visiting order; it walks the
+    per-node layout and keeps both children on its stack. ``visits``, a
+    dict, receives the number of internal and leaf nodes the packets
+    visit; ``trail``, a list, each step's (P,) node of every packet (-1
+    for a packet that is done)."""
     KERNEL_PACKET.note_plain(o)
     dev = o.device
     R = o.shape[0]
-    P = -(-R // PACKET)
-    pad = P * PACKET - R
+    ray = packet_lanes(R, width, dev)
+    P = ray.shape[0]
+    lane_ok = ray >= 0
+    src = torch.clamp(ray, min=0)
 
     def lanes(x, fill):
-        x = torch.cat([x, x.new_full((pad, *x.shape[1:]), fill)])
-        return x.view(P, PACKET, *x.shape[1:])
+        ok = lane_ok.view(P, PACKET, *([1] * (x.dim() - 1)))
+        return torch.where(ok, x[src], torch.full_like(x[src], fill))
 
-    # inactive and padding lanes take part in no vote and no hit
+    # inactive and dead lanes take part in no vote and no hit
     act = lanes(active, False)
     org = lanes(o, 0.0)
     dirs = lanes(d, 1.0)
@@ -351,6 +384,8 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
         sp = torch.where(live, sp - 1, sp)
         node = torch.where(live, stack[pk, torch.clamp(sp, min=0)], 0)
 
+        if trail is not None:
+            trail.append(torch.where(live, node, -1))
         is_leaf = node >= bvh.n_internal
         tri = bvh.node_tri[node]
         safe = torch.clamp(tri, 0, T - 1).long()
@@ -391,8 +426,13 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     if visits is not None:
         visits["internal"] = visits.get("internal", 0) + int(n_inner)
         visits["leaf"] = visits.get("leaf", 0) + int(n_leaf)
-    flat = lambda x: x.reshape(-1)[:R]
     t = torch.where(out < 0, torch.full_like(best, float("inf")), best)
+
+    def flat(x):   # lanes → rays
+        y = x.new_empty((R,))
+        y[ray[lane_ok]] = x[lane_ok]
+        return y
+
     return flat(t), flat(out), flat(bu), flat(bv)
 
 
@@ -604,11 +644,20 @@ def wide_kernel_info(mimt: bool) -> dict:
     """K2w's (or K2m's) build as the card runs it: registers a thread,
     local memory bytes a thread (stack frame and spills), static shared
     memory bytes, threads a block and the blocks an SM holds."""
+    return _kernel_info(int(mimt))
+
+
+def packet_kernel_info() -> dict:
+    """K2b's build as the card runs it, as ``wide_kernel_info``."""
+    return _kernel_info(2)
+
+
+def _kernel_info(which: int) -> dict:
     out = (ctypes.c_int * 5)()
     lib = native.kernel_library()
-    rc = lib.hr_wide_info(int(mimt), out)
+    rc = lib.hr_trace_info(which, out)
     if rc != 0:
-        raise RuntimeError(f"hr_wide_info: CUDA error {rc} "
+        raise RuntimeError(f"hr_trace_info: CUDA error {rc} "
                            f"({lib.hr_error_string(rc).decode()})")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
                      "blocks_per_sm"), out))

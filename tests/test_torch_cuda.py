@@ -88,14 +88,41 @@ def test_vis_only_raster_kernels_match_plain(dev):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# a 16x16 tile of 2,100 entries (17 groups of K1v), at the headline's
+# size and at one whose tiles are cut in both axes
+@pytest.mark.parametrize("W,H", [(1920, 1080), (203, 117)])
+def test_vis_only_raster_kernels_heavy_tile(dev, W, H):
+    """K1v and K1 vis-only exactly, on a synthetic tile of 2,100 entries
+    with 2^-19 depth steps inside its 128-entry groups and every group's
+    triangles repeated at equal exact depths in the next (tests/
+    torch_parity.heavy_tile_bins): K1v's groups resolve in parallel and
+    combine by exact depth, the earliest group on a tie."""
+    from .torch_parity import heavy_tile_bins
+
+    rec, ts, ec = heavy_tile_bins(W, H, 2100, seed=4, device=dev)
+    assert int((ts[1:] - ts[:-1]).max()) == 2100
+    before = native.KERNELS["raster_vis"].launches
+    k1v = raster_cuda.raster_tiles(rec, ts, ec, None, W, H, keyed=True)[0]
+    assert native.KERNELS["raster_vis"].launches == before + 1
+    k1 = raster_cuda.raster_tiles(rec, ts, ec, None, W, H)[0]
+    pairs = [(k1v, raster_cuda.raster_vis_plain(rec, ts, ec, W, H)),
+             (k1, raster_cuda.raster_tiles_plain(rec, ts, ec, None, W,
+                                                 H)[0])]
+    for vk, vp_ in pairs:
+        for a, b in ((vk.tri_id, vp_.tri_id), (vk.depth, vp_.depth),
+                     (vk.bary1, vp_.bary1), (vk.bary2, vp_.bary2)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (k1v.tri_id != k1.tri_id).any()
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_packet_kernel_matches_plain(dev, any_hit):
     """K2b exactly (tri, t, u, v), on random rays with a fifth inactive
-    and on primary rays in 8x4 tile order; against the per-ray kernels:
-    the same visibility and closest t."""
+    and on primary rays in pixel order, traced in 8x4 tile packets
+    (``width``); against the per-ray kernels: the same visibility and
+    closest t."""
     from hybridrenderer_tpu_torch.core.config import RenderSettings
     from hybridrenderer_tpu_torch.ops import composition
-    from hybridrenderer_tpu_torch.ops.trace import tile_order
 
     data = scenes.stress_scene(num_objects=12).build(dev)
     tracer = SceneTracer.build(data, RenderSettings(trace_backend="pallas"))
@@ -109,23 +136,23 @@ def test_packet_kernel_matches_plain(dev, any_hit):
     active = _t(g.random(R) < 0.8, dev)
     W, H = 96, 64
     cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
-    perm = tile_order(H, W, dev)
     po = cam.position.expand(H * W, 3).contiguous()
-    pd = composition.view_directions(cam, H, W, dev).reshape(-1, 3)[perm]
-    for args in ((o, d, 0.01, tmax, active),
-                 (po, pd.contiguous(), 0.01,
-                  torch.full((H * W,), 1e6, device=dev),
-                  torch.ones(H * W, dtype=torch.bool, device=dev))):
+    pd = composition.view_directions(cam, H, W, dev).reshape(-1, 3)
+    for args, width in (((o, d, 0.01, tmax, active), 0),
+                        ((po, pd.contiguous(), 0.01,
+                          torch.full((H * W,), 1e6, device=dev),
+                          torch.ones(H * W, dtype=torch.bool, device=dev)),
+                         W)):
         before = native.KERNELS["trace_packet"].launches
-        k = trace_cuda.intersect_packet(tracer.packed, *args, any_hit)
+        k = trace_cuda.intersect_packet(tracer.packed, *args, any_hit, width)
         assert native.KERNELS["trace_packet"].launches == before + 1
-        p = trace_cuda.intersect_packet_plain(tracer.packed, *args, any_hit)
+        p = trace_cuda.intersect_packet_plain(tracer.packed, *args, any_hit,
+                                              width)
         for a, b in zip(k, p):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         act = args[4]
         assert (k[1][~act] == -1).all()
-        # the packet tracer packs no K2 / K2c records: added for them
-        per_ray = trace_cuda.pack_records(tracer.packed)
+        per_ray = tracer.packed
         if any_hit:
             ref = trace_cuda.intersect_any(per_ray, *args)
             assert torch.equal(ref >= 0, k[1] >= 0)
@@ -232,6 +259,80 @@ def test_trace_kernels_edge_cases(dev, case, any_hit):
     assert (tri[~active] == -1).all()
     if case == "all_inactive":
         assert (tri == -1).all()
+    else:
+        assert (tri >= 0).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["one_triangle", "chain95", "all_inactive",
+                                  "first_leaf", "ragged", "ragged_image"])
+def test_packet_kernel_edge_cases(dev, case, any_hit):
+    """K2b against its plain version, exactly (tri, t, u, v): one
+    triangle (the root is a leaf); a chain of depth 95, whose rays along
+    -x fill the 96-entry stack (all three slots of every lane) to 95
+    entries; every ray inactive; packets whose every lane hits the first
+    leaf they reach (rays straight down onto the chain's triangles: the
+    any-hit warp stops at once); a ray count that is a multiple of no
+    block, in order and as an image 203 pixels wide in 8x4 tiles (its
+    last tile column and last row of tiles partial)."""
+    from hybridrenderer_tpu_torch.ops import bvh
+
+    from .torch_parity import chain_bvh
+
+    g = np.random.default_rng(10)
+    R = 8192 + 77 if case.startswith("ragged") else 4096
+    width = 203 if case == "ragged_image" else 0
+    stack = trace_cuda.PACKET_STACK_DEPTH
+    if case == "one_triangle":
+        v = tuple(torch.tensor([c], dtype=torch.float32, device=dev) for c in
+                  ([-1.0, 0.0, -1.0], [1.0, 0.0, -1.0], [0.0, 0.0, 1.0]))
+        packed = trace_cuda.pack_bvh(bvh.build_sah(*v), *v, stack)
+        o = g.uniform(-2, 2, (R, 3))
+        d = -o + g.uniform(-1.5, 1.5, (R, 3))
+    elif case in ("chain95", "first_leaf"):
+        tree, *v = chain_bvh(stack, dev)
+        packed = trace_cuda.pack_bvh(tree, *v, stack)
+        assert packed.depth == stack - 1
+        if case == "chain95":
+            side = np.arange(R) % 64 < 32
+            o = np.stack([np.where(side, 120.0, -20.0),
+                          g.uniform(-0.4, 0.4, R), g.uniform(-0.4, 0.4, R)], 1)
+            d = np.stack([np.where(side, -1.0, 1.0),
+                          g.uniform(-0.01, 0.01, R),
+                          g.uniform(-0.01, 0.01, R)], 1)
+        else:
+            # onto triangle k of the chain (the plane x = k) along -x from
+            # just in front of it: each packet's rays hit one triangle
+            k = (np.arange(R) // 32) % stack
+            o = np.stack([k + 0.3, g.uniform(-0.4, 0.4, R),
+                          g.uniform(-0.4, 0.4, R)], 1)
+            d = np.stack([-np.ones(R), g.uniform(-0.01, 0.01, R),
+                          g.uniform(-0.01, 0.01, R)], 1)
+    else:
+        packed = SceneTracer.build(
+            scenes.stress_scene(num_objects=12).build(dev)).packed
+        o = g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3))
+        d = g.standard_normal((R, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (_t(x.astype(np.float32), dev) for x in (o, d))
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    if case == "first_leaf":
+        tmax = torch.full((R,), 0.5, device=dev)
+    frac = {"all_inactive": 0.0, "first_leaf": 1.0}.get(case, 0.9)
+    active = _t(g.random(R) < frac, dev)
+    args = (packed, o, d, 0.01, tmax, active, any_hit, width)
+    before = native.KERNELS["trace_packet"].launches
+    k = trace_cuda.intersect_packet(*args)
+    assert native.KERNELS["trace_packet"].launches == before + 1
+    p = trace_cuda.intersect_packet_plain(*args)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    tri = k[1]
+    assert (tri[~active] == -1).all()
+    if case == "all_inactive":
+        assert (tri == -1).all()
+    elif case == "first_leaf":
+        assert (tri >= 0).all()
     else:
         assert (tri >= 0).float().mean().item() > 0.05
 

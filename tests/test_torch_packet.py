@@ -23,9 +23,10 @@ from hybridrenderer_tpu_torch.core.config import RenderSettings
 from hybridrenderer_tpu_torch.core.types import RenderFlags
 from hybridrenderer_tpu_torch.graph.params import FrameParams
 from hybridrenderer_tpu_torch.ops import composition, trace_cuda
-from hybridrenderer_tpu_torch.ops.trace import SceneTracer, tile_order
+from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
+from .test_torch_packet_records import tile_order
 from .test_torch_trace import _rays
 from .torch_parity import clear_reference_knobs, flatten
 
@@ -61,7 +62,7 @@ def _primary_rays(name, size=32):
     """The camera's primary rays at size x size, in 8x4 tile order."""
     cam = OrbitCamera(width=size, height=size, **SCENES[name][1]).step() \
         .to("cpu")
-    perm = tile_order(size, size, "cpu")
+    perm = tile_order(size, size)
     d = composition.view_directions(cam, size, size, "cpu").reshape(-1, 3)
     o = cam.position.expand(size * size, 3)
     return o.numpy().copy(), d[perm].numpy().copy()
@@ -155,12 +156,13 @@ def test_inactive_rays_and_per_ray_agreement(scenes):
 
 
 def test_tile_order_and_packet_stack():
-    """tile_order is a permutation whose runs of 32 are 8x4 tiles (edge
-    tiles ragged); pack_bvh holds a tree to the stack of the traversal
-    it is packed for, K2b's 96 entries or K2's 64."""
-    perm = tile_order(12, 20, "cpu")
-    assert torch.equal(torch.sort(perm).values, torch.arange(240))
-    y, x = perm[:32] // 20, perm[:32] % 20
+    """K2b's image packets at 20x12 are 8x4 tiles (edge tiles ragged,
+    their dead lanes -1); pack_bvh holds a tree to the stack of the
+    traversal it is packed for, K2b's 96 entries or K2's 64."""
+    lanes = trace_cuda.packet_lanes(240, 20, "cpu")
+    assert torch.equal(torch.sort(lanes[lanes >= 0]).values,
+                       torch.arange(240))
+    y, x = lanes[0] // 20, lanes[0] % 20
     assert (y < 4).all() and (x < 8).all()
 
     def chain(T):
@@ -187,11 +189,11 @@ def test_tile_order_and_packet_stack():
 def test_tracer_queries_through_packets(scenes):
     """SceneTracer with trace_backend "pallas" against the per-ray
     tracer on cornell: shadow_query's visibility equal; trace_radiance
-    (primary rays, relayouted into tiles, with emissive-light NEE seeded
-    by pixel index) equal in distance, and in colour to 1e-5 wherever
-    both hit the same triangle: the pixels through the room's corner
-    edges hit the two walls at the same t, and the packet and the ray
-    settle the tie apart (reading: 10 of 576 pixels)."""
+    (primary rays in 8x4 tile packets, with emissive-light NEE seeded by
+    pixel index) equal in distance, and in colour to 1e-5 wherever both
+    hit the same triangle: the pixels through the room's corner edges
+    hit the two walls at the same t, and the packet and the ray settle
+    the tie apart (reading: 10 of 576 pixels)."""
     packet = scenes["cornell"][2]
     per_ray = SceneTracer(packed=packet.packed, shade_rows=packet.shade_rows)
     ref_data = ref_scenes.cornell_scene().build()
@@ -211,13 +213,10 @@ def test_tracer_queries_through_packets(scenes):
     torch.testing.assert_close(dist_p, dist_r, rtol=0, atol=0)
     assert (dist_p > 0).float().mean() > 0.5
     rays = per_ray.radiance_rays(o, d)
-    perm = tile_order(H, W, "cpu")
     tri_r = trace_cuda.intersect_closest(per_ray.packed, *rays[:2], 0.01,
                                          *rays[2:])[1]
-    tri_p = torch.empty_like(tri_r)
-    tri_p[perm] = trace_cuda.intersect_packet(
-        packet.packed, *(x[perm] for x in rays[:2]), 0.01,
-        *(x[perm] for x in rays[2:]), False)[1]
+    tri_p = trace_cuda.intersect_packet(packet.packed, *rays[:2], 0.01,
+                                        *rays[2:], False, W)[1]
     same = (tri_p == tri_r).view(H, W)
     assert (~same).float().mean() <= 0.02
     torch.testing.assert_close(rgb_p[same], rgb_r[same], rtol=1e-5,

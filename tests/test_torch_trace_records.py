@@ -240,10 +240,10 @@ def test_kernel_order_matches_reference():
 
 @pytest.mark.parametrize("backend", ["pallas", "auto"])
 def test_records_only_where_k2_traces(backend):
-    """SceneTracer packs K2 / K2c's records for the per-ray kernels only:
-    the packet tracer (K2b) gets pack_binary's per-node layout, the same
-    as pack_bvh's, before and after a refit, and pack_records adds the
-    records pack_bvh builds."""
+    """SceneTracer packs the kernels' records for the per-ray kernels and
+    for the packet kernel K2b alike: pack_bvh's per-node layout and
+    records, before and after a refit, with the depth of the stack the
+    traversal has."""
     ref_data = ref_scenes.stress_scene(num_objects=12, seed=3).build()
     data = scene_from_numpy(flatten(ref_data), "cpu")
     tracer = SceneTracer.build(data, RenderSettings(trace_backend=backend))
@@ -251,12 +251,8 @@ def test_records_only_where_k2_traces(backend):
     full = trace_cuda.pack_bvh(tracer.bvh, soup.v0, soup.v1, soup.v2,
                                trace_cuda.PACKET_STACK_DEPTH)
     for packed in (tracer.packed, tracer.refit(data).packed):
-        names = ["nodes", "node_tri", "tri_verts"]
-        if backend == "pallas":
-            assert packed.inner_records is None and packed.leaf_rows is None
-            # records added later, as for a per-ray comparison
-            packed = trace_cuda.pack_records(packed)
-        names += ["inner_records", "leaf_rows"]
+        names = ["nodes", "node_tri", "tri_verts", "inner_records",
+                 "leaf_rows"]
         for name in names:   # the child-id bits are NaNs as floats
             assert torch.equal(_bits(getattr(packed, name)),
                                _bits(getattr(full, name))), name

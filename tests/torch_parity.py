@@ -110,3 +110,56 @@ def chain_bvh(T, device="cpu"):
     t = lambda a: torch.from_numpy(a).to(device)
     return (BVH(t(nmin), t(nmax), t(left), t(right), t(tri), num_tris=T),
             t(v0), t(v1), t(v2))
+
+
+def heavy_tile_bins(width, height, entries, seed=0, device="cpu"):
+    """K1 / K1v's inputs (records, tile_start, entry_cand) for an image
+    of ``width`` x ``height`` pixels with one synthetic tile that lists
+    ``entries`` candidates, beside a few small triangles elsewhere. The
+    heavy tile's triangles lie inside it, in 12 shapes at flat depths;
+    entry k repeats entry k - 128 exactly (equal exact depths across
+    128-entry groups), and consecutive entries of a shape differ in
+    depth by 2^-19 (near-ties that K1v's 2^-17 key settles by
+    position). Candidate k is triangle k."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import raster_cuda
+    from hybridrenderer_tpu_torch.ops.raster import ClippedTriangles
+
+    g = np.random.default_rng(seed)
+    tx, ty = (width // 16) // 2, (height // 16) // 2
+    x0, y0 = 16.0 * tx, 16.0 * ty
+    shapes = x0 + g.uniform(0.0, 15.9, (12, 3, 2)).astype(np.float32)
+    shapes[..., 1] += y0 - x0
+    shapes[0] = [[x0, y0], [x0 + 15.9, y0], [x0, y0 + 15.9]]
+    shapes[1] = [[x0 + 15.9, y0 + 15.9], [x0 + 15.9, y0], [x0, y0 + 15.9]]
+    base_z = g.uniform(0.3, 0.9, 12).astype(np.float32)
+    k = np.arange(entries) % 128
+    shape = k % 12
+    sxy = shapes[shape]
+    z = base_z[shape] + (k // 12 % 3).astype(np.float32) * 2.0 ** -19
+    # a few small triangles elsewhere, one tile each
+    m = 40
+    corner = g.uniform(0, [width - 6, height - 6], (m, 1, 2)).astype(
+        np.float32)
+    corner = np.floor(corner / 16.0) * 16.0
+    # none in the heavy tile
+    corner[..., 0] += np.where((corner[..., 0] == x0)
+                               & (corner[..., 1] == y0), 16.0, 0.0)
+    corner = corner + g.uniform(0, 10, (m, 1, 2))
+    small = np.minimum(corner + g.uniform(0, 5, (m, 3, 2)),
+                       [width - 0.5, height - 0.5]).astype(np.float32)
+    sxy = np.concatenate([sxy, small]).astype(np.float32)
+    z = np.concatenate([z, g.uniform(0.2, 0.8, m).astype(np.float32)])
+    n = sxy.shape[0]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    tris = ClippedTriangles(
+        sxy=t(sxy), z=t(np.repeat(z[:, None], 3, 1)),
+        inv_w=t(np.ones((n, 3), np.float32)),
+        bary=t(np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3))),
+        tri_id=t(np.arange(n, dtype=np.int32)),
+        valid=t(np.ones(n, bool)))
+    rec, bbox, valid = raster_cuda.pack_candidates(tris)
+    tile_start, entry_cand = raster_cuda.bin_candidates(bbox, valid, width,
+                                                        height)
+    return rec, tile_start, entry_cand
