@@ -30,44 +30,33 @@
 // up to ~1e-3 in barycentrics; following the jnp order keeps the port's
 // images on the reference's.
 //
-// Design of K1: one 16x16 pixel tile per block, one thread per pixel.
-// The block walks its tile's candidate list (ops/raster_cuda
-// .bin_candidates: every candidate whose screen bbox touches the tile, in
-// ascending candidate order; nothing is capped or dropped) in chunks of
-// 256 records staged through shared memory as six float4 each, and each
-// thread keeps only its running winner. K1 breaks depth ties
-// to the lowest candidate index, so its result does not depend on list
-// order. Barycentrics and attributes are evaluated once, for the winner
-// only: each thread writes its pixel's depth, triangle and barycentrics
-// (16 B) and puts its winner's triangle and barycentrics into shared
-// memory; after a barrier that every thread reaches, pixels outside the
-// image too, the block writes the tile's 40 attribute channels per pixel
-// cooperatively, consecutive threads on consecutive float4s (a tile row
-// is 640 contiguous floats), reading the winners' raster_rows rows as
-// float4s the same way. A thread per pixel storing its own 40 floats
-// would touch 32 sectors per warp store, 8x the bytes. Bound on the
-// card: the output, 176 B per pixel with attributes (16 B vis-only),
-// after the candidate loop, ~20 FLOP per candidate per pixel out of
-// shared memory (broadcast reads). The TPU kernels' 128-lane record
-// blocks, one-hot MXU picks and quantized depth keys were TPU
-// workarounds; K1 does not keep them, K1v keeps only the key's winner
-// rule, which is its contract.
-//
-// Design of K1v: its two rounds run in parallel, as its plain version
-// computes them (ops/raster_cuda.raster_vis_plain). A tile's groups
-// would run in series in one block, and one heavy tile would set the
-// kernel's pace; so a block takes one (tile, group) work item instead,
-// one thread per pixel, and keeps its group's largest key per pixel.
-// The items need no map built on the host nor any scan: block t <
-// ntiles takes group 0 of tile t, and block ntiles + j takes the group
-// that starts inside entries [128 j, 128 j + 128) of the whole list, if
-// one does past a tile's first (at most one can: such a group's tile
-// holds the 128 entries before it, which covers any other start there),
-// in the tile that holds entry 128 j. A tile of one group writes its
-// pixels at once; a group of a larger tile leaves (depth bits, entry)
-// of its winner per pixel in a scratch slot of its own, and a second
-// pass, one block per such tile, keeps the winner of largest exact
-// depth, the earliest group on a tie, and writes it.
+// Design: one 16x16 pixel tile per block, one thread per pixel. The
+// block walks its tile's candidate list (ops/raster_cuda.bin_candidates:
+// every candidate whose screen bbox touches the tile, in ascending
+// candidate order; nothing is capped or dropped) in chunks staged
+// through shared memory (256 records for K1, one group of 128 for K1v),
+// and each thread keeps only its running winner. A chunk is staged with
+// one barrier after it (and one before it where a chunk came before):
+// thread e loads entry e's candidate and then its record as six float4.
+// K1 breaks depth ties to the lowest candidate index, so its result does
+// not depend on list order. Barycentrics and attributes are evaluated
+// once, for the winner only: each thread writes its pixel's depth,
+// triangle and barycentrics (16 B) and puts its winner's triangle and
+// barycentrics into shared memory; after a barrier that every thread
+// reaches, pixels outside the image too, the block writes the tile's 40
+// attribute channels per pixel cooperatively, consecutive threads on
+// consecutive float4s (a tile row is 640 contiguous floats), reading the
+// winners' raster_rows rows as float4s the same way. A thread per pixel
+// storing its own 40 floats would touch 32 sectors per warp store, 8x
+// the bytes. Bound on the card: the output, 176 B per pixel with
+// attributes (16 B vis-only), after the candidate loop, ~20 FLOP per
+// candidate per pixel out of shared memory (broadcast reads). K1v's
+// groups run in series in their tile's block: the 1080p depth prepass
+// lists at most 212 entries in a tile (PERF.md), and resolving a tile's
+// groups in parallel blocks, with a second pass to combine them, was no
+// faster. The TPU kernels' 128-lane record blocks, one-hot MXU picks
+// and quantized depth keys were TPU workarounds; K1 does not keep them,
+// K1v keeps only the key's winner rule, which is its contract.
 #include "common.cuh"
 
 namespace {
@@ -115,22 +104,43 @@ __device__ __forceinline__ bool cover_depth4(const float4* s, float px,
   return cover_depth(r, px, py, z);
 }
 
-// Stage tile-list entries [base, base + n) with the block's kT threads:
-// their candidates into scand and their records, six float4 each, into
-// srec; the caller syncs after.
-template <int kT>
+// Stage tile-list entries [base, base + n), n <= the block's threads:
+// thread e puts entry e's candidate into scand and its record, six
+// float4, into srec; the caller syncs after.
 __device__ __forceinline__ void stage(const float4* __restrict__ rec4,
                                       const int* __restrict__ entry_cand,
                                       int base, int n, float4* srec,
                                       int* scand) {
-  for (int e = threadIdx.x; e < n; e += kT) {
+#if defined(HR_STAGE_TWO_PHASE)
+  for (int e = threadIdx.x; e < n; e += kThreads) {
     scand[e] = entry_cand[base + e];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n * kRec4; i += kT) {
+  for (int i = threadIdx.x; i < n * kRec4; i += kThreads) {
     const int e = i / kRec4;
     srec[i] = rec4[static_cast<size_t>(scand[e]) * kRec4 + (i - e * kRec4)];
   }
+#else
+  const int e = threadIdx.x;
+  if (e < n) {
+    const int c = entry_cand[base + e];
+    scand[e] = c;
+    const float4* r = rec4 + static_cast<size_t>(c) * kRec4;
+#pragma unroll
+    for (int k = 0; k < kRec4; ++k) srec[e * kRec4 + k] = r[k];
+  }
+#endif
+}
+
+// Pixel p's barycentrics, one float2 store
+__device__ __forceinline__ void write_bary(float* __restrict__ bary_out,
+                                           size_t p, float b1, float b2) {
+#if defined(HR_BARY_SCALAR)
+  bary_out[2 * p] = b1;
+  bary_out[2 * p + 1] = b2;
+#else
+  reinterpret_cast<float2*>(bary_out)[p] = make_float2(b1, b2);
+#endif
 }
 
 // A pixel's background: no winner
@@ -139,8 +149,7 @@ __device__ __forceinline__ void write_background(
     float* __restrict__ bary_out) {
   depth_out[p] = 0.0f;
   tri_out[p] = -1;
-  bary_out[2 * p] = 0.0f;
-  bary_out[2 * p + 1] = 0.0f;
+  write_bary(bary_out, p, 0.0f, 0.0f);
 }
 
 // The visibility outputs at pixel p of the winner whose record is r
@@ -169,8 +178,7 @@ __device__ __forceinline__ int write_winner(
   const int tri = static_cast<int>(r[23]);
   depth_out[p] = best_z;
   tri_out[p] = tri;
-  bary_out[2 * p] = b1;
-  bary_out[2 * p + 1] = b2;
+  write_bary(bary_out, p, b1, b2);
   *b1_out = b1;
   *b2_out = b2;
   return tri;
@@ -217,7 +225,8 @@ __device__ __forceinline__ void write_attrs(
   }
 }
 
-template <bool kAttrs>
+// kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group
+template <bool kAttrs, bool kKeyed>
 __global__ void __launch_bounds__(kThreads)
 raster_tiles_kernel(const float4* __restrict__ rec4,
                     const int* __restrict__ tile_start,
@@ -226,8 +235,9 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
                     int height, int ntx, float* __restrict__ depth_out,
                     int* __restrict__ tri_out, float* __restrict__ bary_out,
                     float* __restrict__ attr_out) {
-  __shared__ float4 srec[kThreads * kRec4];
-  __shared__ int scand[kThreads];
+  constexpr int kChunk = kKeyed ? kGroup : kThreads;
+  __shared__ float4 srec[kChunk * kRec4];
+  __shared__ int scand[kChunk];
 
   const int tile = blockIdx.x;
   const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
@@ -240,18 +250,44 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
   // depth must beat 0 (the cleared far plane) to win
   float best_z = 0.0f;
   int best = -1;
-  for (int base = start; base < end; base += kThreads) {
-    const int n = min(kThreads, end - base);
+  for (int base = start; base < end; base += kChunk) {
+    const int n = min(kChunk, end - base);
+    // the block is done reading the chunk before
+    if (base != start) __syncthreads();
+    stage(rec4, entry_cand, base, n, srec, scand);
     __syncthreads();
-    stage<kThreads>(rec4, entry_cand, base, n, srec, scand);
-    __syncthreads();
-    for (int e = 0; e < n; ++e) {
-      float z;
-      if (cover_depth4(&srec[e * kRec4], px, py, &z)) {
-        const int c = scand[e];
-        if (z > best_z || (z == best_z && best >= 0 && c < best)) {
-          best_z = z;
-          best = c;
+    if constexpr (kKeyed) {
+      // the group's winner: the largest key; positions make keys unique
+      int key = -1, win = -1;
+      float win_z = 0.0f;
+      for (int e = 0; e < n; ++e) {
+        float z;
+        if (cover_depth4(&srec[e * kRec4], px, py, &z)) {
+          const int k = (static_cast<int>(
+                            fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
+                        << 7) |
+                        e;
+          if (k > key) {
+            key = k;
+            win = scand[e];
+            win_z = z;
+          }
+        }
+      }
+      // across groups a strictly larger exact depth replaces
+      if (win >= 0 && win_z > best_z) {
+        best_z = win_z;
+        best = win;
+      }
+    } else {
+      for (int e = 0; e < n; ++e) {
+        float z;
+        if (cover_depth4(&srec[e * kRec4], px, py, &z)) {
+          const int c = scand[e];
+          if (z > best_z || (z == best_z && best >= 0 && c < best)) {
+            best_z = z;
+            best = c;
+          }
         }
       }
     }
@@ -279,230 +315,26 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
   }
 }
 
-// The tile that holds list entry e < E: the last tile whose list starts
-// at or before e (empty tiles start where the next one does)
-__device__ __forceinline__ int tile_of_entry(const int* __restrict__ ts,
-                                             int ntiles, int e) {
-  int lo = 0, hi = ntiles;
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) / 2;
-    if (__ldg(ts + mid) <= e) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// K1v's scratch slot of the group that starts at list entry ``base``:
-// two a 128-entry window of the list, one for a tile's first group (of
-// a tile of more than one group: one can start in a window) and one for
-// a later group (one can start in a window)
-__device__ __forceinline__ size_t group_slot(int base, bool first) {
-  return (2 * static_cast<size_t>(base / kGroup) + (first ? 0 : 1)) *
-         kThreads;
-}
-
-#ifndef HR_VIS_PIX
-#define HR_VIS_PIX 1
-#endif
-constexpr int kVisPix = HR_VIS_PIX;   // K1v's pixels a thread
-
-// K1v, first pass: one (tile, group) work item a block (the file's
-// header says which), kPix pixels a thread
-template <int kPix>
-__global__ void __launch_bounds__(kThreads / kPix)
-raster_vis_groups_kernel(const float4* __restrict__ rec4,
-                         const int* __restrict__ tile_start,
-                         const int* __restrict__ entry_cand, int width,
-                         int height, int ntx, int ntiles,
-                         unsigned long long* __restrict__ scratch,
-                         float* __restrict__ depth_out,
-                         int* __restrict__ tri_out,
-                         float* __restrict__ bary_out) {
-  constexpr int kT = kThreads / kPix;
-  __shared__ float4 srec[kGroup * kRec4];
-  __shared__ int scand[kGroup];
-
-  int tile = blockIdx.x, g = 0;
-  if (tile >= ntiles) {
-    const int e0 = (tile - ntiles) * kGroup;
-    tile = tile_of_entry(tile_start, ntiles, e0);
-    g = (e0 - tile_start[tile] + kGroup - 1) / kGroup;
-    if (g == 0 || tile_start[tile] + g * kGroup >= tile_start[tile + 1]) {
-      return;   // no later group starts in this window
-    }
-  }
-  // pixel j of this thread: tile pixel threadIdx.x + j * kT
-  int x[kPix], y[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int q = threadIdx.x + j * kT;
-    x[j] = (tile % ntx) * kTile + q % kTile;
-    y[j] = (tile / ntx) * kTile + q / kTile;
-  }
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
-  if (start == end) {
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      if (x[j] < width && y[j] < height) {
-        write_background(static_cast<size_t>(y[j]) * width + x[j],
-                         depth_out, tri_out, bary_out);
-      }
-    }
-    return;
-  }
-  const int base = start + g * kGroup;
-  const int n = min(kGroup, end - base);
-  stage<kT>(rec4, entry_cand, base, n, srec, scand);
-  __syncthreads();
-  // the group's winner: the largest key; positions make keys unique
-  int key[kPix], win[kPix];
-  float win_z[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    key[j] = -1;
-    win[j] = -1;
-    win_z[j] = 0.0f;
-  }
-  for (int e = 0; e < n; ++e) {
-    const float4* s4 = &srec[e * kRec4];
-    const float4 q0 = s4[0], q1 = s4[1], q2 = s4[2], q3 = s4[3];
-    const float r[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
-                         q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      float z;
-      if (cover_depth(r, static_cast<float>(x[j]) + 0.5f,
-                      static_cast<float>(y[j]) + 0.5f, &z)) {
-        const int k = (static_cast<int>(
-                           fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
-                       << 7) |
-                      e;
-        if (k > key[j]) {
-          key[j] = k;
-          win[j] = e;
-          win_z[j] = z;
-        }
-      }
-    }
-  }
-  const bool only = end - start <= kGroup;
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    if (only) {
-      // the tile's only group: its winner must beat the far plane, and
-      // its record is still staged
-      if (x[j] < width && y[j] < height) {
-        float b1, b2;
-        write_winner(win[j] >= 0 && win_z[j] > 0.0f
-                         ? reinterpret_cast<const float*>(
-                               &srec[win[j] * kRec4])
-                         : nullptr,
-                     win_z[j], static_cast<float>(x[j]) + 0.5f,
-                     static_cast<float>(y[j]) + 0.5f,
-                     static_cast<size_t>(y[j]) * width + x[j], depth_out,
-                     tri_out, bary_out, &b1, &b2);
-      }
-    } else {
-      scratch[group_slot(base, g == 0) + threadIdx.x + j * kT] =
-          win[j] < 0
-              ? 0ull
-              : (static_cast<unsigned long long>(__float_as_uint(win_z[j]))
-                 << 32) |
-                    static_cast<unsigned>(base + win[j]);
-    }
-  }
-}
-
-// K1v, second pass: block j combines the groups of the tile whose second
-// group starts inside list window j, if one does
-__global__ void __launch_bounds__(kThreads)
-raster_vis_combine_kernel(const float* __restrict__ rec,
-                          const int* __restrict__ tile_start,
-                          const int* __restrict__ entry_cand, int width,
-                          int height, int ntx, int ntiles,
-                          const unsigned long long* __restrict__ scratch,
-                          float* __restrict__ depth_out,
-                          int* __restrict__ tri_out,
-                          float* __restrict__ bary_out) {
-  const int e0 = blockIdx.x * kGroup;
-  const int tile = tile_of_entry(tile_start, ntiles, e0);
-  const int start = tile_start[tile];
-  const int end = tile_start[tile + 1];
-  const int second = start + kGroup;
-  if (second < e0 || second >= e0 + kGroup || second >= end) return;
-  const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
-  const int y = (tile / ntx) * kTile + threadIdx.x / kTile;
-  if (x >= width || y >= height) return;
-  // strictly larger exact depth replaces: the earliest group wins a tie,
-  // and the winner must beat the far plane
-  float best_z = 0.0f;
-  int best_entry = -1;
-  for (int base = start; base < end; base += kGroup) {
-    const unsigned long long v =
-        scratch[group_slot(base, base == start) + threadIdx.x];
-    const float z = __uint_as_float(static_cast<unsigned>(v >> 32));
-    if (z > best_z) {
-      best_z = z;
-      best_entry = static_cast<int>(v & 0xffffffffull);
-    }
-  }
-  float b1, b2;
-  write_winner(best_entry >= 0
-                   ? rec + static_cast<size_t>(entry_cand[best_entry]) * kRec
-                   : nullptr,
-               best_z, static_cast<float>(x) + 0.5f,
-               static_cast<float>(y) + 0.5f,
-               static_cast<size_t>(y) * width + x, depth_out, tri_out,
-               bary_out, &b1, &b2);
-}
-
 }  // namespace
 
-// K1: attr_table and attrs null for vis-only. rec is 16-byte aligned.
+// attr_table and attrs null: vis-only; keyed (vis-only): K1v. rec,
+// bary (and attr_table, attrs) are 16-byte aligned.
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
-                              int width, int height, int ntx, void* depth,
-                              void* tri, void* bary, void* attrs,
-                              void* stream) {
+                              int keyed, int width, int height, int ntx,
+                              void* depth, void* tri, void* bary,
+                              void* attrs, void* stream) {
+  if (keyed && attr_table) return static_cast<int>(cudaErrorInvalidValue);
   const int nty = (height + kTile - 1) / kTile;
-  auto kernel = attr_table ? raster_tiles_kernel<true>
-                           : raster_tiles_kernel<false>;
+  auto kernel = keyed        ? raster_tiles_kernel<false, true>
+                : attr_table ? raster_tiles_kernel<true, false>
+                             : raster_tiles_kernel<false, false>;
   kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
       static_cast<const float*>(attr_table), width, height, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(bary), static_cast<float*>(attrs));
-  HR_RETURN_LAUNCH_STATUS();
-}
-
-// K1v: n_entries is the tile lists' total length E; scratch holds
-// 2 * ceil(E / 128) * 256 u64 (group_slot), uninitialized
-HR_EXPORT int hr_raster_vis(const void* rec, const void* tile_start,
-                            const void* entry_cand, int n_entries, int width,
-                            int height, int ntx, void* scratch, void* depth,
-                            void* tri, void* bary, void* stream) {
-  const int ntiles = ntx * ((height + kTile - 1) / kTile);
-  const int windows = (n_entries + kGroup - 1) / kGroup;
-  const auto s = static_cast<cudaStream_t>(stream);
-  raster_vis_groups_kernel<kVisPix>
-      <<<ntiles + windows, kThreads / kVisPix, 0, s>>>(
-      static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
-      static_cast<const int*>(entry_cand), width, height, ntx, ntiles,
-      static_cast<unsigned long long*>(scratch), static_cast<float*>(depth),
-      static_cast<int*>(tri), static_cast<float*>(bary));
-  if (windows > 0) {
-    raster_vis_combine_kernel<<<windows, kThreads, 0, s>>>(
-        static_cast<const float*>(rec), static_cast<const int*>(tile_start),
-        static_cast<const int*>(entry_cand), width, height, ntx, ntiles,
-        static_cast<const unsigned long long*>(scratch),
-        static_cast<float*>(depth), static_cast<int*>(tri),
-        static_cast<float*>(bary));
-  }
   HR_RETURN_LAUNCH_STATUS();
 }
 

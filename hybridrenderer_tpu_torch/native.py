@@ -112,8 +112,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name → argument types (every one ends with the stream)
 _SIGNATURES = {
-    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "hr_raster_vis": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "hr_trace_packet": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
                         _P, _P, _P],
     "hr_trace_any": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
@@ -186,6 +185,7 @@ KERNELS = {
     k.name: k for k in (
         Kernel("raster_tiles", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:784"),
+        # K1's keyed vis-only mode (csrc/raster.cu), counted on its own
         Kernel("raster_vis", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:519"),
         Kernel("trace_any", _CSRC + "trace.cu",

@@ -13,10 +13,10 @@
    interpolated attribute image. CUDA tensors run kernel K1
    (csrc/raster.cu); CPU tensors run ``raster_tiles_plain``, the same
    arithmetic in PyTorch. With ``keyed`` it runs vis-only with the
-   winner rule of the reference's eval modes v2 / v3: kernel K1v, plain
-   version ``raster_vis_plain``. That rule differs from K1's only
-   between candidates within 2^-17 of reversed-Z (csrc/raster.cu says
-   how).
+   winner rule of the reference's eval modes v2 / v3: kernel K1v (K1's
+   keyed mode), plain version ``raster_vis_plain``. That rule differs
+   from K1's only between candidates within 2^-17 of reversed-Z
+   (csrc/raster.cu says how).
 
 The arithmetic is the reference's jnp resolve (ops/raster.py
 rasterize), whose goldens the port is held to; csrc/raster.cu says why.
@@ -113,9 +113,7 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     tensors take the plain versions. On the card the candidate loop runs
     from shared memory (~20 FLOP per candidate per pixel), and K1's block
     then writes its tile's attributes as contiguous float4s, so K1 is
-    bound by its 176 B of output a pixel. K1v resolves a tile's
-    128-entry groups in parallel, one block each, and combines the
-    groups of a tile in a second pass; see csrc/raster.cu.
+    bound by its 176 B of output a pixel; see csrc/raster.cu.
     """
     if keyed and attr_table is not None:
         raise ValueError("raster_tiles: the keyed mode is vis-only")
@@ -146,23 +144,12 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tri = torch.empty((height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
-    if keyed:
-        # two slots of 256 pixels a 128-entry window of the lists
-        E = entry_cand.shape[0]
-        scratch = torch.empty((2 * -(-E // GROUP) * TILE * TILE,),
-                              dtype=torch.int64, device=dev)
-        KERNEL_VIS.launch(
-            "hr_raster_vis", native.ptr(rec), native.ptr(tile_start),
-            native.ptr(entry_cand), E, width, height, ntx,
-            native.ptr(scratch), native.ptr(depth), native.ptr(tri),
-            native.ptr(bary))
-    else:
-        KERNEL.launch(
-            "hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
-            native.ptr(entry_cand),
-            None if attrs is None else native.ptr(attr_table), width,
-            height, ntx, native.ptr(depth), native.ptr(tri),
-            native.ptr(bary), None if attrs is None else native.ptr(attrs))
+    (KERNEL_VIS if keyed else KERNEL).launch(
+        "hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
+        native.ptr(entry_cand),
+        None if attrs is None else native.ptr(attr_table), int(keyed),
+        width, height, ntx, native.ptr(depth), native.ptr(tri),
+        native.ptr(bary), None if attrs is None else native.ptr(attrs))
     vis = VisibilityBuffer(tri_id=tri, bary1=bary[..., 0], bary2=bary[..., 1],
                            depth=depth)
     return vis, attrs

@@ -1,105 +1,51 @@
-"""K1v's parallel resolve (csrc/raster.cu raster_vis_groups_kernel and
-raster_vis_combine_kernel) replayed here in PyTorch: its (tile, group)
-work items, taken with no host-built map (block t < ntiles: group 0 of
-tile t; block ntiles + j: the later group that starts inside list
-entries [128 j, 128 j + 128), in the tile holding entry 128 j), each
-group's largest key per pixel, the scratch slots of the groups of
-multi-group tiles and the second pass's combine (largest exact depth,
-the earliest group on a tie), against the plain version
-(``raster_vis_plain``) bit for bit, on bins where one tile holds several
-groups with equal exact depths across them and 2^-17 near-ties inside
-them."""
-import numpy as np
+"""K1v's resolve (csrc/raster.cu raster_tiles_kernel, keyed mode)
+replayed here in PyTorch: one block per 16x16 tile walks the tile's list
+in 128-entry groups, each staged on its own; inside a group each pixel
+keeps the largest key (2^-17 depth | position), and across groups, in
+list order, a group's winner replaces the running one only with a
+strictly larger exact depth, so the earliest group keeps a tie. Held
+against the plain version (``raster_vis_plain``, which splits the list
+into (tile, group) items and combines them by a scatter-max) bit for
+bit, on bins where one tile holds several groups with equal exact depths
+across them and 2^-17 near-ties inside them."""
 import pytest
 import torch
 
 from hybridrenderer_tpu_torch.ops import raster, raster_cuda
-from hybridrenderer_tpu_torch.ops.raster import VisibilityBuffer
 
 from .torch_parity import heavy_tile_bins
 
 TILE, GROUP = raster_cuda.TILE, raster_cuda.GROUP
 
 
-def _items(tile_start):
-    """The kernel's work items → [(tile, group)], in block order: each
-    window block finds its tile by the kernel's search."""
-    ts = tile_start.tolist()
-    ntiles, E = len(ts) - 1, ts[-1]
-    items = [(t, 0) for t in range(ntiles)]
-    for j in range(-(-E // GROUP)):
-        e0 = j * GROUP
-        lo, hi = 0, ntiles
-        while hi - lo > 1:
-            mid = (lo + hi) // 2
-            lo, hi = (mid, hi) if ts[mid] <= e0 else (lo, mid)
-        g = -(-(e0 - ts[lo]) // GROUP)
-        if g > 0 and ts[lo] + g * GROUP < ts[lo + 1]:
-            items.append((lo, g))
-    return items
-
-
-def _slot(base, first):
-    return 2 * (base // GROUP) + (0 if first else 1)
-
-
 def replay(rec, tile_start, entry_cand, width, height):
-    """Both passes, item by item → VisibilityBuffer; asserts that every
-    group of every tile is one item and that no two groups share a
-    scratch slot."""
+    """The kernel's loop, tile by tile and group by group, with its
+    arithmetic (K1's depth at the pixel centre) → VisibilityBuffer."""
     ntx = -(-width // TILE)
     ts = tile_start.tolist()
-    items = _items(tile_start)
-    groups = {(t, g) for t in range(len(ts) - 1)
-              for g in range(-(-(ts[t + 1] - ts[t]) // GROUP))}
-    assert sorted(i for i in items if ts[i[0] + 1] > ts[i[0]]) \
-        == sorted(groups)
     lp = torch.arange(TILE * TILE)
-    scratch, slots, out = {}, set(), {}
-    for tile, g in items:
-        start, end = ts[tile], ts[tile + 1]
-        x = (tile % ntx) * TILE + lp % TILE
-        y = (tile // ntx) * TILE + lp // TILE
-        if start == end:
-            out[tile] = (x, y, torch.full((TILE * TILE,), -1), None)
-            continue
-        base = start + g * GROUP
-        cand = entry_cand[base:min(end, base + GROUP)].long()
-        e, z = raster_cuda._edges_depth(rec[cand].unsqueeze(1), x, y)
-        cover = (e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0) & (z >= 0) & (z <= 1)
-        q = torch.clamp(z * raster_cuda.KEY_SCALE, 0.0,
-                        raster_cuda.KEY_SCALE).to(torch.int32).long()
-        key = torch.where(cover, (q << 7)
-                          | torch.arange(cand.shape[0]).unsqueeze(1), -1)
-        kmax, win = key.max(dim=0)
-        has = kmax >= 0
-        win_z = torch.where(has, z[win, lp], 0.0)
-        if end - start <= GROUP:
-            ok = has & (win_z > 0)
-            out[tile] = (x, y, torch.where(ok, cand[win], -1), win_z)
-            continue
-        s = _slot(base, g == 0)
-        assert s not in slots
-        slots.add(s)
-        scratch[s] = (torch.where(has, win_z, 0.0), base + win)
-    for tile in {t for t, g in items if g > 0}:
-        start, end = ts[tile], ts[tile + 1]
-        best_z = torch.zeros(TILE * TILE)
-        best_entry = torch.full((TILE * TILE,), -1)
-        for base in range(start, end, GROUP):
-            z, entry = scratch[_slot(base, base == start)]
-            better = z > best_z
-            best_z = torch.where(better, z, best_z)
-            best_entry = torch.where(better, entry, best_entry)
-        x = (tile % ntx) * TILE + lp % TILE
-        y = (tile // ntx) * TILE + lp // TILE
-        cand = torch.where(best_entry >= 0,
-                           entry_cand[best_entry.clamp(min=0)].long(), -1)
-        out[tile] = (x, y, cand, best_z)
     won = torch.full((height, width), -1, dtype=torch.long)
-    for x, y, cand, _ in out.values():
+    for tile in range(len(ts) - 1):
+        x = (tile % ntx) * TILE + lp % TILE
+        y = (tile // ntx) * TILE + lp // TILE
+        best_z = torch.zeros(TILE * TILE)
+        best = torch.full((TILE * TILE,), -1)
+        for base in range(ts[tile], ts[tile + 1], GROUP):
+            cand = entry_cand[base:min(ts[tile + 1], base + GROUP)].long()
+            e, z = raster_cuda._edges_depth(rec[cand].unsqueeze(1), x, y)
+            cover = (e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0) & (z >= 0) \
+                & (z <= 1)
+            q = torch.clamp(z * raster_cuda.KEY_SCALE, 0.0,
+                            raster_cuda.KEY_SCALE).to(torch.int32).long()
+            key = torch.where(cover, (q << 7)
+                              | torch.arange(cand.shape[0]).unsqueeze(1), -1)
+            kmax, win = key.max(dim=0)
+            win_z = z[win, lp]
+            better = (kmax >= 0) & (win_z > best_z)
+            best_z = torch.where(better, win_z, best_z)
+            best = torch.where(better, cand[win], best)
         inside = (x < width) & (y < height)
-        won[y[inside], x[inside]] = cand[inside]
+        won[y[inside], x[inside]] = best[inside]
     hit = won >= 0
     vis, _ = raster_cuda._winner_outputs(rec, None, hit,
                                          torch.where(hit, won, 0), width,
@@ -128,7 +74,7 @@ def test_replayed_groups_equal_plain(case):
     """The replay equals raster_vis_plain bit for bit: a 40x24 image
     with one tile of 600 entries (5 groups) or of 129 (a second group of
     one entry), and the stress scene at 61x37, whose lists run past 128
-    entries in several tiles and cross windows of the list."""
+    entries in several tiles."""
     if case == "stress":
         W, H = 61, 37
         rec, ts, ec = _stress_bins(W, H)

@@ -33,9 +33,11 @@ VARIANTS = {
     "smem_128_spec": ["-DHR_PACKET_SMEM_STACK", "-DHR_PACKET_SPECULATIVE"],
 }
 VIS_VARIANTS = {
-    "vis_pix1": [],
-    "vis_pix2": ["-DHR_VIS_PIX=2"],
-    "vis_pix4": ["-DHR_VIS_PIX=4"],
+    "vis_default": [],
+    "vis_two_phase": ["-DHR_STAGE_TWO_PHASE"],
+    "vis_bary_scalar": ["-DHR_BARY_SCALAR"],
+    "vis_two_phase_bary_scalar": ["-DHR_STAGE_TWO_PHASE",
+                                  "-DHR_BARY_SCALAR"],
 }
 
 
@@ -59,7 +61,7 @@ def build_all():
             raise RuntimeError(f"{name}: build failed\n{log[-3000:]}")
         lines = log.splitlines()
         for i, line in enumerate(lines):
-            if "trace_packet_kernel" in line or "raster_vis" in line:
+            if "trace_packet_kernel" in line or "raster_tiles_kernel" in line:
                 print(f"[{name}] ptxas: " + " | ".join(
                     x.strip() for x in lines[i + 1:i + 3]), flush=True)
         libs[name] = lib
@@ -149,15 +151,16 @@ def main():
 
 
 def vis_variants(dev, frame, libs):
-    """K1v's variants on the prepass bins (exact against the plain
-    version), the heaviest tile alone and every list empty; K1 vis-only
-    from the port's library beside them."""
+    """K1v's variants on the prepass bins, the heaviest tile alone and
+    every list empty, and K1 vis-only and with attributes on the prepass
+    bins, each exact against its plain version."""
     import torch
 
     import chip_smoke
     from hybridrenderer_tpu_torch.ops import raster_cuda as rc
 
     rec, ts, ec, _, W, H = frame["vis"]
+    rows = frame["data"].raster_rows.contiguous()
     counts = (ts[1:] - ts[:-1]).long()
     heavy = int(counts.argmax())
     ts_h = torch.zeros_like(ts)
@@ -165,48 +168,51 @@ def vis_variants(dev, frame, libs):
     ec_h = ec[int(ts[heavy]):int(ts[heavy + 1])].contiguous()
     ts_0 = torch.zeros_like(ts)
     ec_0 = ec[:0]
-    bins = {"all": (ts, ec), "heaviest": (ts_h, ec_h), "empty": (ts_0, ec_0)}
-    want = {k: rc.raster_vis_plain(rec, t, e, W, H)
-            for k, (t, e) in bins.items()}
+    cases = {"K1v all": (ts, ec, True, None),
+             "K1v heaviest": (ts_h, ec_h, True, None),
+             "K1v empty": (ts_0, ec_0, True, None),
+             "K1 vis-only all": (ts, ec, False, None),
+             "K1 attrs all": (ts, ec, False, rows)}
+    want = {}
+    for k, (t, e, keyed, a) in cases.items():
+        want[k] = (rc.raster_vis_plain(rec, t, e, W, H), None) if keyed \
+            else rc.raster_tiles_plain(rec, t, e, a, W, H)
     P, I = ctypes.c_void_p, ctypes.c_int
     ntx = -(-W // rc.TILE)
     for name, path in libs.items():
-        fn = ctypes.CDLL(path).hr_raster_vis
-        fn.argtypes = [P, P, P, I, I, I, I, P, P, P, P, P]
+        fn = ctypes.CDLL(path).hr_raster_tiles
+        fn.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P, P]
         fn.restype = ctypes.c_int
 
-        def run(t, e):
-            E = e.shape[0]
-            scratch = torch.empty((2 * -(-E // rc.GROUP) * 256,),
-                                  dtype=torch.int64, device=dev)
+        def run(t, e, keyed, a):
             depth = torch.empty((H, W), device=dev)
             tri = torch.empty((H, W), dtype=torch.int32, device=dev)
             bary = torch.empty((H, W, 2), device=dev)
-            rc_ = fn(rec.data_ptr(), t.data_ptr(), e.data_ptr(), E, W, H,
-                     ntx, scratch.data_ptr(), depth.data_ptr(),
-                     tri.data_ptr(), bary.data_ptr(),
+            attrs = None if a is None else torch.empty((H, W, 40),
+                                                       device=dev)
+            rc_ = fn(rec.data_ptr(), t.data_ptr(), e.data_ptr(),
+                     None if a is None else a.data_ptr(), int(keyed), W, H,
+                     ntx, depth.data_ptr(), tri.data_ptr(), bary.data_ptr(),
+                     None if a is None else attrs.data_ptr(),
                      torch.cuda.current_stream().cuda_stream)
             if rc_ != 0:
                 raise RuntimeError(f"{name}: CUDA error {rc_}")
-            return tri, depth, bary
+            return tri, depth, bary, attrs
 
         exact = True
-        for k, (t, e) in bins.items():
-            tri, depth, bary = run(t, e)
+        for k, args in cases.items():
+            tri, depth, bary, attrs = run(*args)
             torch.cuda.synchronize()
-            p = want[k]
+            p, pa = want[k]
             exact &= (torch.equal(tri, p.tri_id) and torch.equal(depth, p.depth)
                       and torch.equal(bary[..., 0], p.bary1)
-                      and torch.equal(bary[..., 1], p.bary2))
-        ms = {k: [chip_smoke.cuda_time(lambda t=t, e=e: run(t, e), 20)
-                  for _ in range(2)] for k, (t, e) in bins.items()}
-        print(f"[{name}] K1v ms (two rounds): " + "; ".join(
+                      and torch.equal(bary[..., 1], p.bary2)
+                      and (pa is None or torch.equal(attrs, pa)))
+        ms = {k: [chip_smoke.cuda_time(lambda args=args: run(*args), 20)
+                  for _ in range(2)] for k, args in cases.items()}
+        print(f"[{name}] ms (two rounds): " + "; ".join(
             f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in ms.items())
             + f"; exact {exact}", flush=True)
-    k1 = {k: chip_smoke.cuda_time(lambda t=t, e=e: rc.raster_tiles(
-        rec, t, e, None, W, H), 20) for k, (t, e) in bins.items()}
-    print("[K1 vis-only, port library] ms: " + "; ".join(
-        f"{k} {v:.4f}" for k, v in k1.items()), flush=True)
 
 
 if __name__ == "__main__":
