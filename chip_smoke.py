@@ -13,11 +13,12 @@ non-zero without printing a result):
    and load counts of the SVGF stencils and of K2 / K2c / K2b
    (cuobjdump, where the toolkit has it);
 3. kernels: each kernel against its plain PyTorch version on the card,
-   on the inputs the render paths hand it at 1920x1080 (K1 and the K4
-   stencils at odd sizes too), with the tolerance stated, timed with
-   CUDA events beside the least time the card could take (bound) and,
-   where one PyTorch call computes the same function, that call's time
-   (library);
+   on the inputs the render paths hand it at 1920x1080 (K1, K1 vis-only,
+   K1v and the K4 stencils at odd sizes too; K1v's entry counts a tile
+   and its time on the heaviest tile alone), with the tolerance stated,
+   timed with CUDA events beside the least time the card could take
+   (bound) and, where one PyTorch call computes the same function, that
+   call's time (library);
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
    cube_forward_64.png and cube_raytraced_128.png rendered on the card,
    held to the goldens off triangle edges;
@@ -475,7 +476,10 @@ def packet_frame(dev):
     the depth prepass hands K1v (bins of the jittered clip) and what the
     tracer hands K2b: the primary rays (closest-hit) and their
     sun-occlusion rays (any-hit), in pixel order with the image width,
-    which K2b traces in 8x4 tile packets."""
+    which K2b traces in 8x4 tile packets; and how often the frame called
+    torch.argsort (no relayout of the rays needs one)."""
+    import torch
+
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.ops import raster_cuda, trace
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
@@ -484,8 +488,9 @@ def packet_frame(dev):
     data = _headline_scene(dev, HEADLINE["objects"])
     r = Renderer.for_scene(_raytraced_settings(W, H, raster_eval="v2",
                                                trace_backend="pallas"), data)
-    vis_calls, ray_calls = [], []
-    vis, packet = raster_cuda.raster_tiles, trace.intersect_packet
+    vis_calls, ray_calls, sorts = [], [], []
+    vis, packet, argsort = (raster_cuda.raster_tiles, trace.intersect_packet,
+                            torch.argsort)
 
     def recording_vis(*a, **kw):
         if kw.get("keyed"):
@@ -496,18 +501,24 @@ def packet_frame(dev):
         ray_calls.append((a, kw))
         return packet(*a, **kw)
 
+    def counting_argsort(*a, **kw):
+        sorts.append(1)
+        return argsort(*a, **kw)
+
     raster_cuda.raster_tiles, trace.intersect_packet = recording_vis, \
         recording_packet
+    torch.argsort = counting_argsort
     try:
         r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
             taa_enabled=True))
     finally:
         raster_cuda.raster_tiles, trace.intersect_packet = vis, packet
+        torch.argsort = argsort
     if len(vis_calls) != 1 or len(ray_calls) != 2:
         raise AssertionError(f"expected one K1v call and two K2b queries, "
                              f"got {len(vis_calls)} and {len(ray_calls)}")
     return dict(tracer=r.tracer, vis=vis_calls[0], rays=ray_calls,
-                data=data, triangles=data.num_triangles)
+                data=data, triangles=data.num_triangles, argsorts=len(sorts))
 
 
 def check_packet_path(dev):
@@ -614,9 +625,10 @@ def check_trace_packet(frame):
     queries = [a[1:6] for a, _ in frame["rays"]]
     modes = [a[6] for a, _ in frame["rays"]]
     widths = [a[7] for a, _ in frame["rays"]]
-    if modes != [False, True] or widths != [W, W]:
+    if modes != [False, True] or widths != [W, W] or frame["argsorts"]:
         raise AssertionError(f"expected closest-hit then any-hit, each "
-                             f"with width {W}: {modes}, {widths}")
+                             f"with width {W}, and no argsort: {modes}, "
+                             f"{widths}, {frame['argsorts']} argsorts")
     kern = lambda: [tc.intersect_packet(packed, *q, m, W)
                     for q, m in zip(queries, modes)]
     plain = lambda visits=None: [
@@ -669,7 +681,8 @@ def check_trace_packet(frame):
                       f"ray-traced frame, {queries[0][0].shape[0]} rays "
                       f"each, {active} active, hit {hit[0]:.3f} / "
                       f"{hit[1]:.3f}, {frame['triangles']} triangles; K2b "
-                      f"{times[0]:.4f} + {times[1]:.4f} ms (max err t "
+                      f"{times[0]:.4f} + {times[1]:.4f} ms with width {W} "
+                      f"and no argsort in the frame (max err t "
                       f"{errs[0]:.3g} u {errs[1]:.3g} v {errs[2]:.3g}) vs "
                       f"per-ray K2c "
                       f"{per_ray_ms[0]:.4f} ms and K2 {per_ray_ms[1]:.4f} ms "

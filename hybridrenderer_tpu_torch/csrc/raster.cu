@@ -9,9 +9,10 @@
 // attribute channels (16 vertex attributes interpolated with those
 // barycentrics + the triangle's 24 constants, from scene raster_rows).
 //
-// K1v (raster_vis) replaces raster_pallas.py _raster_kernel (:519) in
-// its vis-only eval modes v2 / v3 (eval_block_v2 :621, eval_block_v3
-// :682): the tile's candidate list is cut into groups of 128 consecutive
+// K1v (raster_vis, K1's keyed vis-only mode) replaces raster_pallas.py
+// _raster_kernel (:519) in its vis-only eval modes v2 / v3
+// (eval_block_v2 :621, eval_block_v3 :682):
+// the tile's candidate list is cut into groups of 128 consecutive
 // entries (the Pallas kernel's 128-lane record blocks). Inside a group
 // the largest integer key (clip(Z * 131071, 0, 131071) << 7 | position)
 // wins, so a near-tie within 2^-17 of depth goes to the later entry;
@@ -111,16 +112,6 @@ __device__ __forceinline__ void stage(const float4* __restrict__ rec4,
                                       const int* __restrict__ entry_cand,
                                       int base, int n, float4* srec,
                                       int* scand) {
-#if defined(HR_STAGE_TWO_PHASE)
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    scand[e] = entry_cand[base + e];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n * kRec4; i += kThreads) {
-    const int e = i / kRec4;
-    srec[i] = rec4[static_cast<size_t>(scand[e]) * kRec4 + (i - e * kRec4)];
-  }
-#else
   const int e = threadIdx.x;
   if (e < n) {
     const int c = entry_cand[base + e];
@@ -129,42 +120,25 @@ __device__ __forceinline__ void stage(const float4* __restrict__ rec4,
 #pragma unroll
     for (int k = 0; k < kRec4; ++k) srec[e * kRec4 + k] = r[k];
   }
-#endif
 }
 
-// Pixel p's barycentrics, one float2 store
-__device__ __forceinline__ void write_bary(float* __restrict__ bary_out,
-                                           size_t p, float b1, float b2) {
-#if defined(HR_BARY_SCALAR)
-  bary_out[2 * p] = b1;
-  bary_out[2 * p + 1] = b2;
-#else
-  reinterpret_cast<float2*>(bary_out)[p] = make_float2(b1, b2);
-#endif
-}
-
-// A pixel's background: no winner
-__device__ __forceinline__ void write_background(
-    size_t p, float* __restrict__ depth_out, int* __restrict__ tri_out,
-    float* __restrict__ bary_out) {
-  depth_out[p] = 0.0f;
-  tri_out[p] = -1;
-  write_bary(bary_out, p, 0.0f, 0.0f);
-}
-
-// The visibility outputs at pixel p of the winner whose record is r
-// (null for none; in global or shared memory) → its triangle id (-1 for
+// The winner's visibility outputs at pixel p → its triangle id (-1 for
 // none) and original-triangle barycentrics b1, b2.
 __device__ __forceinline__ int write_winner(
-    const float* r, float best_z, float px, float py, size_t p,
-    float* __restrict__ depth_out, int* __restrict__ tri_out,
-    float* __restrict__ bary_out, float* b1_out, float* b2_out) {
-  if (r == nullptr) {
-    write_background(p, depth_out, tri_out, bary_out);
+    const float* __restrict__ rec, int best, float best_z, float px,
+    float py, size_t p, float* __restrict__ depth_out,
+    int* __restrict__ tri_out, float* __restrict__ bary_out, float* b1_out,
+    float* b2_out) {
+  if (best < 0) {
+    depth_out[p] = 0.0f;
+    tri_out[p] = -1;
+    bary_out[2 * p] = 0.0f;
+    bary_out[2 * p + 1] = 0.0f;
     *b1_out = 0.0f;
     *b2_out = 0.0f;
     return -1;
   }
+  const float* r = rec + static_cast<size_t>(best) * kRec;
   const float sgn = r[9];
   const float inv_area = r[10];
   const float l0 = edge(r, sgn, px, py) * inv_area;
@@ -178,7 +152,8 @@ __device__ __forceinline__ int write_winner(
   const int tri = static_cast<int>(r[23]);
   depth_out[p] = best_z;
   tri_out[p] = tri;
-  write_bary(bary_out, p, b1, b2);
+  bary_out[2 * p] = b1;
+  bary_out[2 * p + 1] = b2;
   *b1_out = b1;
   *b2_out = b2;
   return tri;
@@ -265,8 +240,7 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
         if (cover_depth4(&srec[e * kRec4], px, py, &z)) {
           const int k = (static_cast<int>(
                             fminf(fmaxf(z * 131071.0f, 0.0f), 131071.0f))
-                        << 7) |
-                        e;
+                        << 7) | e;
           if (k > key) {
             key = k;
             win = scand[e];
@@ -295,13 +269,11 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
   const float* rec = reinterpret_cast<const float*>(rec4);
   const bool inside = x < width && y < height;
   float b1 = 0.0f, b2 = 0.0f;
-  const int tri =
-      inside ? write_winner(best < 0 ? nullptr
-                                     : rec + static_cast<size_t>(best) * kRec,
-                            best_z, px, py,
-                            static_cast<size_t>(y) * width + x, depth_out,
-                            tri_out, bary_out, &b1, &b2)
-             : -1;
+  const int tri = inside ? write_winner(rec, best, best_z, px, py,
+                                        static_cast<size_t>(y) * width + x,
+                                        depth_out, tri_out, bary_out, &b1,
+                                        &b2)
+                         : -1;
   if constexpr (kAttrs) {
     // every thread reaches the barrier, pixels outside the image too
     __shared__ int stri[kThreads];
@@ -317,8 +289,8 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
 
 }  // namespace
 
-// attr_table and attrs null: vis-only; keyed (vis-only): K1v. rec,
-// bary (and attr_table, attrs) are 16-byte aligned.
+// attr_table and attrs null: vis-only; keyed (vis-only): K1v. rec (and
+// attr_table, attrs) are 16-byte aligned.
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
                               int keyed, int width, int height, int ntx,

@@ -306,7 +306,7 @@ trace_closest_kernel(const float4* __restrict__ inner,
 // * the warp visits one node at a time;
 // * at an internal node each live lane slab-tests both child boxes
 //   against its own best t (any-hit: only lanes without a hit yet); a
-//   child is taken if any lane hits it (__any_sync); near and far come
+//   child is taken if any lane hits it; near and far come
 //   from the warp's sums of entry distances over the lanes that hit each
 //   box (trace_pallas.py:281-290), summed in the xor-butterfly order the
 //   plain version repeats;
@@ -320,32 +320,30 @@ trace_closest_kernel(const float4* __restrict__ inner,
 // Design for the card: K2's records (ops/trace_cuda.pack_bvh), one 64 B
 // record an internal step, read as four float4 broadcasts that carry
 // both child boxes and both references, and a leaf's 48 B row reached
-// straight from its reference (no node_tri indirection, no step of its
-// own round trip). The near child stays in a register: both children
-// taken, push the far one and go on with the near one; one taken, go on
-// with it; none, pop. That is the plain version's "push far, push near,
-// pop" exactly, so the warp visits the plain version's nodes in its
-// order. The warp-uniform stack lives in registers across the lanes:
-// entry k in lane k % 32, slot k / 32, three slots for 96 entries; a
-// push is one predicated move in one lane, a pop one __shfl_sync, and no
-// shared memory or __syncwarp is needed. A tree of depth D needs D
-// entries (pack_bvh holds it to D + 1 <= 96, the plain version's need).
-// Bound on the card: the latency of the serial chain of steps a warp
-// takes (one record load, two slab tests, two votes and two 5-shuffle
-// sums a step); one load serves 32 rays, and the lanes of a coherent
-// packet agree on most boxes.
+// straight from its reference (no node_tri indirection). The near child
+// stays in a register: both children taken, push the far one and go on
+// with the near one; one taken, go on with it; none, pop. That is the
+// plain version's "push far, push near, pop" exactly, so the warp visits
+// the plain version's nodes in its order. One __reduce_or_sync carries
+// both votes; the near/far sums run only where both children are taken,
+// and the any-hit test only after a leaf, the one step that changes it.
+// The warp-uniform stack lives in registers across the lanes: entry k in
+// lane k % 32, slot k / 32, three slots for 96 entries; a push is one
+// predicated move in one lane, a pop one __shfl_sync, with no shared
+// memory and no __syncwarp. A tree of depth D needs D entries (pack_bvh
+// holds it to D + 1 <= 96, the plain version's need). Blocks of 128
+// threads: a shared-memory stack, blocks of 256, launch bounds that force
+// 16 blocks an SM (spills) and loading both children's records before the
+// votes settle all ran slower on the 1080p ray-traced frame (PERF.md).
+// Bound on the card: instruction issue, ~80 SASS instructions an internal
+// step that takes one child, ~120 one that takes both (the sums' ten
+// shuffles), ~100 a leaf (the triangle test's IEEE division), over every
+// step of every packet; the lanes of an 8x4 tile agree on most boxes, but
+// a packet still visits the union of its rays' nodes.
 constexpr int kPacketStack = 96;
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-#ifndef HR_PACKET_BLOCK
-#define HR_PACKET_BLOCK 128
-#endif
-constexpr int kPacketBlock = HR_PACKET_BLOCK;
-#if defined(HR_PACKET_MIN_BLOCKS)
-#define HR_PACKET_BOUNDS __launch_bounds__(kPacketBlock, HR_PACKET_MIN_BLOCKS)
-#else
-#define HR_PACKET_BOUNDS __launch_bounds__(kPacketBlock)
-#endif
+constexpr int kPacketBlock = 128;
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = kWarp / 2; off > 0; off >>= 1) {
@@ -354,23 +352,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-#if defined(HR_PACKET_SMEM_STACK)
-// the warp's stack in shared memory: lane 0 writes, every lane reads
-struct PacketStack {
-  int* s;
-  int sp = 0;
-  __device__ void push(int lane, int ref) {
-    if (lane == 0) s[sp] = ref;
-    ++sp;
-  }
-  __device__ int pop() {
-    __syncwarp();  // the push is in
-    const int ref = s[--sp];
-    __syncwarp();  // every lane has read the top before it is rewritten
-    return ref;
-  }
-};
-#else
 // The warp's stack of references in registers across its lanes: entry k
 // is slot k / 32 of lane k % 32. sp is the same in every lane.
 struct PacketStack {
@@ -396,9 +377,8 @@ struct PacketStack {
     return __shfl_sync(kFull, mine, sp & (kWarp - 1));
   }
 };
-#endif
 
-__global__ void HR_PACKET_BOUNDS
+__global__ void __launch_bounds__(kPacketBlock)
 trace_packet_kernel(const float4* __restrict__ inner,
                     const float4* __restrict__ leaves, int n_internal,
                     const float* __restrict__ o, const float* __restrict__ d,
@@ -423,44 +403,16 @@ trace_packet_kernel(const float4* __restrict__ inner,
   float best_u = 0.0f, best_v = 0.0f;
 
   PacketStack stack;
-#if defined(HR_PACKET_SMEM_STACK)
-  __shared__ int stacks[kPacketBlock / kWarp][kPacketStack];
-  stack.s = stacks[threadIdx.x / kWarp];
-#endif
   // the root: internal node 0, or for one triangle leaf 0
   int ref = n_internal > 0 ? 0 : ~0;
-#if defined(HR_PACKET_SPECULATIVE)
-  // the payload of ``ref``: its record, or its leaf row in c0..c2
-  float4 c0, c1, c2, c3;
-  auto fetch = [&](int r, float4& a0, float4& a1, float4& a2, float4& a3) {
-    if (r >= 0) {
-      const float4* q = inner + 4 * static_cast<size_t>(r);
-      a0 = q[0]; a1 = q[1]; a2 = q[2]; a3 = q[3];
-    } else {
-      const float4* q = leaves + 3 * static_cast<size_t>(~r);
-      a0 = q[0]; a1 = q[1]; a2 = q[2];
-    }
-  };
-  fetch(ref, c0, c1, c2, c3);
-#endif
   if (__any_sync(kFull, active)) {
     for (;;) {
       if (ref >= 0) {
-#if defined(HR_PACKET_SPECULATIVE)
-        const float4 lmin = c0, lmax = c1, rmin = c2, rmax = c3;
-#else
         const float4* rec = inner + 4 * static_cast<size_t>(ref);
         const float4 lmin = rec[0], lmax = rec[1], rmin = rec[2],
                      rmax = rec[3];
-#endif
         const int left = __float_as_int(lmin.w);
         const int right = __float_as_int(rmin.w);
-#if defined(HR_PACKET_SPECULATIVE)
-        // both children's payloads in flight before the votes settle
-        float4 l0, l1, l2, l3, r0, r1, r2, r3;
-        fetch(left, l0, l1, l2, l3);
-        fetch(right, r0, r1, r2, r3);
-#endif
         const bool live = active && !(any_hit && best_tri >= 0);
         float lt = 0.0f, rt = 0.0f;
         const bool lhit =
@@ -480,21 +432,11 @@ trace_packet_kernel(const float4* __restrict__ inner,
             stack.push(lane, go_left ? right : left);
           }
           ref = go_left ? left : right;
-#if defined(HR_PACKET_SPECULATIVE)
-          c0 = go_left ? l0 : r0;
-          c1 = go_left ? l1 : r1;
-          c2 = go_left ? l2 : r2;
-          c3 = go_left ? l3 : r3;
-#endif
           continue;
         }
       } else {
-#if defined(HR_PACKET_SPECULATIVE)
-        const float4 a = c0, e1 = c1, e2 = c2;
-#else
         const float4* row = leaves + 3 * static_cast<size_t>(~ref);
         const float4 a = row[0], e1 = row[1], e2 = row[2];
-#endif
         const int tri = __float_as_int(a.w);
         float t, u, v;
         if (tri >= 0 && active &&
@@ -511,9 +453,6 @@ trace_packet_kernel(const float4* __restrict__ inner,
       }
       if (stack.sp == 0) break;
       ref = stack.pop();
-#if defined(HR_PACKET_SPECULATIVE)
-      fetch(ref, c0, c1, c2, c3);
-#endif
     }
   }
   if (i < 0) return;

@@ -6,11 +6,11 @@ traversal K2b (trace_pallas.py _traverse_kernel, trace_backend
 
 ``pack_bvh`` lays the binary BVH out twice. The plain versions read per
 node two float4 (min xyz + left child id bits, max xyz + right child id
-bits), the leaf triangle ids, and the triangle corners as (T, 9) floats
-(``pack_binary``'s layout). K2, K2c and K2b read one record per internal
-node holding both children's boxes and references (``inner_records``),
-and one row per leaf holding its triangle's v0, e1 = v1 - v0 and
-e2 = v2 - v0 (``leaf_rows``); see csrc/trace.cu.
+bits), the leaf triangle ids, and the triangle corners as (T, 9) floats.
+K2, K2c and K2b read one record per internal node holding both
+children's boxes and references (``inner_records``), and one row per
+leaf holding its triangle's v0, e1 = v1 - v0 and e2 = v2 - v0
+(``leaf_rows``); see csrc/trace.cu.
 ``intersect_any`` returns, per ray, the id of a triangle hit with
 tmin <= t <= tmax, or -1. ``intersect_closest`` returns (t, tri, u, v)
 of the nearest such hit, with t = +inf, tri = -1 and u = v = 0 on a miss.
@@ -90,14 +90,14 @@ class PackedBVH:
     tri_verts: Any   # (T, 9) f32 triangle corners
     n_internal: int
     depth: int       # of the deepest leaf; the root is at depth 0
-    # K2, K2c and K2b's records (None from ``pack_binary``): (n_internal, 16)
-    # f32, internal node i's children: left min xyz + ref bits, left max
-    # xyz + 0, right min xyz + ref bits, right max xyz + 0 (``child_ref``)
-    inner_records: Any = None
+    # K2, K2c and K2b's records: (n_internal, 16) f32, internal node i's
+    # children: left min xyz + ref bits, left max xyz + 0, right min xyz
+    # + ref bits, right max xyz + 0 (``child_ref``)
+    inner_records: Any
     # (n_internal + 1, 12) f32, leaf k's triangle: v0 xyz + id bits,
     # e1 = v1 - v0 xyz + 0, e2 = v2 - v0 xyz + 0
-    leaf_rows: Any = None
-    topology: "PackTopology | None" = None
+    leaf_rows: Any
+    topology: PackTopology
 
 
 def tree_depth(left, right) -> int:
@@ -122,59 +122,47 @@ def _bits(x):
     return x.to(torch.int32).view(torch.float32)
 
 
-def pack_binary(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
-    """The per-node layout of the binary tree ``bvh`` over triangles (v0,
-    v1, v2), which the plain versions read, built on their device
-    with no host sync but the depth walk. Raises if the tree is too deep
-    for the traversal's stack of ``stack`` entries (K2's 64, or K2b's
-    96): popping a node at depth k leaves at most k entries, and its two
-    children make k + 2, so a tree of depth D needs D + 1 entries in the
-    plain versions (the kernels, which keep the near child in a register,
-    need D). Within that bound no kernel nor plain version ever drops a
-    child. ``like``, a
-    packing of a tree of the same shape (a refit's), lends its depth: no
-    host walk."""
+def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
+    """The binary tree ``bvh`` over triangles (v0, v1, v2) in the
+    per-node layout the plain versions read and in the kernels' records,
+    built on their device with no host sync but the depth walk. Raises if
+    the tree is too deep for the traversal's stack of ``stack`` entries
+    (K2's 64, or K2b's 96): popping a node at depth k leaves at most k
+    entries, and its two children make k + 2, so a tree of depth D needs
+    D + 1 entries in the plain versions (the kernels, which keep the near
+    child in a register, need D). Within that bound no kernel nor plain
+    version ever drops a child. ``like``, a packing of a tree of the same
+    shape (a refit's), lends its depth and topology: no host walk, and
+    five device operations for the records."""
     depth = tree_depth(bvh.left, bvh.right) if like is None else like.depth
     _check_depth(depth, stack)
+    n = bvh.num_tris - 1
     nodes = torch.cat([bvh.node_min, _bits(bvh.left).unsqueeze(-1),
                        bvh.node_max, _bits(bvh.right).unsqueeze(-1)], dim=-1)
-    return PackedBVH(nodes=nodes, node_tri=bvh.tri.to(torch.int32).contiguous(),
-                     tri_verts=torch.cat([v0, v1, v2], -1),
-                     n_internal=bvh.num_tris - 1, depth=depth)
-
-
-def pack_records(packed: PackedBVH, like=None) -> PackedBVH:
-    """``packed`` (``pack_binary``'s layout) with the kernels' records
-    beside it, derived from it on its device with no host sync.
-    ``like``, a packing with records of a tree of the same shape (a
-    refit's), lends its topology: five device operations."""
-    n, nodes = packed.n_internal, packed.nodes
-    if like is None or like.topology is None:
+    node_tri = bvh.tri.to(torch.int32).contiguous()
+    tri_verts = torch.cat([v0, v1, v2], -1)
+    if like is None:
         kids = nodes[:n, [3, 7]].contiguous().view(torch.int32)
         node = torch.arange(2 * n + 1, device=nodes.device)
         topo = PackTopology(
             kids=kids.long(), refs=_bits(child_ref(node, n)).unsqueeze(-1),
             zero=nodes.new_zeros((2 * n + 1, 1)),
-            leaf_tri=torch.clamp(packed.node_tri[n:], min=0).long())
+            leaf_tri=torch.clamp(node_tri[n:], min=0).long())
     else:
         topo = like.topology
     # each child's box and reference, gathered into its parent's record
     inner = torch.cat([nodes[:, :3], topo.refs, nodes[:, 4:7], topo.zero],
                       dim=-1)[topo.kids]
     # leaf k's triangle: v0 and the id, e1 = v1 - v0, e2 = v2 - v0
-    corners = packed.tri_verts[topo.leaf_tri].view(-1, 3, 3)
+    corners = tri_verts[topo.leaf_tri].view(-1, 3, 3)
     edges = corners[:, 1:] - corners[:, :1]
     zero = topo.zero[:n + 1]
-    rows = torch.cat([corners[:, 0], _bits(packed.node_tri[n:]).unsqueeze(-1),
+    rows = torch.cat([corners[:, 0], _bits(node_tri[n:]).unsqueeze(-1),
                       edges[:, 0], zero, edges[:, 1], zero], dim=-1)
-    return dataclasses.replace(packed, inner_records=inner.view(n, 16),
-                               leaf_rows=rows, topology=topo)
-
-
-def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
-    """``pack_binary``'s layout and the kernels' records (``pack_records``),
-    with ``like`` lending depth and topology to both."""
-    return pack_records(pack_binary(bvh, v0, v1, v2, stack, like), like)
+    return PackedBVH(nodes=nodes, node_tri=node_tri, tri_verts=tri_verts,
+                     n_internal=n, depth=depth,
+                     inner_records=inner.view(n, 16), leaf_rows=rows,
+                     topology=topo)
 
 
 def child_ref(child, n_internal):
@@ -192,23 +180,14 @@ def _check_rays(bvh: PackedBVH, o, d, tmax, active, stack=STACK_DEPTH):
     native.check(bvh.nodes, "nodes", torch.float32, (2 * n + 1, 8), dev)
     native.check(bvh.node_tri, "node_tri", torch.int32, (2 * n + 1,), dev)
     native.check(bvh.tri_verts, "tri_verts", torch.float32, (None, 9), dev)
+    native.check(bvh.inner_records, "inner_records", torch.float32, (n, 16),
+                 dev)
+    native.check(bvh.leaf_rows, "leaf_rows", torch.float32, (n + 1, 12), dev)
     native.check(o, "o", torch.float32, (R, 3), dev)
     native.check(d, "d", torch.float32, (R, 3), dev)
     native.check(tmax, "tmax", torch.float32, (R,), dev)
     native.check(active, "active", torch.bool, (R,), dev)
     return R
-
-
-def _check_records(bvh: PackedBVH, dev):
-    """The kernels' records, which ``pack_bvh`` and ``pack_records`` build
-    and ``pack_binary`` does not."""
-    if bvh.inner_records is None:
-        raise ValueError("K2, K2c and K2b need the records of pack_bvh or "
-                         "pack_records; this BVH has pack_binary's only")
-    n = bvh.n_internal
-    native.check(bvh.inner_records, "inner_records", torch.float32, (n, 16),
-                 dev)
-    native.check(bvh.leaf_rows, "leaf_rows", torch.float32, (n + 1, 12), dev)
 
 
 def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active,
@@ -231,7 +210,6 @@ def intersect_any(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     if o.device.type != "cuda":
         raise ValueError(f"intersect_any: unsupported device {o.device}")
     R = _check_rays(bvh, o, d, tmax, active)
-    _check_records(bvh, o.device)
     out = torch.empty((R,), dtype=torch.int32, device=o.device)
     KERNEL.launch("hr_trace_any", native.ptr(bvh.inner_records),
                   native.ptr(bvh.leaf_rows), bvh.n_internal,
@@ -256,7 +234,6 @@ def intersect_closest(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     if o.device.type != "cuda":
         raise ValueError(f"intersect_closest: unsupported device {o.device}")
     R = _check_rays(bvh, o, d, tmax, active)
-    _check_records(bvh, o.device)
     t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
@@ -289,7 +266,6 @@ def intersect_packet(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     if o.device.type != "cuda":
         raise ValueError(f"intersect_packet: unsupported device {o.device}")
     R = _check_rays(bvh, o, d, tmax, active, PACKET_STACK_DEPTH)
-    _check_records(bvh, o.device)
     t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
