@@ -18,10 +18,14 @@ non-zero without printing a result):
    and its time on the heaviest tile alone), with the tolerance stated,
    timed with CUDA events beside the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time (library);
+   call's time (library); and the bilinear texture sampler (plain
+   PyTorch, no kernel) on one textured 1080p G-buffer's lookups against
+   the CPU, with its time;
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
-   cube_forward_64.png and cube_raytraced_128.png rendered on the card,
-   held to the goldens off triangle edges;
+   cube_forward_64.png, cube_raytraced_128.png, stress_textured_128.png,
+   cutout_hybrid_128.png and textured_gltf_96.png (tests/goldens/
+   textured_tri.glb through the loader) rendered on the card, held to
+   the goldens off triangle edges;
 5. renders, each of 8 frames on the stress scene (250 objects) at
    1920x1080 from bench.py's camera, with the launch count of every
    kernel it runs (counts set to 0 just before it) and a check that
@@ -42,7 +46,16 @@ non-zero without printing a result):
       trace_backend="pallas-wide" and wide_kernel="compressed" (K2w over
       the refit 8-wide tree) and with wide_kernel="mimt" (K2m);
    g. the ray-traced path (d) with wide_kernel "compressed" and "mimt":
-      K2w / K2m in both modes (primary rays and their sun occlusion).
+      K2w / K2m in both modes (primary rays and their sun occlusion);
+   h. textured and cut-out content: H-tex and F-tex, the headline (a)
+      and the full graph (b) on the stress scene with four 1024^2 colour
+      textures (bench.py's headline_tex1024_ms rung), each also as its
+      device ms and operations over (a) and (b); C, the cut-out scene on
+      the hybrid path from its golden's camera (K1 twice a frame, the
+      opaque and the cut-out layer; the shadow and AO rays' alpha rounds
+      through K2c); RC, the cut-out scene on the ray-traced path (the
+      primary rays' alpha re-traces and their sun occlusion through
+      K2c).
    variance_blur is checked in phase 3 but launched by no path: its
    output feeds nothing (ops/svgf.py).
 
@@ -90,6 +103,23 @@ FORWARD_GOLDEN_OFF_EDGE_MAX = 16
 FORWARD_GOLDEN_P99_MAX = 2
 # the ray-traced path's flags, as its golden (tests/test_golden_ladder.py)
 RAYTRACED_FLAGS = ("LIGHT", "IBL", "EMISSIVE", "TAA")
+# the textured headline (bench.py's headline_tex1024_ms rung): the stress
+# scene with its four procedural colour textures at 1024^2
+TEX_SIZE = 1024
+# tests/test_golden_ladder.py: the textured golden's camera and the cut-out
+# golden's, which the cut-out paths C and RC take at 1080p too
+STRESS_GOLDEN_CAM = dict(distance=18.0, pitch=0.5, yaw=0.8,
+                         focal_point=(0, 2.0, 0))
+CUTOUT_CAM = dict(distance=9.0, pitch=0.35, yaw=0.4, focal_point=(0, 1.2, 0))
+GLTF_CAM = dict(distance=4.0, pitch=0.3, yaw=0.2)
+# the textured and cut-out goldens' gates: the reference's own jit-vs-eager
+# reading on each (79 / 17 and 24 / 6, tests/torch_gate_reading.py) plus
+# 4 / 2; tests/test_torch_textured_frames.py holds the same
+TEXTURED_GOLDEN_GATE = (83, 19.0)
+CUTOUT_GOLDEN_GATE = (28, 8.0)
+# the bilinear sampler on the card against the CPU: PyTorch's elementwise
+# kernels may contract a multiply-add on the card (tests/test_torch_cuda.py)
+SAMPLER_TOL = 1e-6
 # the least time the card could take: bytes over the HBM rate, float32
 # operations over the rate outside the tensor cores (NVIDIA's H100 SXM
 # data sheet, at its 700 W limit)
@@ -161,8 +191,10 @@ def phase_build():
     native.kernel_library()
     t1 = time.perf_counter()
     native.bvh_library()
+    native.obj_library()
     t2 = time.perf_counter()
-    log(f"[build] kernels {t1 - t0:.1f} s, bvh {t2 - t1:.1f} s")
+    log(f"[build] kernels {t1 - t0:.1f} s, bvh and OBJ tokenizer "
+        f"{t2 - t1:.1f} s")
     with open(native.kernel_library_path() + ".log") as f:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1089,6 +1121,63 @@ def check_stencils(dev):
     return out
 
 
+def _textured_headline():
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    return scenes.stress_scene(num_objects=HEADLINE["objects"],
+                               textured=True, tex_size=TEX_SIZE)
+
+
+def check_sampler(dev):
+    """The bilinear texture sampler at 1920x1080: the colour-slot lookups
+    of one H-tex G-buffer (uv and colour texture ids from K1's attribute
+    image over the textured headline scene), on the card against the CPU
+    on the same inputs. The sampler is plain PyTorch on the card (the
+    reference's is jnp gathers, no TPU kernel), so no kernel stands
+    beside it; its time is what one sample site costs. Bound: the bytes
+    the lookups need (uv and id read, RGBA written, and each distinct
+    texel of the four taps read once)."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+    from hybridrenderer_tpu_torch.ops import texture
+    from hybridrenderer_tpu_torch.scene.schema import TextureStack
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _textured_headline().build(dev)
+    rec, bbox, valid = rc.pack_candidates(_clipped(data, W, H, HEADLINE_CAM))
+    ts, ec = rc.bin_candidates(bbox, valid, W, H)
+    vis, a = rc.raster_tiles(rec, ts, ec, data.raster_rows, W, H)
+    uv = a[..., 13:15].contiguous()
+    tid = torch.where(vis.tri_id >= 0, a[..., 26].to(torch.int32), -1)
+    ones = (1.0, 1.0, 1.0, 1.0)
+    card = texture.sample_stack(data.textures, tid, uv, ones)
+    cpu_stack = TextureStack(data=data.textures.data.cpu(),
+                             sizes=data.textures.sizes.cpu())
+    cpu = texture.sample_stack(cpu_stack, tid.cpu(), uv.cpu(), ones)
+    err = (card.cpu() - cpu).abs().max().item()
+    ms = cuda_time(lambda: texture.sample_stack(data.textures, tid, uv,
+                                                ones), 20)
+    # the distinct texels the four taps read
+    sizes = data.textures.sizes.float()[tid.clamp(min=0).long()]
+    N, TH, TW, _ = data.textures.data.shape
+    x0 = torch.floor(uv[..., 0] * sizes[..., 1] - 0.5)
+    y0 = torch.floor(uv[..., 1] * sizes[..., 0] - 0.5)
+    w, h = sizes[..., 1].int(), sizes[..., 0].int()
+    taps = [((tid.clamp(min=0).long() * TH + torch.remainder(
+        (y0 + dy).int(), h)) * TW + torch.remainder((x0 + dx).int(), w))[
+        tid >= 0] for dy in (0, 1) for dx in (0, 1)]
+    texels = torch.unique(torch.cat(taps)).numel()
+    b = bound(nbytes(uv, tid, card) + 16 * texels, 20.0 * H * W)
+    log(f"[sampler] bilinear sample_stack, {W}x{H} H-tex colour lookups "
+        f"({int((tid >= 0).sum())} textured pixels, {texels} distinct "
+        f"texels of a {N}x{TH}x{TW} f32 stack): card vs CPU max abs err "
+        f"{err:.3g} (tolerance {SAMPLER_TOL}); {ms:.4f} ms on the card, "
+        f"bound {b[0]:.4f} ms ({b[1]}); {nvidia_smi_line()}")
+    if err > SAMPLER_TOL:
+        raise AssertionError(f"sampler card vs CPU max err {err}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4-5: renders
 # ---------------------------------------------------------------------------
@@ -1146,6 +1235,9 @@ def _golden(dev, name, settings, scene_fn, cam_kw, frames, taa, gates):
 def phase_golden(dev):
     from hybridrenderer_tpu_torch.core.types import RenderFlags
     from hybridrenderer_tpu_torch.scene import scene as scenes
+    from hybridrenderer_tpu_torch.scene.loader import load_scene_file
+
+    glb = os.path.join(ROOT, "tests", "goldens", "textured_tri.glb")
 
     ok = [
         _golden(dev, "cube_hybrid_128", _hybrid_settings(128, 128, ao_block=8),
@@ -1161,6 +1253,18 @@ def phase_golden(dev):
                 (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
         _golden(dev, "cube_raytraced_128", _raytraced_settings(128, 128),
                 scenes.cube_scene, GOLDEN_CAM, 2, True,
+                (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
+        _golden(dev, "stress_textured_128",
+                _hybrid_settings(128, 128, ao_block=8, gi_block=8),
+                lambda: scenes.stress_scene(num_objects=24, textured=True),
+                STRESS_GOLDEN_CAM, 2, False, TEXTURED_GOLDEN_GATE),
+        _golden(dev, "cutout_hybrid_128",
+                _hybrid_settings(128, 128, ao_block=8, gi_block=8),
+                scenes.cutout_scene, CUTOUT_CAM, 2, False,
+                CUTOUT_GOLDEN_GATE),
+        # the loader on the card's machine (no PIL there: the PNG reader)
+        _golden(dev, "textured_gltf_96", _forward_settings(96, 96, taa=False),
+                lambda: load_scene_file(glb), GLTF_CAM, 1, False,
                 (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
     ]
     if not all(ok):
@@ -1223,13 +1327,14 @@ def frame_breakdown(name, r, cam, update=None):
     busy = sum(dev_ms(e) for e in events)
     if busy <= 0.0:
         log(f"[{name}] profiler: no device time recorded; not measured")
-        return
+        return None
     ops = sum(e.count for e in events)
     top = sorted(events, key=dev_ms, reverse=True)[:8]
     log(f"[{name}] profiled frame: device busy {busy:.3f} ms of "
         f"{wall:.3f} ms wall (share {busy / wall:.3f}), {ops} device "
         f"operations; top: " + "; ".join(
             f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
+    return busy, ops
 
 
 def rot_y(a):
@@ -1240,14 +1345,18 @@ def rot_y(a):
 
 
 def phase_render(dev, out_dir, name, settings, kernels, absent=(),
-                 dynamic=False):
+                 dynamic=False, host_fn=None, cam_kw=HEADLINE_CAM,
+                 per_frame=None):
     """8 frames at 1920x1080 with the counts set to 0 just before and read
-    just after; ``kernels`` must each have launched, ``absent`` none.
-    ``dynamic``: bench.py's dynamic rung on a fresh scene: before frame
-    k, entity 0 turns to rot_y(0.05 k) and DynamicScene.commit() updates
-    the transforms and refits the tracer (timed apart, with a sync); the
-    camera stays (its TAA jitter steps), as in the rung. Returns the
-    launch counts."""
+    just after; ``kernels`` must each have launched, ``absent`` none, and
+    each kernel of ``per_frame`` exactly that many times a frame.
+    ``host_fn`` makes the host scene (default: the stress scene of 250
+    objects), seen from ``cam_kw``. ``dynamic``: bench.py's dynamic rung
+    on a fresh scene: before frame k, entity 0 turns to rot_y(0.05 k) and
+    DynamicScene.commit() updates the transforms and refits the tracer
+    (timed apart, with a sync); the camera stays (its TAA jitter steps),
+    as in the rung. Returns (the launch counts, the last frame, the
+    profiled frame's (device ms, device operations) or None)."""
     import torch
 
     from hybridrenderer_tpu_torch import native
@@ -1259,14 +1368,15 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
 
     W, H, F = settings.width, settings.height, HEADLINE["frames"]
-    host = scenes.stress_scene(num_objects=HEADLINE["objects"])
+    host = scenes.stress_scene(num_objects=HEADLINE["objects"]) \
+        if host_fn is None else host_fn()
     data = host.build(dev)
     t0 = time.perf_counter()
     r = Renderer.for_scene(settings, data)
     dyn = DynamicScene(host, r) if dynamic else None
     log(f"[{name}] {data.num_triangles} triangles; BVH build + renderer "
         f"{time.perf_counter() - t0:.2f} s")
-    cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    cam = OrbitCamera(width=W, height=H, **cam_kw)
     turn = [0]
 
     def update():
@@ -1304,6 +1414,8 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
         raise AssertionError(f"{name} frame black or empty: {stats}")
     missing = [k for k in kernels if not launches.get(k)]
     stray = [k for k in absent if launches.get(k)]
+    missing += [f"{k} {n} a frame" for k, n in (per_frame or {}).items()
+                if launches.get(k, 0) != n * F]
     if missing or stray:
         raise AssertionError(f"{name}: kernels of the path never launched: "
                              f"{missing}; other kernels launched: {stray} "
@@ -1327,8 +1439,8 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
         f"launches {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image {png}")
-    frame_breakdown(name, r, cam, update if dyn is not None else None)
-    return launches, img
+    prof = frame_breakdown(name, r, cam, update if dyn is not None else None)
+    return launches, img, prof
 
 
 def main(argv=None):
@@ -1381,8 +1493,14 @@ def main(argv=None):
             + (f" vs {lib:.4f} ms library" if lib is not None else "")
             + f"; bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) "
             f"at {res['shape']}{off}")
+    try:
+        check_sampler(dev)
+    except AssertionError as e:
+        log(f"[sampler] FAILED: {e}")
+        failures.append("sampler")
     phase_golden(dev)
     from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.scene import scene as scenes
 
     W, H = HEADLINE["width"], HEADLINE["height"]
     hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
@@ -1412,6 +1530,37 @@ def main(argv=None):
             dev, args.out, "dynamic", _hybrid_settings(W, H), hybrid,
             absent=["trace_wide", "trace_mimt"], dynamic=True),
     }
+    # textured and cut-out content: H-tex, F-tex (the headline and full
+    # graph on the textured scene), C and RC (the cut-out scene on the
+    # hybrid and ray-traced paths from its golden's camera: K1 twice a
+    # frame, and every shadow, AO and primary ray's alpha rounds through
+    # K2c, so no any-hit K2)
+    runs["headline_tex"] = phase_render(
+        dev, args.out, "headline_tex", _hybrid_settings(W, H), hybrid,
+        host_fn=_textured_headline, per_frame={"raster_tiles": 1})
+    runs["full_graph_tex"] = phase_render(
+        dev, args.out, "full_graph_tex", _hybrid_settings(
+            W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
+        hybrid + ["trace_closest"], host_fn=_textured_headline)
+    runs["cutout"] = phase_render(
+        dev, args.out, "cutout", _hybrid_settings(W, H),
+        ["raster_tiles", "trace_closest", "temporal_fetch", "filter_moments",
+         "atrous"], absent=["trace_any"], host_fn=scenes.cutout_scene,
+        cam_kw=CUTOUT_CAM, per_frame={"raster_tiles": 2})
+    runs["raytraced_cutout"] = phase_render(
+        dev, args.out, "raytraced_cutout", _raytraced_settings(W, H),
+        ["raster_tiles", "trace_closest", "window_sample"],
+        absent=["trace_any", "raster_vis", "trace_packet"],
+        host_fn=scenes.cutout_scene, cam_kw=CUTOUT_CAM,
+        per_frame={"raster_tiles": 1})
+    for tex, base in (("headline_tex", "headline"),
+                      ("full_graph_tex", "full_graph")):
+        a, b = runs[tex][2], runs[base][2]
+        if a is not None and b is not None:
+            log(f"[{tex}] texture sample sites over {base}: "
+                f"{a[0] - b[0]:+.3f} device ms ({a[0]:.3f} vs {b[0]:.3f}), "
+                f"{a[1] - b[1]:+d} device operations ({a[1]} vs {b[1]}) "
+                f"on {nvidia_smi_line()}")
     for kernel, k in (("trace_wide", "compressed"), ("trace_mimt", "mimt")):
         other = {"trace_wide": "trace_mimt", "trace_mimt": "trace_wide"}
         tag = {"trace_wide": "wide", "trace_mimt": "mimt"}[kernel]
@@ -1425,7 +1574,7 @@ def main(argv=None):
             _raytraced_settings(W, H, wide_kernel=k, **wide),
             ["raster_tiles", kernel, "window_sample"],
             absent=direct + [other[kernel]])
-    paths = {name: launches for name, (launches, _) in runs.items()}
+    paths = {name: launches for name, (launches, _, _) in runs.items()}
     # the wide kernels change no visibility and no closest t: the dynamic
     # and ray-traced frames equal the K2 / K2c paths' frames
     for base in ("dynamic", "raytraced"):

@@ -36,22 +36,24 @@ class FrameContext:
     trace_radiance: Optional[Callable] = None
 
 
-def _clip_scene(settings, sc, cam, jitter_on):
+def _clip_scene(settings, sc, cam, jitter_on, layers=(None,)):
     """Instance frustum cull, world → clip (jittered when ``jitter_on``),
-    near-plane clip and back-face cull → (ClippedTriangles, culled)."""
+    then near-plane clip and back-face cull of each layer: a triangle
+    mask (T,) bool, None for all triangles → (culled instances (N,),
+    [ClippedTriangles of the kept triangles of each layer])."""
     vp = cam.proj @ cam.view
     culled = maths.aabb_outside_frustum(
         sc.instances.aabb_min, sc.instances.aabb_max,
         maths.frustum_from_viewproj(vp))
-    tri_mask = ~culled[sc.triangles.instance.long()]
+    kept = ~culled[sc.triangles.instance.long()]
     jit2 = cam.jitter if jitter_on else None
     soup = sc.triangles
     corners = torch.stack([raster_ops.transform_to_clip(v, vp, jit2)
                            for v in (soup.v0, soup.v1, soup.v2)], dim=1)
     single = soup.single_sided if settings.raster_cull == "back" else None
-    return raster_ops.clip_triangles(corners, settings.width,
-                                     settings.height, tri_mask,
-                                     single), culled
+    return culled, [raster_ops.clip_triangles(
+        corners, settings.width, settings.height,
+        kept if layer is None else kept & layer, single) for layer in layers]
 
 
 def make_depth_prepass(settings):
@@ -62,7 +64,7 @@ def make_depth_prepass(settings):
     jitter_on = bool(settings.flags & RenderFlags.TAA)
 
     def fn(reg, ctx: FrameContext):
-        tris, _ = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on)
+        _, (tris,) = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on)
         vis, _ = raster_cuda.rasterize_binned(
             tris, settings.width, settings.height, None,
             vis_eval=settings.raster_eval)
@@ -74,17 +76,41 @@ def make_depth_prepass(settings):
 def make_gbuffer_pass(settings):
     """GBufferPass: instance frustum cull, clip, binned tile raster with
     the attribute ride-along (kernel K1), then the G-buffer planes. The
-    raster is jittered whenever TAA or SVGF is on."""
+    raster is jittered whenever TAA or SVGF is on.
+
+    A scene with alpha-tested (cut-out) materials is rastered in two
+    layers, as the reference does: K1 over the opaque triangles and K1
+    over the cut-out ones; a cut-out winner is kept where its texel
+    passes the alpha test and it lies in front of the opaque winner
+    (reversed-Z: larger depth). One cut-out layer: a transparent texel
+    in front of a second cut-out surface shows the opaque one behind."""
     jitter_on = bool(settings.flags & (RenderFlags.TAA | RenderFlags.SVGF))
 
     def fn(reg, ctx: FrameContext):
         sc, cam = ctx.scene, ctx.cam
+
+        def raster(tris):
+            return raster_cuda.rasterize_binned(
+                tris, settings.width, settings.height, sc.raster_rows)
+
         if sc.has_alpha_test:
-            raise NotImplementedError(
-                "the alpha-tested G-buffer layer is not ported yet")
-        tris, culled = _clip_scene(settings, sc, cam, jitter_on)
-        vis, attrs = raster_cuda.rasterize_binned(
-            tris, settings.width, settings.height, sc.raster_rows)
+            mat = sc.instances.material[sc.triangles.instance.long()].long()
+            tri_cut = (sc.materials.alpha_mode[mat] == 1) \
+                & (sc.materials.colour_texture[mat] >= 0)
+            culled, (opaque, cutout) = _clip_scene(
+                settings, sc, cam, jitter_on, (~tri_cut, tri_cut))
+            vis_op, attrs_op = raster(opaque)
+            vis_cut, attrs_cut = raster(cutout)
+            keep = (vis_cut.tri_id >= 0) \
+                & gbuffer_ops.cutout_alpha_pass(sc, attrs_cut) \
+                & (vis_cut.depth > vis_op.depth)
+            vis = raster_ops.VisibilityBuffer(**{
+                f: torch.where(keep, getattr(vis_cut, f), getattr(vis_op, f))
+                for f in ("tri_id", "bary1", "bary2", "depth")})
+            attrs = torch.where(keep.unsqueeze(-1), attrs_cut, attrs_op)
+        else:
+            culled, (tris,) = _clip_scene(settings, sc, cam, jitter_on)
+            vis, attrs = raster(tris)
         gb = gbuffer_ops.build_gbuffer(vis, sc, cam, attrs)
         drawn = (~culled).sum()
         covered = (vis.tri_id >= 0).sum()
@@ -232,8 +258,10 @@ def make_forward_pass(settings):
 
         if flags & RenderFlags.IBL:
             r = maths.reflect(-v, n)
-            env_spec = sky.sample_environment(r, True, sc.has_sky_texture)
-            env_diff = sky.sample_environment(n, True, sc.has_sky_texture)
+            env_spec = sky.sample_environment(r, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
+            env_diff = sky.sample_environment(n, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
             f0 = maths.mix(torch.full_like(gb.albedo, 0.04), gb.albedo,
                            metal.unsqueeze(-1))
             f = shade.fresnel_schlick(f0, n, v)
@@ -258,11 +286,28 @@ def make_forward_pass(settings):
             color = gb.depth.unsqueeze(-1).expand(H, W, 3)
 
         sky_rgb = sky.sample_environment(
-            comp_ops.view_directions(cam, H, W, dev),
-            bool(flags & RenderFlags.IBL), sc.has_sky_texture)
+            comp_ops.view_directions(cam, H, W, dev), sc.sky_texture,
+            sc.textures, bool(flags & RenderFlags.IBL), sc.has_sky_texture)
         return {RS.FINAL_COLOR: torch.where(bg.unsqueeze(-1), sky_rgb, color)}
 
     return fn, ("_GBuffer",), (RS.FINAL_COLOR,), {}
+
+
+def make_skybox_pass(settings):
+    """SkyboxPass: a fullscreen sky written into FinalColor, directions
+    taken at the far plane; a demo pass no default path runs. With no
+    sky texture it draws the procedural sky, as the reference does."""
+
+    def fn(reg, ctx: FrameContext):
+        H, W = settings.height, settings.width
+        sc = ctx.scene
+        rgb = sky.sample_environment(
+            comp_ops.view_directions(ctx.cam, H, W, ctx.cam.position.device),
+            sc.sky_texture, sc.textures,
+            bool(settings.flags & RenderFlags.IBL), sc.has_sky_texture)
+        return {RS.FINAL_COLOR: rgb}
+
+    return fn, (), (RS.FINAL_COLOR,), {}
 
 
 def make_taa_pass(settings, use_gbuffer: bool = True):

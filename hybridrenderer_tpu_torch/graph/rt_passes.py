@@ -187,9 +187,11 @@ def make_primary_rt_pass(settings):
         direction = comp_ops.view_directions(cam, H, W, dev)
         origin = cam.position.expand(H, W, 3)
         if ctx.trace_radiance is None:
+            sc = ctx.scene
             rgb = sky.sample_environment(
-                direction, bool(settings.flags & RenderFlags.IBL),
-                has_sky=ctx.scene.has_sky_texture)
+                direction, sc.sky_texture, sc.textures,
+                bool(settings.flags & RenderFlags.IBL),
+                has_sky=sc.has_sky_texture)
             return {RS.FINAL_COLOR: rgb,
                     RS.MOTION: torch.zeros((H, W, 4), device=dev)}
         rgb, dist = ctx.trace_radiance(origin, direction, ctx, 0)
@@ -278,8 +280,10 @@ def make_rayquery_pass(settings):
             * shadow.unsqueeze(-1) * intensity
         if sc.has_sky_texture:
             r = maths.reflect(-v, n)
-            env_spec = sky.sample_environment(r, True, sc.has_sky_texture)
-            env_diff = sky.sample_environment(n, True, sc.has_sky_texture)
+            env_spec = sky.sample_environment(r, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
+            env_diff = sky.sample_environment(n, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
             f0 = maths.mix(torch.full_like(gb.albedo, 0.04), gb.albedo,
                            metal.unsqueeze(-1))
             f = shade.fresnel_schlick(f0, n, v)

@@ -1,10 +1,12 @@
 """Build and load the port's native code, and count kernel launches.
 
-Two shared libraries are compiled at first use, from sources in the
+Three shared libraries are compiled at first use, from sources in the
 repository only, into ``build/`` at the repository root:
 
 * the BVH builder, ``native/bvh_builder.cpp`` (the same C++ the JAX
   package loads), with ``g++``;
+* the OBJ tokenizer, ``native/obj_loader.cpp`` (the JAX package's too),
+  with ``g++``;
 * the CUDA kernels, ``hybridrenderer_tpu_torch/csrc/*.cu``, with
   ``nvcc`` for ``sm_90a`` into one library with a plain C interface.
 
@@ -35,6 +37,7 @@ REPO_ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
 
 BVH_SOURCE = os.path.join(REPO_ROOT, "native", "bvh_builder.cpp")
+OBJ_SOURCE = os.path.join(REPO_ROOT, "native", "obj_loader.cpp")
 # native/Makefile builds with -march=native, where g++ contracts the SAH
 # cost's multiply-adds into FMAs; x86-64-v3 has FMA too, so the tree is
 # identical to the JAX package's, and the library runs on any x86-64 host
@@ -81,18 +84,34 @@ def _build(out_path, cmd_for):
 @functools.cache
 def bvh_library() -> ctypes.CDLL:
     """The native BVH builder, compiled with g++ at first use."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the BVH builder cannot be built")
-    path = os.path.join(
-        BUILD_DIR, f"libhr_bvh-{_digest([BVH_SOURCE], BVH_FLAGS)}.so")
-    _build(path, lambda out: [cxx, *BVH_FLAGS, "-o", out, BVH_SOURCE])
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(_host_library(BVH_SOURCE, "libhr_bvh"))
     fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
     lib.hrtpu_build_sah.argtypes = [fp, fp, fp, ctypes.c_int64, fp, fp,
                                     ip, ip, ip]
     lib.hrtpu_build_sah.restype = ctypes.c_int
     return lib
+
+
+def _gxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native code cannot be built")
+    return cxx
+
+
+def _host_library(source, stem) -> str:
+    """``source`` compiled with g++ into build/, at first use."""
+    path = os.path.join(BUILD_DIR,
+                        f"{stem}-{_digest([source], BVH_FLAGS)}.so")
+    cxx = _gxx()
+    return _build(path, lambda out: [cxx, *BVH_FLAGS, "-o", out, source])
+
+
+@functools.cache
+def obj_library() -> ctypes.CDLL:
+    """The native OBJ tokenizer, compiled with g++ at first use; its
+    entry points are declared by scene/loader_native.py."""
+    return ctypes.CDLL(_host_library(OBJ_SOURCE, "libhr_obj"))
 
 
 def nvcc_path() -> str:

@@ -39,7 +39,7 @@ def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
     bg = gb.background
 
     sky_rgb = sky.sample_environment(
-        view_directions(cam, H, W, dev),
+        view_directions(cam, H, W, dev), scene.sky_texture, scene.textures,
         ibl_enabled=bool(flags & RenderFlags.IBL),
         has_sky=scene.has_sky_texture)
 

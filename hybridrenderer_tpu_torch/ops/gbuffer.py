@@ -15,7 +15,7 @@ from typing import Any
 import torch
 
 from ..core import maths
-from . import shade
+from . import shade, texture
 
 
 @dataclasses.dataclass
@@ -57,6 +57,16 @@ def screen_gradients(img):
     return dx, dy
 
 
+def cutout_alpha_pass(scene, a):
+    """The alpha test of the cut-out raster layer's winners, deferred:
+    True where the pixel's texel alpha reaches its material's cutoff.
+    ``a`` is that layer's (H, W, 40) attribute image: uv at 13:15, the
+    packed material row at 16:32 (colour texture at 26, cutoff at 31)."""
+    rgba = texture.sample_stack(scene.textures, a[..., 26].to(torch.int32),
+                                a[..., 13:15], (1.0, 1.0, 1.0, 1.0))
+    return rgba[..., 3] >= a[..., 31]
+
+
 def build_gbuffer(vis, scene, cam, a) -> GBuffer:
     """Visibility buffer + the (H, W, 40) interpolated attribute image
     (channel layout: scene raster_rows lerped vertex pack, then its
@@ -70,7 +80,14 @@ def build_gbuffer(vis, scene, cam, a) -> GBuffer:
     mrow = a[..., 16:32]
     inst_id = a[..., 33].to(torch.int32)
     mp = shade.material_point_from_row(mrow, uv, scene.textures)
-    shading_n = shade.apply_normal_map(world_n, scene.textures)
+    if shade.uses_normal_map(scene.textures):
+        world_t = torch.cat([maths.normalize(a[..., 9:12]), a[..., 12:13]],
+                            dim=-1)
+        shading_n = shade.apply_normal_map(
+            scene.materials, a[..., 32].to(torch.int32), world_n, world_t,
+            uv, scene.textures, nrm_tex_id=mrow[..., 13].to(torch.int32))
+    else:
+        shading_n = maths.normalize(world_n)
 
     # motion vectors from the unjittered current and previous clip pos
     vp = cam.proj @ cam.view

@@ -113,18 +113,33 @@ def pack_materials(materials):
 
 
 def material_point_from_row(row, uv, textures) -> MaterialPoint:
-    """Surface point from a packed (..., 16) material row; bound
-    textures raise (ops/texture.py)."""
+    """Surface point from a packed (..., 16) material row: the colour and
+    opacity, emission and roughness / metallic (channels 1 and 2) slots
+    modulated by their textures. A slot no material binds
+    (``textures.slot_usage``) is not sampled; sampling it would multiply
+    by the default 1.0, which changes no bit."""
     colour = row[..., 0:3]
     opacity = row[..., 3]
     emission = row[..., 4:7]
     roughness = row[..., 7]
     metallic = row[..., 8]
+    used = textures.slot_usage
     if tex_ops.has_textures(textures):
-        albedo = tex_ops.sample_stack(textures, row[..., 10].to(torch.int32),
-                                      uv, (1.0, 1.0, 1.0, 1.0))
-        colour = colour * albedo[..., :3]
-        opacity = opacity * albedo[..., 3]
+        ones = (1.0, 1.0, 1.0, 1.0)
+        if used[0]:
+            albedo = tex_ops.sample_stack(
+                textures, row[..., 10].to(torch.int32), uv, ones)
+            colour = colour * albedo[..., :3]
+            opacity = opacity * albedo[..., 3]
+        if used[1]:
+            em = tex_ops.sample_stack(
+                textures, row[..., 11].to(torch.int32), uv, ones)
+            emission = emission * em[..., :3]
+        if used[2]:
+            mr = tex_ops.sample_stack(
+                textures, row[..., 12].to(torch.int32), uv, ones)
+            roughness = roughness * mr[..., 1]
+            metallic = metallic * mr[..., 2]
     r2 = roughness * roughness
     r2 = torch.where(r2 < MIN_ROUGHNESS, torch.zeros_like(r2), r2)
     return MaterialPoint(colour=colour, emission=emission, roughness=r2,
@@ -132,8 +147,34 @@ def material_point_from_row(row, uv, textures) -> MaterialPoint:
                          material_type=row[..., 9].to(torch.int32))
 
 
-def apply_normal_map(shading_normal, textures):
-    """CalculateNormal without a normal texture: the normalized normal."""
-    if tex_ops.has_textures(textures):
-        raise NotImplementedError("normal mapping is not ported yet")
-    return maths.normalize(shading_normal)
+def uses_normal_map(textures) -> bool:
+    """Whether any material binds a normal texture; without one the
+    tangent frame is never read, so callers skip building it."""
+    return tex_ops.has_textures(textures) and textures.slot_usage[3]
+
+
+def apply_normal_map(materials, mat_id, shading_normal, tangent, uv,
+                     textures, nrm_tex_id=None):
+    """CalculateNormal: the normal map's texel, in [0, 1] per channel,
+    taken to [-1, 1] and through the TBN frame of ``shading_normal`` and
+    ``tangent`` (..., 4) (w is the bitangent's sign, 1 where |w| <
+    0.001). The normalized normal where the material binds no normal
+    texture or the tangent is shorter than 0.001. ``nrm_tex_id`` is the
+    normal texture id when already fetched (the material row's column
+    13), else it is looked up by ``mat_id``."""
+    if not uses_normal_map(textures):
+        return maths.normalize(shading_normal)
+    if nrm_tex_id is None:
+        nrm_tex_id = materials.normal_texture[mat_id.long()]
+    n = maths.normalize(shading_normal)
+    t = maths.normalize(tangent[..., :3])
+    t_len = maths.length(tangent[..., :3])
+    w = tangent[..., 3]
+    sign = torch.where(torch.abs(w) < 0.001, torch.ones_like(w), w)
+    b = maths.cross(n, t) * sign.unsqueeze(-1)
+    nm = tex_ops.sample_stack(textures, nrm_tex_id, uv,
+                              (0.5, 0.5, 1.0, 1.0))[..., :3] * 2.0 - 1.0
+    mapped = maths.normalize(t * nm[..., 0:1] + b * nm[..., 1:2]
+                             + n * nm[..., 2:3])
+    use = ((nrm_tex_id >= 0) & (t_len >= 0.001)).unsqueeze(-1)
+    return torch.where(use, mapped, n)

@@ -2,7 +2,9 @@
 ``SceneTracer.build``, the visibility queries (``shadow_query`` over
 images, ``occluded`` over flat rays) through the any-hit traversal K2,
 and ``trace_radiance``, the closest-hit traversal K2c with hit shading
-(closesthit.rchit) and the sky on a miss (miss.rmiss). With
+(closesthit.rchit) and the sky on a miss (miss.rmiss). In a scene with
+alpha-tested (cut-out) materials every query skips transparent texels
+in up to ``ALPHA_ROUNDS`` closest-hit rounds through K2c. With
 ``trace_backend="pallas"`` all three go through the packet traversal
 K2b instead; with ``trace_backend="pallas-wide"`` and ``wide_kernel``
 "compressed" or "mimt", through the wide-BVH traversal K2w or K2m.
@@ -25,7 +27,7 @@ import torch
 
 from ..core import maths
 from ..core.types import RenderFlags
-from . import sampling, shade, sky
+from . import sampling, shade, sky, texture
 from .bvh import build_sah, refit_bvh, refit_levels
 from .bvh_wide import build_wide, refit_wide
 from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
@@ -48,6 +50,8 @@ WIDE_TILE = 32          # K2w / K2m: a 1024-ray packet is a 32x32 tile
 # trace_pallas.VMEM_SCENE_BUDGET: above it the reference traces bf16
 # records (bvh_wide.quantize_bf16), which change the image
 VMEM_SCENE_BUDGET = 96 * 1024 * 1024
+ALPHA_ROUNDS = 4        # transparency continuations through cut-out layers
+ALPHA_STEP = 1e-3       # how far past a transparent hit a round restarts
 
 
 def tile_major(H, W, device, tile=WIDE_TILE):
@@ -97,6 +101,9 @@ class SceneTracer:
     shade_rows: Any
     # trace_backend "pallas": every query through the packet kernel K2b
     packet: bool = False
+    # the scene's TextureStack when it has alpha-tested (cut-out)
+    # materials: every query then skips their transparent texels
+    cutout: Any = None
     # the binary SAH tree, and its refit order (bvh.refit_levels), taken
     # on the first refit
     bvh: Any = None
@@ -110,14 +117,9 @@ class SceneTracer:
     def build(scene_data, settings=None) -> "SceneTracer":
         """Binned-SAH BVH over the scene's triangle soup, on the scene's
         device, for the traversal ``settings.trace_backend`` and
-        ``settings.wide_kernel`` pick. Alpha-tested scenes need
-        closest-hit rounds over cut-out texels, which are not ported
-        yet; nor are the reference's bf16 wide records, which it traces
-        when the f32 records exceed its 96 MiB budget: the wide kernels
-        raise above it."""
-        if scene_data.has_alpha_test:
-            raise NotImplementedError(
-                "alpha-tested (cut-out) occlusion is not ported yet")
+        ``settings.wide_kernel`` pick. The reference's bf16 wide records,
+        which it traces when the f32 records exceed its 96 MiB budget,
+        are not ported: the wide kernels raise above it."""
         packet = settings is not None and settings.trace_backend == "pallas"
         kernel = wide_kernel_of(settings)
         soup = scene_data.triangles
@@ -136,7 +138,8 @@ class SceneTracer:
             check_wide_stacks(wide, kernel == "mimt")
         return SceneTracer(packed=packed, shade_rows=_shade_rows(scene_data),
                            packet=packet, bvh=bvh, wide_kernel=kernel,
-                           wide=wide)
+                           wide=wide, cutout=scene_data.textures
+                           if scene_data.has_alpha_test else None)
 
     def refit(self, scene_data) -> "SceneTracer":
         """The tracer after a dynamic update moved triangles (the
@@ -222,20 +225,63 @@ class SceneTracer:
                                         active)
         lead = world_pos.shape[:2]
         _, pos, (o, d, t, act) = self._packet_order(lead, o, d, t, act)
-        vis = torch.where(self._any(o, d, TMIN, t, act, lead[1]) >= 0, 0.0,
-                          1.0)
-        return _pixel_order(pos, vis, lead)
+        if self.cutout is not None:
+            occ = self._occluded_alpha(o, d, TMIN, t, act, lead[1])
+        else:
+            occ = self._any(o, d, TMIN, t, act, lead[1]) >= 0
+        return _pixel_order(pos, torch.where(occ, 0.0, 1.0), lead)
 
     def occluded(self, origin, direction, tmax: float, active, width=0):
         """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
         1.0 unoccluded, 0.0 occluded or inactive. ``width`` > 0: the rays
-        are images of that many columns, in pixel order."""
+        are images of that many columns, in pixel order. In a cut-out
+        scene inactive rays report 1.0, as the reference's alpha rounds
+        do; every caller masks them."""
         R = origin.shape[0]
         t = torch.full((R,), float(tmax), dtype=torch.float32,
                        device=origin.device)
-        tri = self._any(origin.contiguous(), direction.contiguous(),
-                        OCCLUSION_TMIN, t, active.contiguous(), width)
+        o, d, act = (x.contiguous() for x in (origin, direction, active))
+        if self.cutout is not None:
+            occ = self._occluded_alpha(o, d, OCCLUSION_TMIN, t, act, width)
+            return torch.where(occ, 0.0, 1.0)
+        tri = self._any(o, d, OCCLUSION_TMIN, t, act, width)
         return torch.where(active & (tri < 0), 1.0, 0.0)
+
+    def surface_alpha(self, tri, u, v):
+        """(is an alpha-tested material, texel alpha, cutoff) at hits:
+        the uv and the material row's colour texture (column 10), alpha
+        mode (14) and cutoff (15) from the hit-shading rows."""
+        safe = torch.clamp(tri, 0, self.shade_rows.shape[0] - 1).long()
+        row = self.shade_rows[safe]
+        b1, b2 = u.unsqueeze(-1), v.unsqueeze(-1)
+        uv = row[:, 7:9] * (1.0 - b1 - b2) + row[:, 16:18] * b1 \
+            + row[:, 25:27] * b2
+        tex = row[:, 47].to(torch.int32)
+        is_mask = (row[:, 51].to(torch.int32) == 1) & (tex >= 0)
+        rgba = texture.sample_stack(self.cutout, tex, uv,
+                                    (1.0, 1.0, 1.0, 1.0))
+        return is_mask, rgba[:, 3], row[:, 52]
+
+    def _occluded_alpha(self, o, d, tmin, tmax, active, width=0):
+        """Occlusion that skips transparent cut-out texels: up to
+        ALPHA_ROUNDS closest-hit rounds (closest, not any, hits: advancing
+        past an arbitrary hit could jump over a nearer opaque one); a
+        transparent hit restarts its ray ALPHA_STEP past it with what is
+        left of its tmax. Inactive rays take part in no round → (R,)
+        bool, True where an opaque texel blocks the ray."""
+        occluded = torch.zeros_like(active)
+        live = active
+        for _ in range(ALPHA_ROUNDS):
+            t, tri, u, v = self._closest(o, d, tmin, tmax, live, width)
+            hit = live & (tri >= 0)
+            is_mask, alpha, cutoff = self.surface_alpha(tri, u, v)
+            transparent = hit & is_mask & (alpha < cutoff)
+            occluded = occluded | (hit & ~transparent)
+            live = transparent
+            step = torch.where(live, t + ALPHA_STEP, torch.zeros_like(t))
+            o = (o + d * step.unsqueeze(-1)).contiguous()
+            tmax = torch.clamp(tmax - step, min=0.0)
+        return occluded
 
     def radiance_rays(self, origin, direction, active=None):
         """The rays of ``trace_radiance`` as ``intersect_closest`` takes
@@ -264,10 +310,31 @@ class SceneTracer:
         width = lead[1] if len(lead) == 2 else 0
         t, tri, u, v = self._closest(o, d, RADIANCE_TMIN, tmax, act, width)
         hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
+        if self.cutout is not None:
+            # transparent cut-out texels are skipped: up to
+            # ALPHA_ROUNDS - 1 re-traces past them, the hit distance kept
+            # from the original origin
+            o_adv, t_off = o, torch.zeros_like(t)
+            for _ in range(ALPHA_ROUNDS - 1):
+                is_mask, alpha, cutoff = self.surface_alpha(tri, u, v)
+                transparent = hit & is_mask & (alpha < cutoff)
+                step = torch.where(transparent, t + ALPHA_STEP,
+                                   torch.zeros_like(t))
+                o_adv = (o_adv + d * step.unsqueeze(-1)).contiguous()
+                t_off = t_off + step
+                t2, tri2, u2, v2 = self._closest(o_adv, d, RADIANCE_TMIN,
+                                                 tmax, transparent, width)
+                t = torch.where(transparent, t2, t)
+                tri = torch.where(transparent, tri2, tri)
+                u = torch.where(transparent, u2, u)
+                v = torch.where(transparent, v2, v)
+                hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
+            t = t + t_off
         rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, fwd,
                                   width)
         rgb_miss = sky.sample_environment(
-            d, bool(ctx.settings.flags & RenderFlags.IBL),
+            d, scene.sky_texture, scene.textures,
+            bool(ctx.settings.flags & RenderFlags.IBL),
             has_sky=scene.has_sky_texture)
         rgb = torch.where(hit.unsqueeze(-1), rgb_hit, rgb_miss)
         dist = torch.where(hit, t, torch.full_like(t, -1.0))
@@ -293,17 +360,28 @@ class SceneTracer:
         row = self.shade_rows[safe]
         lerp = row[:, 0:9] * b0 + row[:, 9:18] * b1 + row[:, 18:27] * b2
         ln = lerp[:, 0:3]
+        lt = lerp[:, 3:7]
         uv = lerp[:, 7:9]
         nmat = row[:, 27:36]
         mrow = row[:, 37:53]
-        geo_n = maths.normalize(torch.stack(
-            [maths.dot(nmat[:, 3 * i:3 * i + 3], ln) for i in range(3)],
-            dim=-1))
+
+        def to_world(x):
+            return torch.stack([maths.dot(nmat[:, 3 * i:3 * i + 3], x)
+                                for i in range(3)], dim=-1)
+
+        geo_n = maths.normalize(to_world(ln))
         # face the ray (closesthit.rchit:56)
         flip = maths.dot(geo_n, d, keepdim=True) > 0.0
         geo_n = torch.where(flip, -geo_n, geo_n)
         mp = shade.material_point_from_row(mrow, uv, sc.textures)
-        n = shade.apply_normal_map(geo_n, sc.textures)
+        if shade.uses_normal_map(sc.textures):
+            wt = torch.cat([maths.normalize(to_world(lt[:, :3])),
+                            lt[:, 3:4]], dim=-1)
+            n = shade.apply_normal_map(sc.materials, row[:, 36], geo_n, wt,
+                                       uv, sc.textures,
+                                       nrm_tex_id=mrow[:, 13].to(torch.int32))
+        else:
+            n = maths.normalize(geo_n)
 
         view = -d
         light_on = bool(flags & RenderFlags.LIGHT)
@@ -360,8 +438,10 @@ class SceneTracer:
         ambient = torch.zeros_like(direct)
         if flags & RenderFlags.IBL:
             r = maths.reflect(d, n)
-            env_spec = sky.sample_environment(r, True, sc.has_sky_texture)
-            env_diff = sky.sample_environment(n, True, sc.has_sky_texture)
+            env_spec = sky.sample_environment(r, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
+            env_diff = sky.sample_environment(n, sc.sky_texture, sc.textures,
+                                              True, sc.has_sky_texture)
             metal = mp.metallic.unsqueeze(-1)
             f0 = maths.mix(torch.full_like(mp.colour, 0.04), mp.colour, metal)
             f = shade.fresnel_schlick(f0, n, view)

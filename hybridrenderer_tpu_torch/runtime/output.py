@@ -43,11 +43,19 @@ def write_png(path: str, img) -> str:
     return path
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
 def read_png(path: str) -> np.ndarray:
     """Minimal PNG reader (8-bit, non-interlaced, RGB/RGBA/gray)."""
     with open(path, "rb") as f:
-        data = f.read()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+        return decode_png(f.read())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file's bytes → (H, W, channels) u8; ``read_png``'s limits."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG")
     pos = 8
     idat = b""
     w = h = bit_depth = color_type = None
@@ -57,12 +65,17 @@ def read_png(path: str) -> np.ndarray:
         body = data[pos + 8:pos + 8 + length]
         if tag == b"IHDR":
             w, h, bit_depth, color_type = struct.unpack(">IIBB", body[:10])
+            if body[12] != 0:
+                raise ValueError("interlaced PNG is not supported")
         elif tag == b"IDAT":
             idat += body
         elif tag == b"IEND":
             break
         pos += 12 + length
-    assert bit_depth == 8, "only 8-bit PNG supported"
+    if bit_depth != 8:
+        raise ValueError(f"only 8-bit PNG is supported, not {bit_depth}")
+    if color_type not in (0, 2, 4, 6):
+        raise ValueError(f"PNG colour type {color_type} is not supported")
     channels = {0: 1, 2: 3, 6: 4, 4: 2}[color_type]
     raw = zlib.decompress(idat)
     stride = w * channels

@@ -55,6 +55,8 @@ class Scene:
         self.entities: List[Entity] = []
         self.sun = SunLight.default()
         self.sky_texture: int = INVALID_ID
+        # the bound textures, None for none (scene/schema.py TextureStack)
+        self.textures: Optional[TextureStack] = None
         self._blue_noise_seed = 7
 
     def add_material(self, mat: Material) -> int:
@@ -186,7 +188,9 @@ class Scene:
         data = SceneData(
             materials=materials, instances=instances, vertices=vertices,
             indices=_t(indices), triangles=soup, lights=lights,
-            textures=TextureStack.empty(), sun=self.sun,
+            textures=(self.textures if self.textures is not None
+                      else TextureStack.empty()).finalized(materials),
+            sun=self.sun,
             sky_texture=int(self.sky_texture),
             blue_noise=_t(_generate_blue_noise(64, self._blue_noise_seed)),
             has_alpha_test=any(m.alpha_mode == 1 and m.colour_texture >= 0
@@ -217,7 +221,8 @@ def _world_positions(positions, tf, rows, mesh_voffset, meshes):
 
 def build_light_table(scene: Scene, rows, pw, i0, i1, i2, t_inst) -> LightTable:
     """Emissive-triangle CDFs: one light per instance whose material
-    emits (||emission|| > 1e-3)."""
+    emits (||emission|| > 1e-3), then the sky texture, if any, as an
+    environment light."""
     lights_inst, cdf_start, cdf_count, env = [], [], [], []
     cdf_all = []
     for inst_id, (mid, _, _) in enumerate(rows):
@@ -235,6 +240,12 @@ def build_light_table(scene: Scene, rows, pw, i0, i1, i2, t_inst) -> LightTable:
         cdf_count.append(len(areas))
         env.append(INVALID_ID)
         cdf_all.append(np.cumsum(areas).astype(np.float32))
+    if scene.sky_texture != INVALID_ID:
+        # the sky texture is an environment light
+        lights_inst.append(INVALID_ID)
+        cdf_start.append(sum(len(x) for x in cdf_all))
+        cdf_count.append(0)
+        env.append(int(scene.sky_texture))
     if not lights_inst:
         return LightTable.empty()
     return LightTable(
@@ -242,7 +253,8 @@ def build_light_table(scene: Scene, rows, pw, i0, i1, i2, t_inst) -> LightTable:
         cdf_start=_t(np.array(cdf_start, np.int32)),
         cdf_count=_t(np.array(cdf_count, np.int32)),
         environment=_t(np.array(env, np.int32)),
-        cdf=_t(np.concatenate(cdf_all)))
+        cdf=_t(np.concatenate(cdf_all) if cdf_all
+               else np.zeros((1,), np.float32)))
 
 
 def _generate_blue_noise(size: int, seed: int):
@@ -311,18 +323,75 @@ def cornell_scene() -> Scene:
     return sc
 
 
-def stress_scene(num_objects=400, seed=0) -> Scene:
+def cutout_scene() -> Scene:
+    """Alpha-tested (cut-out) foliage-style quads over a ground plane:
+    the G-buffer's alpha test and the transparent texels every ray
+    skips."""
+    sc = Scene("cutout")
+    ground = sc.add_material(Material(name="ground", colour=(0.6, 0.6, 0.6),
+                                      roughness=0.9))
+    leaf = sc.add_material(Material(name="leaf", colour=(0.25, 0.7, 0.25),
+                                    roughness=0.8, colour_texture=0,
+                                    alpha_mode=1, alpha_cutoff=0.5))
+    sc.add_entity(sc.add_mesh(geometry.plane(size=16.0, material=ground)))
+    for (cx, cz, ang) in ((-2.0, 0.0, 0.3), (1.5, 1.0, -0.6),
+                          (0.0, -2.0, 1.2)):
+        t = np.eye(4, dtype=np.float32)
+        c, s_ = np.cos(ang), np.sin(ang)
+        t[:3, :3] = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, 1 * c]],
+                             np.float32)
+        t[:3, 3] = [cx, 1.6, cz]
+        sc.add_entity(sc.add_mesh(
+            geometry.quad_facing((0, 0, 1), (0, 0, 0), 3.0, material=leaf)), t)
+    # alpha texture: round blobs, holes between them
+    n = 64
+    yy, xx = np.mgrid[0:n, 0:n] / (n - 1.0)
+    blobs = np.zeros((n, n), np.float32)
+    for (bx, by, r) in ((0.3, 0.3, 0.18), (0.7, 0.35, 0.15),
+                        (0.5, 0.7, 0.22), (0.25, 0.75, 0.12)):
+        blobs = np.maximum(
+            blobs, (np.hypot(xx - bx, yy - by) < r).astype(np.float32))
+    data = np.ones((1, n, n, 4), np.float32)
+    data[0, ..., 3] = blobs
+    sc.textures = TextureStack(data=_t(data),
+                               sizes=_t(np.array([[n, n]], np.int32)))
+    sc.set_sun((-0.4, -1.0, -0.3), intensity=3.0, ambient=0.25)
+    return sc
+
+
+def stress_scene(num_objects=400, seed=0, textured=False,
+                 tex_size=128) -> Scene:
     """The procedural stress scene: floor, columns and random boxes and
-    spheres (250 objects → 65,258 triangles). Untextured only."""
+    spheres (250 objects → 65,258 triangles). ``textured`` binds one
+    procedural ``tex_size``² colour texture to each of its four
+    materials."""
     sc = Scene("stress")
+    tex = (lambda i: i) if textured else (lambda i: INVALID_ID)
     sc.add_material(Material(name="floor", colour=(0.55, 0.5, 0.45),
-                             roughness=0.8))
+                             roughness=0.8, colour_texture=tex(0)))
     sc.add_material(Material(name="column", colour=(0.7, 0.68, 0.6),
-                             roughness=0.6))
+                             roughness=0.6, colour_texture=tex(1)))
     sc.add_material(Material(name="sphere", colour=(0.3, 0.4, 0.7),
-                             roughness=0.3, metallic=0.4))
+                             roughness=0.3, metallic=0.4,
+                             colour_texture=tex(2)))
     sc.add_material(Material(name="box", colour=(0.7, 0.3, 0.2),
-                             roughness=0.5))
+                             roughness=0.5, colour_texture=tex(3)))
     sc.add_model(geometry.stress_scene_meshes(num_objects, seed))
+    if textured:
+        n = tex_size
+        yy, xx = np.mgrid[0:n, 0:n] / (n - 1.0)
+        pats = [
+            ((yy * 8).astype(int) + (xx * 8).astype(int)) % 2 * 0.6 + 0.3,
+            (np.sin(yy * 40) * 0.5 + 0.5) * 0.7 + 0.2,
+            (np.hypot(xx - 0.5, yy - 0.5) * 2.0) % 1.0,
+            ((yy * 16).astype(int) % 2) * 0.5 + 0.4,
+        ]
+        data = np.ones((4, n, n, 4), np.float32)
+        for i, p in enumerate(pats):
+            data[i, ..., 0] = p
+            data[i, ..., 1] = p * 0.8 + 0.1
+            data[i, ..., 2] = 1.0 - p * 0.5
+        sc.textures = TextureStack(
+            data=_t(data), sizes=_t(np.full((4, 2), n, np.int32)))
     sc.set_sun((-0.4, -1.0, -0.3), intensity=3.0)
     return sc

@@ -143,13 +143,31 @@ class LightTable:
 
 @dataclasses.dataclass
 class TextureStack:
+    """The bindless texture array: every texture padded into one
+    (N, H, W, 4) f32 stack, linear colour; ``sizes`` holds each one's
+    true (height, width), which the sampler wraps by (ops/texture.py).
+
+    ``slot_usage`` says whether any material binds a (colour, emission,
+    roughness, normal) texture; a slot no material binds is not sampled.
+    The reference's quad-texel bake, u8 storage and window atlas are TPU
+    gather workarounds that give the same samples; the port has none."""
+
     data: Any   # (N, H, W, 4) f32; (1, 1, 1, 4) when no texture is bound
-    sizes: Any  # (N, 2) i32
+    sizes: Any  # (N, 2) i32 (height, width) in use
+    slot_usage: tuple = (True, True, True, True)
 
     @staticmethod
     def empty() -> "TextureStack":
         return TextureStack(data=torch.zeros((1, 1, 1, 4)),
-                            sizes=torch.ones((1, 2), dtype=torch.int32))
+                            sizes=torch.ones((1, 2), dtype=torch.int32),
+                            slot_usage=(False, False, False, False))
+
+    def finalized(self, materials: "MaterialTable") -> "TextureStack":
+        """The stack with ``slot_usage`` derived from the materials."""
+        usage = tuple(bool((t >= 0).any()) for t in (
+            materials.colour_texture, materials.emission_texture,
+            materials.roughness_texture, materials.normal_texture))
+        return dataclasses.replace(self, slot_usage=usage)
 
 
 @dataclasses.dataclass

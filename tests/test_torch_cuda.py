@@ -696,3 +696,86 @@ def test_cuda_dynamic_frame_matches_cpu_frame(dev, kernel, svgf, max_off,
     print(f"card vs CPU, dynamic {kernel}, SVGF {svgf}: off-edge max "
           f"{off_max} u8, p99 {p99}")
     assert off_max <= max_off and p99 <= max_p99, (off_max, p99)
+
+
+STRESS_KW = dict(distance=18.0, pitch=0.5, yaw=0.8, focal_point=(0, 2.0, 0))
+CUTOUT_KW = dict(distance=9.0, pitch=0.35, yaw=0.4, focal_point=(0, 1.2, 0))
+
+
+def test_sampler_on_card_matches_cpu(dev):
+    """The bilinear sampler's gathers and lerps on the card against the
+    CPU on the same stack (two sizes, one padded) and UVs, ids -1 too;
+    elementwise kernels may contract a multiply-add on the card, so to
+    1e-6."""
+    from hybridrenderer_tpu_torch.ops import texture
+
+    g = np.random.default_rng(0)
+    data = g.random((2, 64, 64, 4)).astype(np.float32)
+    sizes = np.array([[64, 64], [32, 16]], np.int32)
+    uv = g.uniform(-2.5, 3.5, (1 << 16, 2)).astype(np.float32)
+    tid = g.choice(np.array([-1, 0, 1], np.int32), 1 << 16)
+    out = [texture.sample_bilinear(_t(data, d), _t(sizes, d), _t(tid, d),
+                                   _t(uv, d), (0.0, 0.5, 1.0, 1.0)).cpu()
+           for d in (torch.device("cpu"), dev)]
+    print(f"sampler card vs CPU: max abs {(out[0] - out[1]).abs().max()}")
+    torch.testing.assert_close(out[1], out[0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("scene,svgf,max_off,max_p99", [
+    # readings on an H100 (off-edge max / p99): SVGF on 1 / 0 and 0 / 0,
+    # SVGF off 0 / 0 and 0 / 0
+    ("stress_textured", True, 5, 2.0),
+    ("cutout", True, 4, 2.0),
+    ("stress_textured", False, 2, 1.0),
+    ("cutout", False, 2, 1.0),
+])
+def test_cuda_textured_frame_matches_cpu_frame(dev, scene, svgf, max_off,
+                                               max_p99):
+    """Textured and cut-out hybrid frames on the card against the CPU, 3
+    frames at 64x64, off the last frame's object edges: the stress scene
+    with its four colour textures (24 objects), and the cut-out scene
+    (K1 twice a frame, the opaque and the cut-out layer; the shadow and
+    AO rays' alpha rounds through K2c). With SVGF at the card-vs-CPU
+    reading plus 4 / 2, as the other SVGF frames' gates; without it at
+    the reference's 2 / 1."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+    from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
+    from hybridrenderer_tpu_torch.runtime.output import to_u8
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    size = 64
+    flags = RenderFlags.default_hybrid()
+    if not svgf:
+        flags &= ~(RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
+                   | RenderFlags.SVGF_SPATIAL)
+    s = RenderSettings(width=size, height=size, path=RenderPathType.HYBRID,
+                       flags=flags, ao_block=8, gi_block=8)
+    make, cam_kw = {
+        "stress_textured": (lambda: scenes.stress_scene(
+            num_objects=24, textured=True), STRESS_KW),
+        "cutout": (scenes.cutout_scene, CUTOUT_KW)}[scene]
+    imgs, counts = [], {}
+    for d in (torch.device("cpu"), dev):
+        native.reset_counts()
+        r = Renderer.for_scene(s, make().build(d))
+        cam = OrbitCamera(width=size, height=size, **cam_kw)
+        for _ in range(3):
+            img = r.render(cam.step())
+        imgs.append(to_u8(img.cpu().numpy()))
+        tri = r.state.history["ObjectID"].cpu().numpy()
+        counts = {k.name: k.launches for k in native.KERNELS.values()}
+    assert not any(k.plain_cuda_calls for k in native.KERNELS.values())
+    if scene == "cutout":
+        # two layers a frame; every shadow and AO ray in closest-hit rounds
+        assert counts["raster_tiles"] == 6 and counts["trace_any"] == 0
+        assert counts["trace_closest"] == 3 * 2 * 4
+    else:
+        assert counts["raster_tiles"] == 3 and counts["trace_any"] > 0
+    edges = tri_boundary_mask(tri)
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    off_max = int(diff.max(-1)[~edges].max())
+    p99 = float(np.percentile(diff, 99))
+    print(f"card vs CPU, {scene}, SVGF {svgf}: off-edge max {off_max} u8, "
+          f"p99 {p99}")
+    assert off_max <= max_off and p99 <= max_p99, (off_max, p99)

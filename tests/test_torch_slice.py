@@ -182,8 +182,9 @@ def test_frame_state_and_stats(bits):
 def test_unported_options_raise():
     """Radiance rays (reflection, GI and the ray-traced path's primary
     rays) above the reference's exact shade-row table (it switches to a
-    quantized one), and bound textures, are not ported yet; the first
-    raise before any BVH is built."""
+    quantized one) are not ported yet, and raise before any BVH is
+    built. Bound textures are ported: a stack that no material samples
+    leaves the frame as it was."""
     data = port_scenes.cube_scene().build("cpu")
     big = types.SimpleNamespace(num_triangles=SHADE_ROWS_MAX + 1)
     s = _settings(16)
@@ -192,10 +193,11 @@ def test_unported_options_raise():
                dict(path=RenderPathType.RAYTRACED)):
         with pytest.raises(NotImplementedError, match="shade_rows_q"):
             Renderer.for_scene(s.replace(**kw), big)
+    cam = OrbitCamera(width=16, height=16, **CUBE_CAM).step()
+    plain = Renderer.for_scene(_settings(16), data).render(cam)
     data.textures.data = torch.ones((1, 4, 4, 4))
     r = Renderer.for_scene(_settings(16), data)
-    with pytest.raises(NotImplementedError):
-        r.render(OrbitCamera(width=16, height=16, **CUBE_CAM).step())
+    assert torch.equal(r.render(cam), plain)
 
 
 @pytest.mark.parametrize("blue_noise", [True, False])

@@ -15,7 +15,10 @@ contraction and fusion under jit separate them. CASE is one of
 cube, cornell, cube_no_spatial, cornell_no_spatial, cube_full,
 cornell_full (default: all), or cornell_full_128: the full-graph golden's
 case (128x128, 2 frames), which also prints each render against
-tests/goldens/cornell_full_128.png. An eager reference frame of the hybrid
+tests/goldens/cornell_full_128.png, or stress_textured_128 or
+cutout_hybrid_128: the textured and the cut-out goldens' cases
+(tests/test_torch_textured_frames.py; hybrid flags, 128x128, 2 frames),
+printed against their goldens too. An eager reference frame of the hybrid
 frame takes about a minute on a CPU, of the full graph several.
 """
 import os
@@ -33,6 +36,7 @@ from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .test_torch_full_graph import FULL_CASES
+from .test_torch_textured_frames import GOLDENS
 from .test_torch_slice import (CASES, _edge_tri_ids, _settings,
                                reference_renderer)
 from .torch_parity import flatten, off_edge_errors
@@ -49,7 +53,12 @@ def reading(case):
             GOLDEN_128)
     base, _, spatial = case.partition("_no_")
     ref_flags, flags = RefFlags.default_hybrid(), RenderFlags.default_hybrid()
-    if base.endswith("_full"):
+    if case in GOLDENS:
+        scene_fn, _, cam_kw, gate_off, gate_p99 = GOLDENS[case]
+        size, frames = 128, 2
+        golden = read_png(os.path.join(os.path.dirname(__file__), "goldens",
+                                       case + ".png"))
+    elif base.endswith("_full"):
         base = base[:-len("_full")]
         scene_fn, cam_kw, gate_off, gate_p99 = FULL_CASES[base]
         ref_flags |= RefFlags.REFLECTION | RefFlags.GI

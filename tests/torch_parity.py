@@ -1,9 +1,11 @@
 """Shared helpers for the parity tests between hybridrenderer_tpu (JAX,
 the reference) and hybridrenderer_tpu_torch (the port): both packages
 get the same arrays, passed through numpy."""
+import contextlib
 import dataclasses
 
 import numpy as np
+import torch
 
 # reference env knobs that change its output; the parity tests clear them
 REFERENCE_KNOBS = (
@@ -20,6 +22,19 @@ REFERENCE_KNOBS = (
 def clear_reference_knobs(monkeypatch):
     for name in REFERENCE_KNOBS:
         monkeypatch.delenv(name, raising=False)
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread for the block: the suite runs
+    several test processes on the machine's cores, and a pool of threads
+    per process contends for them (a 4 s frame took 90 s so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def flatten(obj):
