@@ -23,13 +23,19 @@ non-zero without printing a result):
    the CPU, with its time;
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
    cube_forward_64.png, cube_raytraced_128.png, stress_textured_128.png,
-   cutout_hybrid_128.png and textured_gltf_96.png (tests/goldens/
-   textured_tri.glb through the loader) rendered on the card, held to
-   the goldens off triangle edges;
+   cutout_hybrid_128.png, textured_gltf_96.png (tests/goldens/
+   textured_tri.glb through the loader) and the display-mode goldens
+   cube_display_{normal,depth,shadow}_128.png rendered on the card,
+   held to the goldens off triangle edges, and the SHADOW golden's
+   signal with SVGF off held to the port's own CPU frames;
 5. renders, each of 8 frames on the stress scene (250 objects) at
-   1920x1080 from bench.py's camera, with the launch count of every
-   kernel it runs (counts set to 0 just before it) and a check that
-   no plain version ran on the card:
+   1920x1080 from bench.py's camera through the captured renderer
+   (frames 1-2 run eagerly and capture their CUDA graphs, frames 3-8
+   replay them), with the launch count of every kernel it runs (counts
+   set to 0 just before it; a replay adds its graph's launches), a check
+   that no plain version ran on the card, the capture times, per-pass
+   ms of one eager frame (runtime/profiling.profile_frame) and one
+   replayed frame under torch.profiler:
    a. the headline, bench.py's hybrid frame (shadow + AO + SVGF);
    b. the full graph, the headline plus reflections and diffuse GI;
    c. forward + TAA (LIGHT | IBL | TAA);
@@ -40,8 +46,8 @@ non-zero without printing a result):
       trace_backend="pallas": K1v, the packet traversal K2b, K5;
    f. the dynamic scene (bench.py's dynamic rung): the headline frame
       with entity 0 turned by rot_y(0.05 k) before frame k through
-      DynamicScene.set_entity_transform and commit() (transform update +
-      refit, timed apart from the frame), on a fresh scene each run:
+      DynamicScene.set_entity_transform and commit_and_render (transform
+      update, refit and frame in one graph), on a fresh scene each run:
       with the default traversal (K2 over the refit binary tree), with
       trace_backend="pallas-wide" and wide_kernel="compressed" (K2w over
       the refit 8-wide tree) and with wide_kernel="mimt" (K2m);
@@ -57,7 +63,16 @@ non-zero without printing a result):
       primary rays' alpha re-traces and their sun occlusion through
       K2c).
    variance_blur is checked in phase 3 but launched by no path: its
-   output feeds nothing (ops/svgf.py).
+   output feeds nothing (ops/svgf.py);
+6. the captured frame: H, F, T, P, D and C at 1080p through the captured
+   renderer against the same frames run eagerly (capture=False), bit for
+   bit, 3 frames each (H and D 6, with both ms/frame) and one more after
+   reset_history; render_burst of 8 headline frames, three times, against
+   24 render() calls; a binning capacity fixed too small must raise before
+   its frame commits, and the same view must then render at a capacity
+   sized per key; the CLI (--scene stress --path hybrid --frames 3 at
+   1920x1080, a process of its own) and the HTTP viewer (/frame.png and
+   /input on localhost) on the card.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's ``nvidia-smi`` name and power limit, and
@@ -117,6 +132,17 @@ GLTF_CAM = dict(distance=4.0, pitch=0.3, yaw=0.2)
 # 4 / 2; tests/test_torch_textured_frames.py holds the same
 TEXTURED_GOLDEN_GATE = (83, 19.0)
 CUTOUT_GOLDEN_GATE = (28, 8.0)
+# the display-mode goldens (tests/test_torch_display_goldens.py): NORMAL and
+# DEPTH at bench.py's gate; SHADOW (two SVGF frames) at the reference's own
+# jit-vs-eager reading plus 4 / 2
+DISPLAY_GOLDENS = (("cube_display_normal_128", "NORMAL", 1, (16, 2.0)),
+                   ("cube_display_depth_128", "DEPTH", 1, (16, 2.0)),
+                   ("cube_display_shadow_128", "SHADOW", 2, (34, 8.0)))
+# SVGF makes that golden's frames chaotic on the card too (card vs CPU 32 /
+# 3): the tight witness beside its gate is its signal with SVGF off, card
+# vs CPU, where one 1-spp ray a pixel can flip on an ulp
+# (tests/test_torch_cuda.py)
+SHADOW_SIGNAL_FLIPS = 4
 # the bilinear sampler on the card against the CPU: PyTorch's elementwise
 # kernels may contract a multiply-add on the card (tests/test_torch_cuda.py)
 SAMPLER_TOL = 1e-6
@@ -344,7 +370,8 @@ def check_trace(dev):
 
     W, H = HEADLINE["width"], HEADLINE["height"]
     data = _headline_scene(dev, HEADLINE["objects"])
-    r = Renderer.for_scene(_hybrid_settings(W, H), data)
+    # eager: the recorder runs once, in the frame it records
+    r = Renderer.for_scene(_hybrid_settings(W, H), data, capture=False)
     tracer, query, batches = r.tracer, r.tracer.shadow_query, []
 
     def recording_query(*a, **kw):
@@ -432,7 +459,8 @@ def check_trace_closest(dev):
     W, H = HEADLINE["width"], HEADLINE["height"]
     data = _headline_scene(dev, HEADLINE["objects"])
     r = Renderer.for_scene(_hybrid_settings(
-        W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI), data)
+        W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI), data,
+        capture=False)
     tracer, trace, batches = r.tracer, r.tracer.trace_radiance, []
 
     def recording(scene, origin, direction, ctx, depth=0, active=None):
@@ -519,7 +547,8 @@ def packet_frame(dev):
     W, H = HEADLINE["width"], HEADLINE["height"]
     data = _headline_scene(dev, HEADLINE["objects"])
     r = Renderer.for_scene(_raytraced_settings(W, H, raster_eval="v2",
-                                               trace_backend="pallas"), data)
+                                               trace_backend="pallas"), data,
+                           capture=False)
     vis_calls, ray_calls, sorts = [], [], []
     vis, packet, argsort = (raster_cuda.raster_tiles, trace.intersect_packet,
                             torch.argsort)
@@ -751,7 +780,7 @@ def wide_queries(dev):
         tracers = []
         for settings in (_hybrid_settings(W, H, **kw),
                          _raytraced_settings(W, H, **kw)):
-            r = Renderer.for_scene(settings, data)
+            r = Renderer.for_scene(settings, data, capture=False)
             r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
                 taa_enabled=True))
             tracers.append(r.tracer)
@@ -997,7 +1026,7 @@ def check_window_sample(dev):
 
     W, H = HEADLINE["width"], HEADLINE["height"]
     data = _headline_scene(dev, HEADLINE["objects"])
-    r = Renderer.for_scene(_forward_settings(W, H), data)
+    r = Renderer.for_scene(_forward_settings(W, H), data, capture=False)
     calls = []
 
     def recording(image, uv):
@@ -1232,6 +1261,40 @@ def _golden(dev, name, settings, scene_fn, cam_kw, frames, taa, gates):
     return off_max <= gates[0] and p99 <= gates[1]
 
 
+def _shadow_signal(dev):
+    """The SHADOW display golden's scene, camera and frames with SVGF off
+    (the raw 1-spp shadow and AO signal) on the card against the port's
+    CPU frames, off edges: at most SHADOW_SIGNAL_FLIPS pixels more than
+    2 u8 apart, p99 1."""
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import DisplayMode, RenderFlags
+    from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
+    from hybridrenderer_tpu_torch.runtime.output import to_u8
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    settings = _hybrid_settings(128, 128, ao_block=8, gi_block=8,
+                                display_mode=DisplayMode.SHADOW)
+    settings = settings.replace(flags=settings.flags & ~(
+        RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
+        | RenderFlags.SVGF_SPATIAL))
+    imgs = []
+    for d in ("cpu", dev):
+        r = Renderer.for_scene(settings, scenes.cube_scene().build(d))
+        cam = OrbitCamera(width=128, height=128, **GOLDEN_CAM)
+        for _ in range(2):
+            img = to_u8(r.render_np(cam.step()))
+        imgs.append(img)
+    edges = tri_boundary_mask(r.state.history["ObjectID"].cpu().numpy())
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    flips = int((diff.max(axis=-1)[~edges] > 2).sum())
+    p99 = float(np.percentile(diff, 99))
+    log(f"[golden] cube_display_shadow_128's signal with SVGF off, card vs "
+        f"CPU: {flips} pixels more than 2 u8 apart off edges (gate "
+        f"{SHADOW_SIGNAL_FLIPS}), p99 {p99} (gate 1.0)")
+    return imgs[0].std() > 0 and flips <= SHADOW_SIGNAL_FLIPS and p99 <= 1.0
+
+
 def phase_golden(dev):
     from hybridrenderer_tpu_torch.core.types import RenderFlags
     from hybridrenderer_tpu_torch.scene import scene as scenes
@@ -1267,56 +1330,39 @@ def phase_golden(dev):
                 lambda: load_scene_file(glb), GLTF_CAM, 1, False,
                 (FORWARD_GOLDEN_OFF_EDGE_MAX, FORWARD_GOLDEN_P99_MAX)),
     ]
+    from hybridrenderer_tpu_torch.core.types import DisplayMode
+
+    for name, mode, frames, gate in DISPLAY_GOLDENS:
+        ok.append(_golden(dev, name, _hybrid_settings(
+            128, 128, ao_block=8, gi_block=8, display_mode=DisplayMode[mode]),
+            scenes.cube_scene, GOLDEN_CAM, frames, False, gate))
+    ok.append(_shadow_signal(dev))
     if not all(ok):
         raise AssertionError(f"golden gate failed: {ok}")
 
 
-def frame_breakdown(name, r, cam, update=None):
-    """Two more frames: one with a sync around each pass (per-pass ms on
-    the host clock), one under torch.profiler (device time by kernel,
-    device operations, busy share of the profiled frame's wall time).
-    ``update``, a dynamic path's commit, runs before each frame, timed
-    as its own pass and profiled with the frame."""
+def frame_breakdown(name, r, cam, next_frame):
+    """Per-pass ms of one eager frame (runtime/profiling.profile_frame:
+    CUDA events around each pass, after the renderer's history, which it
+    leaves as it was), then one more frame of the path, a replay, under
+    torch.profiler (device time by kernel, device operations, busy share
+    of the frame's wall time). ``next_frame(camera state)`` renders a
+    frame as the path does."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    passes, spent = r.path.graph.passes, {}
+    from hybridrenderer_tpu_torch.runtime import profiling
 
-    def timed(p, fn):
-        def run(reg, ctx):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(reg, ctx)
-            torch.cuda.synchronize()
-            spent[p.name] = 1e3 * (time.perf_counter() - t)
-            return out
-        return run
-
-    fns = [p.fn for p in passes]
-    for p in passes:
-        p.fn = timed(p, p.fn)
-    try:
-        if update is not None:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            update()
-            torch.cuda.synchronize()
-            spent["commit"] = 1e3 * (time.perf_counter() - t)
-        r.render(cam.step(taa_enabled=True))
-    finally:
-        for p, fn in zip(passes, fns):
-            p.fn = fn
-    log(f"[{name}] per pass ms (sync around each): "
+    spent = profiling.profile_frame(r, cam.step(taa_enabled=True), iters=3)
+    log(f"[{name}] per pass ms (eager, CUDA events around each pass): "
         + ", ".join(f"{k} {v:.3f}" for k, v in spent.items())
         + f"; sum {sum(spent.values()):.3f}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        if update is not None:
-            update()
-        r.render(cam.step(taa_enabled=True))
+        next_frame(cam.step(taa_enabled=True))
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
     # device-side events only (kernels, copies): an aten op's own entry
@@ -1330,7 +1376,7 @@ def frame_breakdown(name, r, cam, update=None):
         return None
     ops = sum(e.count for e in events)
     top = sorted(events, key=dev_ms, reverse=True)[:8]
-    log(f"[{name}] profiled frame: device busy {busy:.3f} ms of "
+    log(f"[{name}] profiled replayed frame: device busy {busy:.3f} ms of "
         f"{wall:.3f} ms wall (share {busy / wall:.3f}), {ops} device "
         f"operations; top: " + "; ".join(
             f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
@@ -1344,58 +1390,69 @@ def rot_y(a):
                      [0, 0, 0, 1]], np.float32)
 
 
+def _path_renderer(dev, settings, host_fn, dynamic, capture=True):
+    """(renderer, DynamicScene or None, next_frame) on a fresh scene:
+    ``host_fn`` makes the host scene (default: the stress scene of 250
+    objects). ``next_frame(camera state)`` renders the path's next frame:
+    on a dynamic path entity 0 first turns to rot_y(0.05 k) before its
+    k-th frame, and DynamicScene.commit_and_render updates the
+    transforms, refits the tracer and renders in one call (one captured
+    graph), as in bench.py's dynamic rung."""
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+    from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
+
+    host = scenes.stress_scene(num_objects=HEADLINE["objects"]) \
+        if host_fn is None else host_fn()
+    r = Renderer.for_scene(settings, host.build(dev), capture=capture)
+    dyn = DynamicScene(host, r) if dynamic else None
+    turn = [0]
+
+    def next_frame(cs):
+        if dyn is None:
+            return r.render(cs)
+        turn[0] += 1
+        dyn.set_entity_transform(0, rot_y(0.05 * turn[0]))
+        return dyn.commit_and_render(cs)
+
+    return r, dyn, next_frame
+
+
 def phase_render(dev, out_dir, name, settings, kernels, absent=(),
                  dynamic=False, host_fn=None, cam_kw=HEADLINE_CAM,
                  per_frame=None):
-    """8 frames at 1920x1080 with the counts set to 0 just before and read
-    just after; ``kernels`` must each have launched, ``absent`` none, and
-    each kernel of ``per_frame`` exactly that many times a frame.
-    ``host_fn`` makes the host scene (default: the stress scene of 250
-    objects), seen from ``cam_kw``. ``dynamic``: bench.py's dynamic rung
-    on a fresh scene: before frame k, entity 0 turns to rot_y(0.05 k) and
-    DynamicScene.commit() updates the transforms and refits the tracer
-    (timed apart, with a sync); the camera stays (its TAA jitter steps),
-    as in the rung. Returns (the launch counts, the last frame, the
-    profiled frame's (device ms, device operations) or None)."""
+    """8 frames at 1920x1080 through the captured renderer (frames 1 and
+    2 run eagerly and capture their keys' graphs, frames 3-8 replay) with
+    the counts set to 0 just before and read just after; ``kernels`` must
+    each have launched, ``absent`` none, and each kernel of ``per_frame``
+    exactly that many times a frame (replays count the launches their
+    graph captured). ``host_fn`` and ``dynamic`` as for _path_renderer;
+    the camera, seen from ``cam_kw``, orbits 0.01 rad a frame but on the
+    dynamic paths (its TAA jitter steps). Returns (the launch counts, the
+    last frame, the profiled frame's (device ms, device operations) or
+    None, the median ms/frame)."""
     import torch
 
     from hybridrenderer_tpu_torch import native
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.core.types import RenderPathType
     from hybridrenderer_tpu_torch.runtime.output import write_png
-    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
-    from hybridrenderer_tpu_torch.scene import scene as scenes
-    from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
 
     W, H, F = settings.width, settings.height, HEADLINE["frames"]
-    host = scenes.stress_scene(num_objects=HEADLINE["objects"]) \
-        if host_fn is None else host_fn()
-    data = host.build(dev)
     t0 = time.perf_counter()
-    r = Renderer.for_scene(settings, data)
-    dyn = DynamicScene(host, r) if dynamic else None
-    log(f"[{name}] {data.num_triangles} triangles; BVH build + renderer "
+    r, dyn, next_frame = _path_renderer(dev, settings, host_fn, dynamic)
+    log(f"[{name}] {r.scene.num_triangles} triangles; BVH build + renderer "
         f"{time.perf_counter() - t0:.2f} s")
     cam = OrbitCamera(width=W, height=H, **cam_kw)
-    turn = [0]
-
-    def update():
-        turn[0] += 1
-        dyn.set_entity_transform(0, rot_y(0.05 * turn[0]))
-        dyn.commit()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     native.reset_counts()
-    times, commits = [], []
+    times = []
     for _ in range(F):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        if dyn is not None:
-            update()
-            torch.cuda.synchronize()
-            commits.append(1e3 * (time.perf_counter() - t))
-        out = r.render(cam.step(taa_enabled=True))
+        out = next_frame(cam.step(taa_enabled=True))
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
         if dyn is None:
@@ -1423,24 +1480,243 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     if any(plain.values()):
         raise AssertionError(f"{name}: plain versions ran on the card: "
                              f"{plain}")
+    keys = sorted(r._graphs)
+    if len(keys) != 2:
+        raise AssertionError(f"{name}: expected the first and the later "
+                             f"frames' graphs, got {keys}")
     png = os.path.join(out_dir, f"chip_smoke_{name}.png")
     write_png(png, np.clip(img, 0.0, 1.0))
     med = float(np.median(times[2:]))
-    log(f"[{name}] ms/frame per frame: {[round(t, 2) for t in times]}")
-    if dyn is not None:
-        log(f"[{name}] commit() ms (transform update + refit, in the frame "
-            f"times above) per frame: {[round(t, 2) for t in commits]}; "
-            f"median (frames 3-{F}) {float(np.median(commits[2:])):.2f}")
+    log(f"[{name}] ms/frame per frame (1-2 eager + capture, 3-{F} "
+        f"replayed): {[round(t, 2) for t in times]}; capture ms "
+        f"{ {k: round(v, 1) for k, v in r.capture_ms.items()} }")
     wide = getattr(r.tracer, "wide", None)
     if wide is not None:
         log(f"[{name}] leaf pushes past the reference's 128 entries: "
             f"{int(wide.deep_pushes.item())}")
-    log(f"[{name}] median ms/frame (frames 3-{F}) {med:.2f} on "
+    log(f"[{name}] median ms/frame (frames 3-{F}, replayed) {med:.2f} on "
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
         f"launches {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image {png}")
-    prof = frame_breakdown(name, r, cam, update if dyn is not None else None)
-    return launches, img, prof
+    prof = frame_breakdown(name, r, cam, next_frame)
+    return launches, img, prof, med
+
+
+# phase 6: the captured frame against the eager frame, the burst, the
+# binning overflow, the CLI and the viewer
+CAPTURE_FRAMES = 3
+
+
+def _capture_cases():
+    """name → (settings, host_fn, camera, dynamic, frames) of the paths
+    held captured against eager; H and D run 6 frames for their timing."""
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    return {
+        "H": (_hybrid_settings(W, H), None, HEADLINE_CAM, False, 6),
+        "F": (_hybrid_settings(W, H, extra=RenderFlags.REFLECTION
+                               | RenderFlags.GI), None, HEADLINE_CAM, False,
+              CAPTURE_FRAMES),
+        "T": (_forward_settings(W, H), None, HEADLINE_CAM, False,
+              CAPTURE_FRAMES),
+        "P": (_raytraced_settings(W, H, raster_eval="v2",
+                                  trace_backend="pallas"), None,
+              HEADLINE_CAM, False, CAPTURE_FRAMES),
+        "D": (_hybrid_settings(W, H), None, HEADLINE_CAM, True, 6),
+        "C": (_hybrid_settings(W, H), scenes.cutout_scene, CUTOUT_CAM, False,
+              CAPTURE_FRAMES),
+    }
+
+
+def _drive(dev, case, capture):
+    """A capture case's frames, then reset_history and one more frame
+    (the first frame's graph replayed) → (images, ms/frame per frame)."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+
+    settings, host_fn, cam_kw, dynamic, frames = case
+    r, dyn, next_frame = _path_renderer(dev, settings, host_fn, dynamic,
+                                        capture)
+    cam = OrbitCamera(width=settings.width, height=settings.height,
+                      **cam_kw)
+    imgs, times = [], []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        imgs.append(next_frame(cam.step(taa_enabled=True)))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+        if dyn is None:
+            cam.orbit(0.01, 0.0)
+    r.reset_history()
+    imgs.append(next_frame(cam.step(taa_enabled=True)))
+    return imgs, times
+
+
+def phase_captured_vs_eager(dev):
+    """H, F, T, P, D, C at 1080p through the captured renderer and eagerly
+    (capture=False): every frame equal bit for bit; the captured and the
+    eager ms/frame (the median of frames 3-6 for H and D, frame 3 for the
+    others)."""
+    failures = []
+    for name, case in _capture_cases().items():
+        captured, t_cap = _drive(dev, case, True)
+        eager, t_eager = _drive(dev, case, False)
+        same = [bool((a == b).all()) for a, b in zip(captured, eager)]
+        line = (f"[captured vs eager] {name}: {len(same)} frames (the last "
+                f"after reset_history) equal bit for bit: {same}")
+        line += (f"; median ms/frame (frames 3-{case[4]}) captured "
+                 f"{float(np.median(t_cap[2:])):.2f}, eager "
+                 f"{float(np.median(t_eager[2:])):.2f} on "
+                 f"{nvidia_smi_line()}")
+        log(line)
+        if not all(same):
+            failures.append(f"captured vs eager {name}")
+    return failures
+
+
+def phase_burst(dev):
+    """render_burst of 8 headline frames, three times (a burst replays
+    render()'s graphs once a frame; its frames 1 and 2 run eagerly and
+    capture them), against 24 render() calls: equal bit for bit; the
+    third burst's ms a frame beside the replayed render()'s."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+
+    W, H, K = HEADLINE["width"], HEADLINE["height"], HEADLINE["frames"]
+    cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    cams = []
+    for _ in range(3 * K):
+        cams.append(cam.step(taa_enabled=True))
+        cam.orbit(0.01, 0.0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t) / K
+
+    seq, _, _ = _path_renderer(dev, _hybrid_settings(W, H), None, False)
+    frames = [seq.render(cs) for cs in cams[:2 * K]]
+    last, seq_ms = timed(lambda: [seq.render(cs) for cs in cams[2 * K:]])
+    bur, _, _ = _path_renderer(dev, _hybrid_settings(W, H), None, False)
+    bursts = [bur.render_burst(cams[i * K:(i + 1) * K]) for i in range(2)]
+    third, ms = timed(lambda: bur.render_burst(cams[2 * K:]))
+    same = [bool((a == b).all()) for a, b in
+            zip([f for b in bursts + [third] for f in b], frames + last)]
+    log(f"[burst] 3 x render_burst({K}) against {3 * K} render() calls, "
+        f"equal bit for bit: {same}; the replayed burst {ms:.2f} ms a "
+        f"frame, replayed render() {seq_ms:.2f} ms a frame (frames "
+        f"{2 * K + 1}-{3 * K}) on {nvidia_smi_line()}; capture ms "
+        f"{ {k: round(v, 1) for k, v in bur.capture_ms.items()} }")
+    return [] if all(same) else ["burst"]
+
+
+def phase_overflow(dev):
+    """The headline with its binning capacity fixed at 1,000 tile entries
+    (it needs ~79,000): frames 1 and 2 run eagerly with exact lists; the
+    first replay must raise before its commit, leaving the frame count
+    and the history as they were. With the capacity no longer fixed, the
+    same view must then render (its key captured again at a capacity
+    sized from what it needed) and equal the eager renderer's frame, bit
+    for bit."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    r, _, _ = _path_renderer(dev, _hybrid_settings(W, H), None, False)
+    eager, _, _ = _path_renderer(dev, _hybrid_settings(W, H), None, False,
+                                 capture=False)
+    r.bin_capacity = 1000
+    cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    states = [cam.step(taa_enabled=True) for _ in range(3)]
+    for cs in states[:2]:
+        r.render(cs)
+        eager.render(cs)
+    before = {k: v.clone() for k, v in r.state.history.items()}
+    try:
+        r.render(states[2])
+    except RuntimeError as e:
+        kept = r.frame_count == 2 and all(
+            torch.equal(before[k], v) for k, v in r.state.history.items())
+        log(f"[overflow] raised: {e}; frame count and history kept: {kept}")
+        if not kept:
+            return ["overflow state"]
+    else:
+        log("[overflow] FAILED: the overflowed frame rendered")
+        return ["overflow"]
+    r.bin_capacity = None
+    same = torch.equal(r.render(states[2]), eager.render(states[2]))
+    log(f"[overflow] the same view with the capacity per key: rendered at "
+        f"capacity {r._graphs[('frame', True)].capacity}, equal to the "
+        f"eager frame bit for bit: {same}")
+    return [] if same else ["overflow recapture"]
+
+
+def phase_cli_viewer(dev, out_dir):
+    """The CLI renders --scene stress --path hybrid --frames 3 at
+    1920x1080 on the card to PNGs (a process of its own); the viewer
+    serves one /frame.png and one /input on localhost."""
+    import threading
+    import urllib.request
+
+    from hybridrenderer_tpu_torch.app.main import default_camera
+    from hybridrenderer_tpu_torch.app.viewer import Viewer, make_server
+    from hybridrenderer_tpu_torch.runtime.output import read_png
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    failures = []
+    out = os.path.join(out_dir, "chip_smoke_cli.png")
+    cmd = [sys.executable, "-m", "hybridrenderer_tpu_torch.app.main",
+           "--scene", "stress", "--path", "hybrid", "--frames", "3",
+           "--width", "1920", "--height", "1080", "--out", out]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    shapes = []
+    for i in range(3):
+        png = out.replace(".png", f"_{i:03d}.png")
+        img = read_png(png) if os.path.exists(png) else None
+        shapes.append(None if img is None else (img.shape,
+                                                round(float(img.std()), 1)))
+    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t:.1f} s; {proc.stdout.strip()[-200:]}; "
+        f"PNGs (shape, std) {shapes}")
+    if proc.returncode != 0 or any(
+            x is None or x[0] != (1080, 1920, 3) or x[1] <= 0 for x in shapes):
+        log(f"[cli] FAILED: {proc.stderr[-2000:]}")
+        failures.append("cli")
+
+    settings = _hybrid_settings(256, 256)
+    viewer = Viewer(Renderer.for_scene(settings, scenes.cube_scene().build(
+        dev)), default_camera("cube", 256, 256))
+    srv = make_server(viewer, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = "http://%s:%d" % srv.server_address
+    try:
+        with urllib.request.urlopen(url + "/frame.png", timeout=120) as resp:
+            png = resp.read()
+        req = urllib.request.Request(url + "/input", method="POST",
+                                     data=json.dumps({"orbit": [0.2, 0.0]})
+                                     .encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            state = json.loads(resp.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    ok = png[:8] == b"\x89PNG\r\n\x1a\n" and state.get("frame", 0) >= 1
+    log(f"[viewer] /frame.png {len(png)} bytes, /input → {state}: "
+        f"{'ok' if ok else 'FAILED'}")
+    return failures + ([] if ok else ["viewer"])
 
 
 def main(argv=None):
@@ -1574,7 +1850,7 @@ def main(argv=None):
             _raytraced_settings(W, H, wide_kernel=k, **wide),
             ["raster_tiles", kernel, "window_sample"],
             absent=direct + [other[kernel]])
-    paths = {name: launches for name, (launches, _, _) in runs.items()}
+    paths = {name: launches for name, (launches, *_) in runs.items()}
     # the wide kernels change no visibility and no closest t: the dynamic
     # and ray-traced frames equal the K2 / K2c paths' frames
     for base in ("dynamic", "raytraced"):
@@ -1585,6 +1861,11 @@ def main(argv=None):
                 f"of pixel channels beyond 1/255")
             if (diff > 1.0 / 255).mean() > 1e-3:
                 failures.append(f"{base}_{tag} frame")
+    # phase 6: the captured frame's own checks
+    failures += phase_captured_vs_eager(dev)
+    failures += phase_burst(dev)
+    failures += phase_overflow(dev)
+    failures += phase_cli_viewer(dev, args.out)
     if failures:
         raise AssertionError(f"checks failed: {failures}")
 

@@ -2,8 +2,9 @@
 (hybridrenderer_tpu/core/camera.py).
 
 The controller math is host-side numpy, as in the reference package.
-``CameraState`` carries numpy arrays; ``CameraState.to(device)`` gives
-the same block as float32 tensors for a frame.
+``CameraState`` carries numpy arrays; ``pack()`` flattens the block into
+one float32 row, and ``unpack`` reads a row (a tensor on the frame's
+device, which a captured frame reads in place) back as views.
 """
 from __future__ import annotations
 
@@ -59,11 +60,24 @@ class CameraState:
             prev_jitter=prev_jitter,
         )
 
+    # the block as one float32 row: seven 4x4 matrices, the position and
+    # the two jitters, in field order
+    PACKED_SIZE = 7 * 16 + 3 + 2 + 2  # 119
+
+    def pack(self) -> np.ndarray:
+        return np.concatenate([np.asarray(getattr(self, f), np.float32).ravel()
+                               for f in _FIELDS])
+
+    @staticmethod
+    def unpack(v) -> "CameraState":
+        """A packed row (numpy or tensor) → views of it as the block."""
+        parts = [v[16 * i:16 * i + 16].reshape(4, 4) for i in range(7)]
+        return CameraState(*parts, v[112:115], v[115:117], v[117:119])
+
     def to(self, device) -> "CameraState":
-        """The same block as float32 tensors on ``device``."""
-        return CameraState(**{
-            f: torch.as_tensor(np.asarray(getattr(self, f), np.float32),
-                               device=device) for f in _FIELDS})
+        """The same block as float32 tensors on ``device``: one copy of
+        the packed row."""
+        return CameraState.unpack(torch.from_numpy(self.pack()).to(device))
 
 
 def _perspective_reversed_z_np(fov_y_deg, aspect, near, far):
@@ -155,6 +169,17 @@ class OrbitCamera:
     def orbit(self, d_yaw: float, d_pitch: float):
         self.yaw += d_yaw
         self.pitch += d_pitch
+
+    def pan(self, dx: float, dy: float):
+        self.focal_point = self.focal_point + self.right * (-dx) + self.up * dy
+
+    def zoom(self, delta: float):
+        self.distance = max(0.01, self.distance - delta)
+
+    def fly(self, fwd=0.0, strafe=0.0, lift=0.0):
+        self.focal_point = (
+            self.focal_point + self.forward * fwd + self.right * strafe
+            + np.array([0.0, lift, 0.0], np.float32))
 
     def step(self, taa_enabled: bool = False) -> CameraState:
         view = self.view_matrix()

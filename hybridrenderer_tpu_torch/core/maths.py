@@ -11,6 +11,23 @@ import numpy as np
 import torch
 
 
+_CONSTANTS = {}
+
+
+def constant(values, device, dtype=torch.float32):
+    """``torch.tensor(values)`` on ``device``, made once and cached: a
+    frame's first (eager) run makes its constants, and the CUDA graph
+    captured after it reads them without a host-to-device copy.
+    ``values`` is a number or (nested) tuple; callers must not write to
+    the result."""
+    key = (values, str(torch.device(device)), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
+
+
 def normalize(v, eps=1e-12):
     n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     return v / torch.clamp(n, min=eps)

@@ -207,14 +207,18 @@ struct NormalWeights {
   }
 };
 
-// dynamic shared memory above the default 48 KB needs the attribute
+// dynamic shared memory above the default 48 KB needs the attribute; it
+// is set at a kernel's first launch only, which runs eagerly (a frame's
+// first use), never inside a CUDA graph capture
 template <typename... P, typename... A>
 int launch(void (*kernel)(P...), dim3 grid, dim3 block, int smem,
            void* stream, A... args) {
-  if (smem > 48 * 1024) {
+  static void (*configured)(P...) = nullptr;
+  if (smem > 48 * 1024 && configured != kernel) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
+    configured = kernel;
   }
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   HR_RETURN_LAUNCH_STATUS();
@@ -232,8 +236,10 @@ __global__ void __launch_bounds__(kAtrousBX * kAtrousBY)
 atrous_kernel(const float* __restrict__ sig,
               const float* __restrict__ normal,
               const float* __restrict__ mp, int H, int W, int step,
-              float phi_l_scale, float phi_n, float* __restrict__ out) {
+              const float* __restrict__ phi_l_scale_p,
+              const float* __restrict__ phi_n_p, float* __restrict__ out) {
   using Win = AtrousWindow;
+  const float phi_l_scale = *phi_l_scale_p, phi_n = *phi_n_p;
   constexpr int kN = Win::kN, kSW = Win::kSW;
   extern __shared__ float s[];
   float* wn = s + Win::kPlanes * kN;
@@ -308,10 +314,12 @@ filter_moments_kernel(const float* __restrict__ sig,
                       const float* __restrict__ mom,
                       const float* __restrict__ normal,
                       const float* __restrict__ mp, int H, int W,
-                      float phi_luma, float phi_n,
+                      const float* __restrict__ phi_luma_p,
+                      const float* __restrict__ phi_n_p,
                       float* __restrict__ out_sig,
                       float* __restrict__ out_mom) {
   using Win = MomentsWindow;
+  const float phi_luma = *phi_luma_p, phi_n = *phi_n_p;
   constexpr int kN = Win::kN, kSW = Win::kSW;
   extern __shared__ float s[];
   float* wn = s + Win::kPlanes * kN;
@@ -393,10 +401,11 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// sig and out 16-byte aligned (float4 loads and stores)
+// sig and out 16-byte aligned (float4 loads and stores); the phis are
+// device scalars
 HR_EXPORT int hr_atrous(const void* sig, const void* normal, const void* mp,
-                        int H, int W, int step, float phi_l_scale,
-                        float phi_n, void* out, void* stream) {
+                        int H, int W, int step, const void* phi_l_scale,
+                        const void* phi_n, void* out, void* stream) {
   if (step < 1) return static_cast<int>(cudaErrorInvalidValue);
   // per phase at most ceil(W / step) x ceil(H / step) outputs
   const dim3 grid(ceil_div(ceil_div(W, step), kAtrousBX) * step,
@@ -404,22 +413,27 @@ HR_EXPORT int hr_atrous(const void* sig, const void* normal, const void* mp,
   return launch(atrous_kernel, grid, dim3(kAtrousBX, kAtrousBY), kAtrousSmem,
                 stream, static_cast<const float*>(sig),
                 static_cast<const float*>(normal),
-                static_cast<const float*>(mp), H, W, step, phi_l_scale, phi_n,
-                static_cast<float*>(out));
+                static_cast<const float*>(mp), H, W, step,
+                static_cast<const float*>(phi_l_scale),
+                static_cast<const float*>(phi_n), static_cast<float*>(out));
 }
 
-// sig, out_sig and out_mom 16-byte aligned, mom 8-byte aligned
+// sig, out_sig and out_mom 16-byte aligned, mom 8-byte aligned; the phis
+// are device scalars
 HR_EXPORT int hr_filter_moments(const void* sig, const void* mom,
                                 const void* normal, const void* mp, int H,
-                                int W, float phi_luma, float phi_n,
-                                void* out_sig, void* out_mom, void* stream) {
+                                int W, const void* phi_luma,
+                                const void* phi_n, void* out_sig,
+                                void* out_mom, void* stream) {
   const dim3 grid(ceil_div(W, kMomentsBX), ceil_div(H, kMomentsBY));
   return launch(filter_moments_kernel, grid, dim3(kMomentsBX, kMomentsBY),
                 kMomentsSmem, stream, static_cast<const float*>(sig),
                 static_cast<const float*>(mom),
                 static_cast<const float*>(normal),
-                static_cast<const float*>(mp), H, W, phi_luma, phi_n,
-                static_cast<float*>(out_sig), static_cast<float*>(out_mom));
+                static_cast<const float*>(mp), H, W,
+                static_cast<const float*>(phi_luma),
+                static_cast<const float*>(phi_n), static_cast<float*>(out_sig),
+                static_cast<float*>(out_mom));
 }
 
 HR_EXPORT int hr_variance_blur(const void* mom, int H, int W, void* out,

@@ -61,9 +61,13 @@ class RenderGraph:
         self._compiled = True
         return self
 
-    def execute(self, registry: dict, ctx, state: FrameState):
+    def execute(self, registry: dict, ctx, state: FrameState,
+                run_pass=None):
         """Run every pass → (registry, new history dict). History reads
-        fall back to the current-frame resource of the same name."""
+        fall back to the current-frame resource of the same name.
+        ``run_pass(p, registry, ctx)``, when given, runs each pass in
+        place of ``p.fn(registry, ctx)`` (runtime/profiling times them
+        so)."""
         if not self._compiled:
             self.compile(external=tuple(registry.keys()))
         new_history: dict = {}
@@ -73,7 +77,8 @@ class RenderGraph:
                     hname = r[len("History_"):]
                     h = state.get(hname)
                     registry[r] = registry.get(hname) if h is None else h
-            out = p.fn(registry, ctx) or {}
+            out = (p.fn(registry, ctx) if run_pass is None
+                   else run_pass(p, registry, ctx)) or {}
             if set(out) != set(p.writes):
                 raise ValueError(
                     f"pass '{p.name}' write mismatch: declared "
@@ -82,3 +87,23 @@ class RenderGraph:
             for virt, hname in p.save_as_history.items():
                 new_history[hname] = registry[virt]
         return registry, new_history
+
+    def export_mermaid(self) -> str:
+        """The graph as Mermaid text (RenderGraph::ExportToMermaid)."""
+        lines = ["graph TD"]
+        style = {"graphics": ":::graphics", "compute": ":::compute",
+                 "raytracing": ":::raytracing"}
+        for i, p in enumerate(self.passes):
+            lines.append(f"  P{i}[{p.name}]{style.get(p.kind, '')}")
+            for r in p.reads:
+                rid = r.replace(" ", "_")
+                lines.append(f"  R_{rid}([{r}]) --> P{i}")
+            for w in p.writes:
+                wid = w.replace(" ", "_")
+                lines.append(f"  P{i} --> R_{wid}([{w}])")
+        lines += [
+            "classDef graphics fill:#264653",
+            "classDef compute fill:#2a9d8f",
+            "classDef raytracing fill:#e76f51",
+        ]
+        return "\n".join(lines)

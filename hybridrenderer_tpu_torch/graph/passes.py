@@ -34,6 +34,8 @@ class FrameContext:
     shadow_query: Optional[Callable] = None  # (pos, n, dir, tmax) → vis
     # (origin, dir, ctx, depth, active) → (rgb, hit distance)
     trace_radiance: Optional[Callable] = None
+    # how the rasters bin (ops/raster_cuda.Binning; None: exact lists)
+    binning: Any = None
 
 
 def _clip_scene(settings, sc, cam, jitter_on, layers=(None,)):
@@ -67,7 +69,7 @@ def make_depth_prepass(settings):
         _, (tris,) = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on)
         vis, _ = raster_cuda.rasterize_binned(
             tris, settings.width, settings.height, None,
-            vis_eval=settings.raster_eval)
+            vis_eval=settings.raster_eval, binning=ctx.binning)
         return {RS.DEPTH: vis.depth}
 
     return fn, (), (RS.DEPTH,), {}
@@ -91,7 +93,8 @@ def make_gbuffer_pass(settings):
 
         def raster(tris):
             return raster_cuda.rasterize_binned(
-                tris, settings.width, settings.height, sc.raster_rows)
+                tris, settings.width, settings.height, sc.raster_rows,
+                binning=ctx.binning)
 
         if sc.has_alpha_test:
             mat = sc.instances.material[sc.triangles.instance.long()].long()
@@ -239,7 +242,8 @@ def make_forward_pass(settings):
         H, W = gb.depth.shape
         dev = gb.depth.device
 
-        up = gb.normal.new_tensor([0.0, 1.0, 0.0]).expand_as(gb.normal)
+        up = maths.constant((0.0, 1.0, 0.0), gb.normal.device) \
+            .expand_as(gb.normal)
         n = maths.normalize(torch.where(bg.unsqueeze(-1), up, gb.normal))
         v = maths.normalize(cam.position - gb.world_pos)
         l = maths.normalize(-params.sun_direction).expand_as(v)

@@ -256,7 +256,8 @@ def make_rayquery_pass(settings):
         gb = reg["_GBuffer"]
         sc, cam, params = ctx.scene, ctx.cam, ctx.params
         bg = gb.background
-        up = gb.normal.new_tensor([0.0, 1.0, 0.0]).expand_as(gb.normal)
+        up = maths.constant((0.0, 1.0, 0.0), gb.normal.device) \
+            .expand_as(gb.normal)
         n = maths.normalize(torch.where(bg.unsqueeze(-1), up, gb.normal))
         v = maths.normalize(cam.position - gb.world_pos)
         l = maths.normalize(-params.sun_direction).expand_as(v)

@@ -20,6 +20,9 @@ calls ``Kernel.launch``, which runs the C entry point on the current
 stream, raises on a CUDA error, and adds one to the launch count. A
 plain PyTorch version that runs on a CUDA tensor adds one to
 ``plain_cuda_calls`` instead, so a run can show which path it took.
+A CUDA graph's replay runs no Python: the renderer takes the counts a
+capture added (``counts`` before and after), puts them back, and adds
+them again at every replay (``add_counts``).
 """
 from __future__ import annotations
 
@@ -144,8 +147,8 @@ _SIGNATURES = {
     "hr_temporal_fetch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                           _P],
     "hr_window_sample": [_P, _I, _I, _I, _P, _I, _P, _P],
-    "hr_atrous": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
-    "hr_filter_moments": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "hr_atrous": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "hr_filter_moments": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "hr_variance_blur": [_P, _I, _I, _P, _P],
 }
 
@@ -235,6 +238,23 @@ def reset_counts():
     for k in KERNELS.values():
         k.launches = 0
         k.plain_cuda_calls = 0
+
+
+def counts() -> dict:
+    """Every kernel's (launches, plain_cuda_calls)."""
+    return {n: (k.launches, k.plain_cuda_calls) for n, k in KERNELS.items()}
+
+
+def set_counts(c: dict):
+    for n, (launches, plain) in c.items():
+        KERNELS[n].launches, KERNELS[n].plain_cuda_calls = launches, plain
+
+
+def add_counts(delta: dict):
+    """Add a captured graph's launches and plain calls, at its replay."""
+    for n, (launches, plain) in delta.items():
+        KERNELS[n].launches += launches
+        KERNELS[n].plain_cuda_calls += plain
 
 
 def ptr(t) -> int:

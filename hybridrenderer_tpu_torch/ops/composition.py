@@ -11,8 +11,9 @@ from . import shade, sky
 
 
 def _gray(bg, value, out):
-    return torch.where(bg.unsqueeze(-1), out.new_tensor(value).expand_as(out),
-                       out)
+    return torch.where(bg.unsqueeze(-1),
+                       maths.constant(tuple(value), out.device)
+                       .expand_as(out), out)
 
 
 def view_directions(cam, H, W, device):
@@ -71,7 +72,8 @@ def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
         return svgf_variance.unsqueeze(-1).expand(H, W, 3)
 
     base = gb.albedo
-    up = gb.normal.new_tensor([0.0, 1.0, 0.0]).expand_as(gb.normal)
+    up = maths.constant((0.0, 1.0, 0.0), gb.normal.device) \
+        .expand_as(gb.normal)
     n = maths.normalize(torch.where(bg.unsqueeze(-1), up, gb.normal))
     rough = gb.material[..., 0]
     metal = gb.material[..., 1]

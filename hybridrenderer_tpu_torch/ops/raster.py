@@ -11,8 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
+
+from ..core import maths
 
 W_CLIP = 1e-4  # near-plane clip epsilon in w (w = -z_view)
 AREA_EPS = 1e-12
@@ -52,8 +53,8 @@ def transform_to_clip(world_pos, view_proj, jitter=None):
 
 # rotation that puts in-front vertices first, indexed by the in-front
 # bitmask in0 | in1 << 1 | in2 << 2 (winding preserved)
-_PERM = np.array([[0, 1, 2], [0, 1, 2], [1, 2, 0], [0, 1, 2],
-                  [2, 0, 1], [2, 0, 1], [1, 2, 0], [0, 1, 2]], np.int64)
+_PERM = ((0, 1, 2), (0, 1, 2), (1, 2, 0), (0, 1, 2),
+         (2, 0, 1), (2, 0, 1), (1, 2, 0), (0, 1, 2))
 
 
 def clip_triangles(corners, width, height, tri_mask=None,
@@ -70,9 +71,11 @@ def clip_triangles(corners, width, height, tri_mask=None,
          + 4 * infront[:, 2].long())
     n_in = infront.sum(dim=1)
 
-    perm = torch.as_tensor(_PERM, device=dev)[m]                   # (T, 3)
+    perm = maths.constant(_PERM, dev, torch.int64)[m]              # (T, 3)
     u = torch.gather(v, 1, perm.unsqueeze(-1).expand(T, 3, 4))
-    ub = torch.nn.functional.one_hot(perm, 3).float()              # (T, 3, 3)
+    # one-hot rows (one_hot itself checks the indices on the host)
+    ub = (perm.unsqueeze(-1)
+          == torch.arange(3, device=dev)).float()                  # (T, 3, 3)
 
     def lerp_to_plane(a, ab, b, bb):
         den = a[..., 3] - b[..., 3]

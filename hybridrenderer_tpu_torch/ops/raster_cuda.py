@@ -6,7 +6,11 @@
    area, vertex depths and 1/w, and original-triangle barycentrics.
 2. ``bin_candidates`` lists, for every 16x16 pixel tile, every candidate
    whose screen bbox touches it. The lists are exact: no cap, no
-   overflow class, no candidate dropped.
+   overflow class, no candidate dropped. Their length is data-dependent,
+   so a frame captured into a CUDA graph bins into a fixed capacity
+   instead (``Binning``): the same lists, padded, and the entries needed
+   on the device, which the renderer checks after the replay; a frame
+   that needed more raises.
 3. ``raster_tiles`` resolves each pixel's winner (largest reversed-Z
    depth; ties to the lowest candidate index) and writes the
    VisibilityBuffer and, unless it runs vis-only, the (H, W, 40)
@@ -67,10 +71,25 @@ def pack_candidates(tris):
 def bin_candidates(bbox, valid, width, height):
     """Exact per-tile candidate lists → (tile_start (ntiles + 1,) i32,
     entry_cand (E,) i32). Tile t's candidates, in ascending candidate
-    order, are entry_cand[tile_start[t]:tile_start[t + 1]]."""
+    order, are entry_cand[tile_start[t]:tile_start[t + 1]]. Reading E
+    syncs with the device."""
+    tile_start, entry_cand, _ = _bin(bbox, valid, width, height, None)
+    return tile_start, entry_cand
+
+
+def _bin(bbox, valid, width, height, capacity):
+    """The lists in ``capacity`` entries (None: exactly as many as needed,
+    read on the host) → (tile_start, entry_cand, entries needed () i64
+    on the device). Entry e (in candidate order) belongs to the candidate
+    whose entry range [ends - count, ends) holds e; entries past the
+    total take tile ``ntiles`` and sort after every real one. While the
+    entries needed fit the capacity, tile_start and
+    entry_cand[:tile_start[-1]] equal the exact lists and zeros follow;
+    past it the last candidates' entries are dropped, and only
+    ``needed > capacity`` tells."""
     dev = bbox.device
-    ntx = -(-width // TILE)
-    nty = -(-height // TILE)
+    ntx, nty = _tiles(width, height)
+    ntiles = ntx * nty
     onscreen = valid & (bbox[:, 1] >= 0) & (bbox[:, 0] < width) & \
         (bbox[:, 3] >= 0) & (bbox[:, 2] < height)
 
@@ -82,19 +101,49 @@ def bin_candidates(bbox, valid, width, height):
     span_w = tx1 - tx0 + 1
     count = torch.where(onscreen, span_w * (ty1 - ty0 + 1), 0)
     ends = torch.cumsum(count, 0)
-    E = int(ends[-1]) if ends.numel() else 0
-    cand = torch.repeat_interleave(
-        torch.arange(count.shape[0], device=dev), count, output_size=E)
-    local = torch.arange(E, device=dev) - (ends - count)[cand]
+    n_cand = count.shape[0]
+    needed = ends[-1] if n_cand else torch.zeros((), dtype=torch.long,
+                                                  device=dev)
+    n = int(needed) if capacity is None else capacity
+    if n_cand == 0:
+        return (torch.zeros(ntiles + 1, dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev), needed)
+    e = torch.arange(n, device=dev)
+    cand = torch.searchsorted(ends, e, right=True)
+    real = cand < n_cand
+    cand = torch.clamp(cand, max=n_cand - 1)
+    local = e - (ends - count)[cand]
     sw = span_w[cand]
     tile = (ty0[cand] + torch.div(local, sw, rounding_mode="floor")) * ntx \
         + tx0[cand] + local % sw
-    tile, order = torch.sort(tile, stable=True)
-    entry_cand = cand[order].to(torch.int32)
-    per_tile = torch.bincount(tile, minlength=ntx * nty)
-    tile_start = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
-                            torch.cumsum(per_tile, 0)]).to(torch.int32)
-    return tile_start, entry_cand
+    tile, order = torch.sort(torch.where(real, tile, ntiles), stable=True)
+    entry_cand = torch.where(tile < ntiles, cand[order], 0).to(torch.int32)
+    tile_start = torch.searchsorted(
+        tile, torch.arange(ntiles + 1, device=dev)).to(torch.int32)
+    return tile_start, entry_cand, needed
+
+
+class Binning:
+    """How a frame's rasters bin: into exact lists (``capacity`` None) or,
+    with no host sync, into ``capacity`` entries each (a captured frame);
+    ``needed`` collects the entries each raster needed, as device
+    values."""
+
+    def __init__(self, capacity=None):
+        self.capacity = capacity
+        self.needed = []
+
+    def bin(self, bbox, valid, width, height):
+        tile_start, entry_cand, needed = _bin(bbox, valid, width, height,
+                                              self.capacity)
+        self.needed.append(needed)
+        return tile_start, entry_cand
+
+    def max_needed(self, device):
+        """The most entries any raster of the frame needed, () i64."""
+        if not self.needed:
+            return torch.zeros((), dtype=torch.long, device=device)
+        return torch.stack(self.needed).max()
 
 
 def _tiles(width, height):
@@ -245,8 +294,10 @@ def raster_tiles_plain(rec, tile_start, entry_cand, attr_table, width,
     """Plain PyTorch version of kernel K1: every (tile entry, pixel) pair
     evaluated as tensors, the winner picked by a per-pixel scatter-max of
     (depth bits, ~candidate), then the winner's outputs evaluated with
-    the kernel's arithmetic in the kernel's order."""
+    the kernel's arithmetic in the kernel's order. Padded lists
+    (a ``Binning`` capacity) are read up to their last tile's end."""
     KERNEL.note_plain(rec)
+    entry_cand = entry_cand[:int(tile_start[-1])]
     best = torch.full((_padded_size(width, height),), -1, dtype=torch.int64,
                       device=rec.device)
     for _, cand, pix, cover, z in _entry_pixels(rec, tile_start, entry_cand,
@@ -268,8 +319,9 @@ def raster_vis_plain(rec, tile_start, entry_cand, width, height,
     each (group of 128 entries, pixel) keeps its largest integer key;
     then each pixel keeps the group winner of largest exact depth, the
     earliest group on a tie (the kernel's strict replacement in list
-    order)."""
+    order). Padded lists are read up to their last tile's end."""
     KERNEL_VIS.note_plain(rec)
+    entry_cand = entry_cand[:int(tile_start[-1])]
     dev = rec.device
     starts = tile_start.long()
     counts = starts[1:] - starts[:-1]
@@ -322,12 +374,15 @@ def raster_vis_plain(rec, tile_start, entry_cand, width, height,
     return vis
 
 
-def rasterize_binned(tris, width, height, attr_table, vis_eval=None):
+def rasterize_binned(tris, width, height, attr_table, vis_eval=None,
+                     binning=None):
     """pack → bin → raster: ClippedTriangles → (VisibilityBuffer, attrs).
     ``attr_table`` None resolves vis-only (attrs None), through K1v when
-    ``vis_eval`` is "v2" or "v3", else through K1."""
+    ``vis_eval`` is "v2" or "v3", else through K1. ``binning``, a
+    ``Binning``, says how to bin (default: exact lists)."""
     rec, bbox, valid = pack_candidates(tris)
-    tile_start, entry_cand = bin_candidates(bbox, valid, width, height)
+    tile_start, entry_cand = (binning or Binning()).bin(bbox, valid, width,
+                                                        height)
     if attr_table is not None:
         attr_table = attr_table.contiguous()
     return raster_tiles(rec, tile_start, entry_cand, attr_table, width,

@@ -20,12 +20,16 @@ _MASK = 0xFFFFFFFF
 
 
 def _u32(x, device):
-    return torch.as_tensor(x, device=device).to(torch.int64) & _MASK
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & _MASK
+    # a fill, not a copy from the host: capturable into a CUDA graph
+    return torch.full((), int(x) & _MASK, dtype=torch.int64, device=device)
 
 
 def init_random_seed(val0, val1):
     """TEA 16-round hash. Inputs: non-negative integer tensors (or ints)
-    below 2^32; returns int64 holding uint32 values."""
+    below 2^32, such as a frame index on the device; returns int64
+    holding uint32 values."""
     device = next((v.device for v in (val0, val1)
                    if isinstance(v, torch.Tensor)), None)
     v0, v1 = torch.broadcast_tensors(_u32(val0, device), _u32(val1, device))
@@ -56,8 +60,8 @@ def _cosine_dir(r1, r2, normal):
     r = torch.sqrt(r1)
     phi = 2.0 * PI * r2
     use_y = (torch.abs(normal[..., 0]) > 0.1).unsqueeze(-1)
-    ey = normal.new_tensor([0.0, 1.0, 0.0]).expand(normal.shape)
-    ex = normal.new_tensor([1.0, 0.0, 0.0]).expand(normal.shape)
+    ey = maths.constant((0.0, 1.0, 0.0), normal.device).expand(normal.shape)
+    ex = maths.constant((1.0, 0.0, 0.0), normal.device).expand(normal.shape)
     helper = torch.where(use_y, ey, ex)
     tangent = maths.normalize(maths.cross(normal, helper))
     bitangent = maths.cross(normal, tangent)
@@ -101,9 +105,11 @@ def interleaved_cos_hemisphere(frame_index, normal, block: int = 8,
 
 def blue_noise_uniforms(blue_noise, frame_index, H: int, W: int):
     """Per-pixel vec4 uniforms from the tiled blue-noise texture at
-    ``pixel + frame * (123, 456)``."""
+    ``pixel + frame * (123, 456)``; ``frame_index`` an int or an integer
+    tensor on the device (no host sync)."""
     Hn, Wn = blue_noise.shape[:2]
-    fi = int(frame_index)
+    fi = frame_index if isinstance(frame_index, torch.Tensor) \
+        else int(frame_index)
     dev = blue_noise.device
     ys = (torch.arange(H, device=dev)[:, None] + fi * 456) % Hn
     xs = (torch.arange(W, device=dev)[None, :] + fi * 123) % Wn

@@ -22,10 +22,11 @@ def sample_equirectangular_uv(v):
 
 def procedural_sky(direction):
     t = 0.5 * (direction[..., 1] + 1.0)
-    horizon = direction.new_tensor([0.4, 0.5, 0.6])
-    zenith = direction.new_tensor([0.1, 0.2, 0.4])
+    horizon = maths.constant((0.4, 0.5, 0.6), direction.device)
+    zenith = maths.constant((0.1, 0.2, 0.4), direction.device)
     sky = horizon + (zenith - horizon) * t.unsqueeze(-1)
-    sun_dir = maths.normalize(direction.new_tensor([1.0, 1.0, -1.0]))
+    sun_dir = maths.normalize(maths.constant((1.0, 1.0, -1.0),
+                                             direction.device))
     sun = torch.clamp(maths.dot(direction, sun_dir.expand_as(direction)),
                       min=0.0) ** 128.0
     return sky + sun.unsqueeze(-1) * 5.0

@@ -31,6 +31,16 @@ def _check_planes(dev, H, W, **planes):
         native.check(t, name, torch.float32, (H, W, c), dev)
 
 
+def _scalar(x, dev):
+    """A phi argument as a (1,) float32 tensor on ``dev`` that the kernel
+    reads: a device value as it is, a host number as a fill (no copy
+    from the host, so a captured frame may make one)."""
+    if isinstance(x, torch.Tensor):
+        native.check(x.reshape(1), "phi", torch.float32, (1,), dev)
+        return x.reshape(1)
+    return torch.full((1,), float(x), dtype=torch.float32, device=dev)
+
+
 def _device(t, op):
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {t.device}")
@@ -41,9 +51,11 @@ def _device(t, op):
 # filter_moments
 # ---------------------------------------------------------------------------
 
-def filter_moments(signal, moments, normal, motion_plane, phi_luma: float,
-                   phi_normal: float):
+def filter_moments(signal, moments, normal, motion_plane, phi_luma,
+                   phi_normal):
     """→ (signal with variance in .a, moments with variance in .b).
+    ``phi_luma`` and ``phi_normal``: numbers, or 0-d float32 tensors on
+    the signal's device (the kernel reads them there).
 
     CUDA tensors launch the K4 kernel that replaces the TPU kernel
     stencil_pallas.filter_moments; CPU tensors take the plain version.
@@ -62,10 +74,12 @@ def filter_moments(signal, moments, normal, motion_plane, phi_luma: float,
     signal, moments = native.aligned(signal), native.aligned(moments)
     out_sig = torch.empty_like(signal)
     out_mom = torch.empty_like(moments)
+    phi_l, phi_n = _scalar(phi_luma, signal.device), \
+        _scalar(phi_normal, signal.device)
     KERNELS[0].launch("hr_filter_moments", native.ptr(signal),
                       native.ptr(moments), native.ptr(normal),
-                      native.ptr(motion_plane), H, W, float(phi_luma),
-                      float(phi_normal), native.ptr(out_sig),
+                      native.ptr(motion_plane), H, W, native.ptr(phi_l),
+                      native.ptr(phi_n), native.ptr(out_sig),
                       native.ptr(out_mom))
     return out_sig, out_mom
 
@@ -77,8 +91,9 @@ def _normal_weight(normal, normal_p, phi_normal):
 
 
 def filter_moments_plain(signal, moments, normal, motion_plane,
-                         phi_luma: float, phi_normal: float):
+                         phi_luma, phi_normal):
     KERNELS[0].note_plain(signal)
+    phi_luma, phi_normal = float(phi_luma), float(phi_normal)
     luma_c = luminance(signal[..., :3])
     z_c = motion_plane[..., 2]
     phi_z_base = torch.clamp(motion_plane[..., 3], min=1e-8) * 3.0
@@ -157,10 +172,10 @@ def variance_blur_plain(moments):
 # atrous
 # ---------------------------------------------------------------------------
 
-def atrous(signal, normal, motion_plane, step: int, phi_luma_scale: float,
-           phi_normal: float):
+def atrous(signal, normal, motion_plane, step: int, phi_luma_scale,
+           phi_normal):
     """One 5x5 à-trous iteration; variance rides in signal .a and is
-    filtered with w².
+    filtered with w². The phis as for ``filter_moments``.
 
     CUDA tensors launch the K4 kernel that replaces the TPU kernel
     stencil_pallas.atrous; CPU tensors take the plain version. On the
@@ -176,16 +191,18 @@ def atrous(signal, normal, motion_plane, step: int, phi_luma_scale: float,
                   normal=(normal, 3), motion_plane=(motion_plane, 4))
     signal = native.aligned(signal)   # read as float4s
     out = torch.empty_like(signal)
+    phi_l, phi_n = _scalar(phi_luma_scale, signal.device), \
+        _scalar(phi_normal, signal.device)
     KERNELS[2].launch("hr_atrous", native.ptr(signal), native.ptr(normal),
                       native.ptr(motion_plane), H, W, int(step),
-                      float(phi_luma_scale), float(phi_normal),
-                      native.ptr(out))
+                      native.ptr(phi_l), native.ptr(phi_n), native.ptr(out))
     return out
 
 
 def atrous_plain(signal, normal, motion_plane, step: int,
-                 phi_luma_scale: float, phi_normal: float):
+                 phi_luma_scale, phi_normal):
     KERNELS[2].note_plain(signal)
+    phi_luma_scale, phi_normal = float(phi_luma_scale), float(phi_normal)
     kw = _ATROUS_KW
     luma_c = luminance(signal[..., :3])
     var_c = signal[..., 3]

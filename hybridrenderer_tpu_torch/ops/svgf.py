@@ -9,7 +9,9 @@ temporal moments are their own history, and history is stored as bf16
 at ``bits=16``.
 
 ``svgf_phi`` = (phi luma of the moments filter, phi luma scale of
-à-trous, normal power, unused), as the reference's shaders index it.
+à-trous, normal power, unused), as the reference's shaders index it:
+four numbers, or a (4,) float32 tensor of the frame's row, which the K4
+kernels read on the device.
 """
 from __future__ import annotations
 
@@ -99,7 +101,8 @@ def denoise_multi(cur_signals, albedo, gb_motion_plane, normal, object_id,
                   configs, svgf_phi, history_valid: bool):
     """SVGF chains for K signals over one frame's geometry →
     [(denoised (H, W, 4), new SVGFSignalHistory, variance (H, W))] x K."""
-    phi_l_moments, phi_l_atrous, phi_n = (float(x) for x in svgf_phi[:3])
+    phi_l_moments, phi_l_atrous, phi_n = svgf_phi[0], svgf_phi[1], \
+        svgf_phi[2]
     mp = gb_motion_plane.contiguous()
     normal = normal.contiguous()
     results = []

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import maths
 from . import image as img_ops
 from .temporal_cuda import window_sample
 
@@ -102,7 +103,7 @@ def resolve(cur_color, history_color, motion, depth, jitter, prev_jitter,
                                box_max)
 
     # 5. motion-adaptive blend
-    size = uv.new_tensor([W, H])
+    size = maths.constant((float(W), float(H)), uv.device)
     motion_len = torch.linalg.vector_norm(best_motion * size, dim=-1)
     alpha = torch.clamp(0.1 + motion_len * 0.1, 0.1, 0.9).unsqueeze(-1)
     alpha = torch.where(off, torch.ones_like(alpha), alpha)

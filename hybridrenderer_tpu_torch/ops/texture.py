@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import maths
+
 
 def has_textures(textures) -> bool:
     """The empty TextureStack placeholder is (1, 1, 1, 4)."""
@@ -20,8 +22,8 @@ def has_textures(textures) -> bool:
 
 
 def _default(default, out):
-    default = torch.as_tensor(default, dtype=torch.float32, device=out.device)
-    return default.expand_as(out)
+    return maths.constant(tuple(float(x) for x in default),
+                          out.device).expand_as(out)
 
 
 def _texels(stack_data):

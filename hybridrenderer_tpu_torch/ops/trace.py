@@ -80,7 +80,7 @@ def _pixel_order(pos, x, lead):
 
 
 def _shade_rows(scene_data):
-    cols = torch.tensor(SHADE_COLS, device=scene_data.device)
+    cols = maths.constant(tuple(SHADE_COLS), scene_data.device, torch.int64)
     return scene_data.attr_rows[:, cols].contiguous()
 
 

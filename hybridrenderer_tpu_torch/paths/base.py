@@ -22,6 +22,9 @@ class RenderPath:
         fn, reads, writes, history = builder
         graph.add_pass(name, fn, reads, writes, history, kind)
 
+    def export_mermaid(self) -> str:
+        return self.graph.export_mermaid()
+
     def run(self, ctx, state: FrameState):
         """Execute the pass stack → (output image, new FrameState,
         registry)."""

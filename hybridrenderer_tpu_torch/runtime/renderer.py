@@ -1,134 +1,437 @@
 """Renderer driver (hybridrenderer_tpu/runtime/renderer.py).
 
-Runs the path's pass stack eagerly, one frame per ``render`` call, on
-the device the scene lives on: CUDA scenes launch the port's kernels,
-CPU scenes run their plain PyTorch versions. The history planes carry
-from frame to frame in ``FrameState``; each frame builds a new dict of
-new tensors (nothing is updated in place) and the previous frame's
-tensors are freed when it is replaced.
+A frame is one call of ``_frame``: the path's pass stack over the scene,
+the tracer, the carried history and the frame's row on the device
+(``graph/params.pack_row``: the camera, exposure, the SVGF phis and the
+frame index, one host-to-device copy a frame). Its results are committed
+to the renderer's own buffers, which stay the same tensors from frame to
+frame: the history (``state``), and after a dynamic update the scene's
+and the tracer's tensors, written in place.
+
+On a CUDA scene each frame function is captured into CUDA graphs, one
+set for each key, as the reference keeps one jitted program for each:
+("frame", history_valid) for ``render`` (and ``render_burst``, which
+replays them once a frame), ("dynamic", history_valid, use_subset,
+update_lights, dirty set) for ``render_dynamic`` and ("commit", ...)
+for ``update_dynamic``. A key's first use runs eagerly, as the frame it
+is, so that every lazy set-up (kernel loads, cached constants, the
+refit's level walk, the exact tile lists that size the binning
+capacity) happens outside a capture; the graph is captured right after
+it, and every later use copies the row and replays. A frame that cannot
+be captured raises, with the renderer as it was; on the card nothing
+falls back to eager execution unless the renderer is made with
+``capture=False``.
+
+Each key holds two graphs: the frame, which reads the renderer's buffers
+and writes only memory of its own graph pool, and the commit, which
+copies the frame's results into the buffers; no replay reads a buffer
+that it writes (the reference donates its state instead). Between the
+two the host reads the tile entries the frame's rasters needed. A frame
+that needed more than the binning capacity is not committed: its key is
+captured again at a capacity sized from what it needed, and the frame
+replayed (or, with ``Renderer.bin_capacity`` fixed, it raises, and the
+history is left as it was). CPU scenes run the same functions eagerly,
+with exact tile lists.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Any
 
 import numpy as np
 import torch
 
+from .. import native
+from ..core.camera import CameraState
 from ..core.types import RenderFlags, RenderPathType
-from ..graph.params import FrameParams, FrameState
+from ..graph.params import ROW_SIZE, FrameParams, FrameState, pack_row
 from ..graph.passes import FrameContext
 from ..ops import trace
+from ..ops.raster_cuda import Binning
 from ..paths.factory import create_render_path
 from ..scene import dynamic
+from .log import core as _log
+
+DEFAULT_PHI = (4.0, 128.0, 0.02, 0.0)
+# a captured frame bins into this many times the tile entries its key's
+# first (eager) frame, or an overflowed replay, needed, plus the slack;
+# Renderer.bin_capacity fixes it instead
+BIN_HEADROOM = 2
+BIN_SLACK = 1 << 16
+
+
+@dataclasses.dataclass
+class _Result:
+    """What a frame function returns: the image, the frame stats, the
+    most tile entries a raster needed (None without a frame), and
+    (renderer buffer, new value) trees to commit."""
+    out: Any
+    stats: Any
+    needed: Any
+    commits: list
+
+
+@dataclasses.dataclass
+class _Graph:
+    frame: Any           # torch.cuda.CUDAGraph of the frame function
+    commit: Any          # its copy-back graph
+    result: _Result      # the frame graph's outputs, in its pool
+    launches: dict       # kernel counts one replay adds (native.counts)
+    capacity: Any        # the tile entries each raster may use
+    keep: tuple = ()     # inputs the graph reads that the key names by id
 
 
 class Renderer:
-    def __init__(self, settings, scene_data, tracer=None):
+    def __init__(self, settings, scene_data, tracer=None, capture=None):
+        """``capture``: replay CUDA graphs (the default on a CUDA scene);
+        False runs every frame eagerly."""
         self.settings = settings
         self.scene = scene_data
         self.device = scene_data.device
+        self.capture = self.device.type == "cuda" if capture is None \
+            else bool(capture)
+        if self.capture and self.device.type != "cuda":
+            raise ValueError("CUDA graphs need a scene on a CUDA device")
         self.path = create_render_path(settings)
         self.tracer = tracer
-        self.state = FrameState.empty()
         self.frame_count = 0
+        # tile entries a captured raster may use, fixed (an overflow
+        # raises); None: sized per key and grown on an overflow
+        self.bin_capacity = None
+        self._history = {}
+        self._graphs = {}
+        self._rows = {}          # K → the (K, ROW_SIZE) row buffer
+        self._transforms = None  # the dynamic updates' (N, 4, 4) buffer
         self._stats = None
+        self.capture_ms = {}     # each key's capture time, host clock
 
     @classmethod
-    def for_scene(cls, settings, scene_data):
+    def for_scene(cls, settings, scene_data, capture=None):
         """Renderer with the ray tracer attached when the path or the
         flags ask for ray-traced passes."""
-        tracer = trace.SceneTracer.build(scene_data, settings) \
+        tracer = _build_tracer(scene_data, settings) \
             if _needs_tracer(settings, scene_data) else None
-        return cls(settings, scene_data, tracer=tracer)
+        return cls(settings, scene_data, tracer=tracer, capture=capture)
 
-    @torch.no_grad()
-    def render(self, cam_state, exposure: float = 1.0,
-               svgf_phi=(4.0, 128.0, 0.02, 0.0)):
-        """Render one frame → (H, W, 3) float32 tensor on the device."""
-        params = FrameParams.create(self.scene, exposure=exposure,
-                                    frame_index=self.frame_count,
-                                    svgf_phi=svgf_phi)
+    # --- frame functions -------------------------------------------------
+    def _context(self, row, scene, tracer, history, history_valid,
+                 binning=None):
+        """The FrameContext of a frame over a (ROW_SIZE,) row → (ctx,
+        the carried FrameState)."""
         shadow_query = trace_radiance = None
-        if self.tracer is not None:
-            tracer, scene = self.tracer, self.scene
+        if tracer is not None:
             shadow_query = tracer.shadow_query
 
             def trace_radiance(o, d, ctx, depth, active=None):
                 return tracer.trace_radiance(scene, o, d, ctx, depth,
                                              active=active)
+        state = FrameState(history=history)
         ctx = FrameContext(
-            scene=self.scene, cam=cam_state.to(self.device), params=params,
-            settings=self.settings, state=self.state,
-            history_valid=self.frame_count > 0, shadow_query=shadow_query,
-            trace_radiance=trace_radiance)
-        out, self.state, registry = self.path.run(ctx, self.state)
-        self._stats = registry.get("_FrameStats")
+            scene=scene, cam=CameraState.unpack(row),
+            params=FrameParams.from_row(scene, row), settings=self.settings,
+            state=state, history_valid=history_valid,
+            shadow_query=shadow_query, trace_radiance=trace_radiance,
+            binning=binning)
+        return ctx, state
+
+    def _frame(self, row, scene, tracer, history, history_valid, binning):
+        """One frame's math over a (ROW_SIZE,) row → (out (H, W, 3), new
+        history dict, stats (3,) i64)."""
+        ctx, state = self._context(row, scene, tracer, history,
+                                   history_valid, binning)
+        out, new_state, registry = self.path.run(ctx, state)
+        stats = registry.get("_FrameStats")
+        if stats is None:
+            stats = torch.zeros(3, dtype=torch.int64, device=row.device)
+        return out, new_state.history, stats
+
+    def _history_for(self, history_valid):
+        return self._history if history_valid else {}
+
+    def _updated(self, maps, transforms, vert_idx, tri_idx, use_subset,
+                 update_lights):
+        """The scene after a dynamic update and the tracer refit on it
+        (new tensors; the renderer's are read, not written)."""
+        if use_subset:
+            scene = dynamic.update_transforms_subset(
+                self.scene, maps, transforms, vert_idx, tri_idx,
+                update_lights=update_lights)
+        else:
+            scene = dynamic.update_transforms(self.scene, maps, transforms)
+        tracer = None if self.tracer is None else self.tracer.refit(scene)
+        return scene, tracer
+
+    def _row_buffer(self, k):
+        buf = self._rows.get(k)
+        if buf is None:
+            buf = self._rows[k] = torch.empty((k, ROW_SIZE),
+                                              dtype=torch.float32,
+                                              device=self.device)
+        return buf
+
+    def _upload_rows(self, rows):
+        """(K, ROW_SIZE) host rows → the K-row buffer on the device: one
+        copy. The source is pageable, so the copy stages it before it
+        returns, and the copy is ordered after the last replay on the
+        stream."""
+        buf = self._row_buffer(rows.shape[0])
+        buf.copy_(torch.from_numpy(rows), non_blocking=True)
+        return buf
+
+    def _upload_transforms(self, transforms):
+        t = torch.as_tensor(transforms)
+        if self._transforms is None:
+            self._transforms = torch.empty(t.shape, dtype=torch.float32,
+                                           device=self.device)
+        self._transforms.copy_(t, non_blocking=True)
+        return self._transforms
+
+    # --- graphs ----------------------------------------------------------
+    def _run(self, key, body, keep=()):
+        """``body(binning)`` → _Result through key's graphs: eagerly (and
+        then captured) at the key's first use, replayed after it. Returns
+        the result's image (a new tensor)."""
+        graph = self._graphs.get(key)
+        if graph is not None and graph.capacity is not None \
+                and self.bin_capacity not in (None, graph.capacity):
+            del self._graphs[key]             # bin_capacity was changed
+            graph = None
+        if graph is not None:
+            return self._replay(key, body, graph)
+        res = body(Binning())
+        undo = []
+        pairs = _pairs(res.commits, undo)
+        if self.capture:
+            capacity = self.bin_capacity
+            if capacity is None and res.needed is not None:
+                capacity = _capacity_for(int(res.needed))
+            try:
+                self._capture(key, body, capacity, keep)
+            except BaseException:
+                # nothing committed: the renderer is left as it was
+                for fn in reversed(undo):
+                    fn()
+                raise
+        for dst, src in pairs:
+            dst.copy_(src)
+        if res.stats is not None:
+            self._stats = res.stats
+        return res.out
+
+    def _capture(self, key, body, capacity, keep):
+        """Captures the key's frame and commit graphs into
+        ``self._graphs[key]``; the capture's launch counts are taken back,
+        and each replay adds them again."""
+        t0 = time.perf_counter()
+        before = native.counts()
+        frame = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(frame):
+                res = body(Binning(capacity))
+                pairs = _pairs(res.commits)
+        except Exception as e:
+            raise RuntimeError(f"{_key_name(key)}: the frame cannot be "
+                               f"captured into a CUDA graph: {e}") from e
+        finally:
+            after = native.counts()
+            native.set_counts(before)
+        commit = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(commit):
+            for dst, src in pairs:
+                dst.copy_(src)
+        launches = {n: (after[n][0] - before[n][0],
+                        after[n][1] - before[n][1]) for n in after}
+        self._graphs[key] = graph = _Graph(frame, commit, res, launches,
+                                           capacity, keep)
+        self.capture_ms[_key_name(key)] = ms = \
+            1e3 * (time.perf_counter() - t0)
+        _log().info("frame graph captured", key=_key_name(key),
+                    ms=round(ms, 1), bin_capacity=capacity)
+        return graph
+
+    def _replay(self, key, body, graph):
+        """Replays the key's frame; a frame whose tile lists overflowed
+        the capacity is captured again at one sized from what it needed
+        and replayed (with bin_capacity fixed, it raises), and only then
+        committed."""
+        needed = _replay_frame(graph)
+        if needed is not None and needed > graph.capacity:
+            if self.bin_capacity is not None:
+                raise RuntimeError(
+                    f"{_key_name(key)}: the frame's tile lists need "
+                    f"{needed} entries, above the fixed binning capacity "
+                    f"{graph.capacity}; nothing was committed. Set "
+                    f"Renderer.bin_capacity higher, or to None, and "
+                    f"render again.")
+            _log().warn("binning capacity overflowed; recapturing",
+                        key=_key_name(key), needed=needed,
+                        capacity=graph.capacity)
+            keep = graph.keep
+            del self._graphs[key], graph      # frees its pool
+            graph = self._capture(key, body, _capacity_for(needed), keep)
+            needed = _replay_frame(graph)
+            if needed > graph.capacity:
+                raise RuntimeError(f"{_key_name(key)}: the recaptured frame "
+                                   f"overflowed again ({needed} entries)")
+        graph.commit.replay()
+        res = graph.result
+        if res.stats is not None:
+            self._stats = res.stats
+        return None if res.out is None else res.out.clone()
+
+    # --- public API --------------------------------------------------------
+    @property
+    def state(self) -> FrameState:
+        """The carried history: the renderer's history buffers, or empty
+        before the first frame after a reset."""
+        return FrameState(history=dict(self._history)) \
+            if self.frame_count else FrameState.empty()
+
+    def set_history(self, history: dict, frame_count: int):
+        """Resume from ``history`` (name → array or tensor) after
+        ``frame_count`` frames: written into the history buffers, which
+        the captured frames read; a name, shape or dtype that the buffers
+        do not have replaces them and drops the graphs."""
+        new = {k: torch.as_tensor(v) for k, v in history.items()}
+        same = new.keys() == self._history.keys() and all(
+            self._history[k].shape == v.shape
+            and self._history[k].dtype == v.dtype for k, v in new.items())
+        if same:
+            for k, v in new.items():
+                self._history[k].copy_(v)
+        else:
+            self._history = {k: v.to(self.device).clone()
+                             for k, v in new.items()}
+            self._graphs = {}
+        self.frame_count = int(frame_count)
+
+    @torch.no_grad()
+    def render(self, cam_state, exposure: float = 1.0, svgf_phi=DEFAULT_PHI):
+        """Render one frame → (H, W, 3) float32 tensor on the device."""
+        self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
+                                   self.frame_count)[None])
+        return self._render_row()
+
+    def _render_row(self):
+        """The frame of the row in the one-row buffer."""
+        buf = self._row_buffer(1)
+        hv = self.frame_count > 0
+
+        def body(binning):
+            out, history, stats = self._frame(
+                buf[0], self.scene, self.tracer, self._history_for(hv), hv,
+                binning)
+            return _Result(out, stats, binning.max_needed(self.device),
+                           [(self._history, history)])
+
+        out = self._run(("frame", hv), body)
         self.frame_count += 1
         return out
 
     def render_np(self, cam_state, **kw) -> np.ndarray:
         return self.render(cam_state, **kw).cpu().numpy()
 
+    @torch.no_grad()
     def update_dynamic(self, maps, transforms, vert_idx, tri_idx,
                        use_subset: bool, update_lights: bool):
         """A dynamic update of ``self.scene`` (scene/dynamic.py; only the
         dirty rows ``vert_idx`` / ``tri_idx`` when ``use_subset``), then
-        the tracer's refit: ``DynamicScene.commit``'s work."""
-        if use_subset:
-            self.scene = dynamic.update_transforms_subset(
-                self.scene, maps, transforms, vert_idx, tri_idx,
-                update_lights=update_lights)
-        else:
-            self.scene = dynamic.update_transforms(self.scene, maps,
-                                                   transforms)
-        if self.tracer is not None:
-            self.tracer = self.tracer.refit(self.scene)
+        the tracer's refit, both written into the scene's and the
+        tracer's tensors: ``DynamicScene.commit``'s work."""
+        tf = self._upload_transforms(transforms)
 
+        def body(binning):
+            scene, tracer = self._updated(maps, tf, vert_idx, tri_idx,
+                                          use_subset, update_lights)
+            return _Result(None, None, None, _scene_commits(self, scene,
+                                                            tracer))
+
+        self._run(("commit", use_subset, update_lights, id(maps),
+                   id(vert_idx), id(tri_idx)), body,
+                  keep=(maps, vert_idx, tri_idx))
+
+    @torch.no_grad()
     def render_dynamic(self, cam_state, maps, transforms, vert_idx, tri_idx,
-                       use_subset: bool, update_lights: bool, **kw):
-        """A dynamic frame in one call: ``update_dynamic``, then the
-        frame. The reference fuses the two into one jitted dispatch;
-        eager PyTorch runs them in order."""
-        self.update_dynamic(maps, transforms, vert_idx, tri_idx, use_subset,
-                            update_lights)
-        return self.render(cam_state, **kw)
+                       use_subset: bool, update_lights: bool,
+                       exposure: float = 1.0, svgf_phi=DEFAULT_PHI):
+        """A dynamic frame in one call: ``update_dynamic``'s update and
+        refit, then the frame over the updated scene, in one graph (the
+        reference's one-dispatch dynamic frame); the scene and the tracer
+        are left updated, exactly as ``update_dynamic`` leaves them."""
+        buf = self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
+                                         self.frame_count)[None])
+        tf = self._upload_transforms(transforms)
+        hv = self.frame_count > 0
 
+        def body(binning):
+            scene, tracer = self._updated(maps, tf, vert_idx, tri_idx,
+                                          use_subset, update_lights)
+            out, history, stats = self._frame(
+                buf[0], scene, tracer, self._history_for(hv), hv, binning)
+            return _Result(out, stats, binning.max_needed(self.device),
+                           [(self._history, history)]
+                           + _scene_commits(self, scene, tracer))
+
+        out = self._run(("dynamic", hv, use_subset, update_lights, id(maps),
+                         id(vert_idx), id(tri_idx)), body,
+                        keep=(maps, vert_idx, tri_idx))
+        self.frame_count += 1
+        return out
+
+    @torch.no_grad()
     def render_burst(self, cam_states, exposure: float = 1.0,
-                     svgf_phi=(4.0, 128.0, 0.02, 0.0)):
-        """Render one frame per camera state in order → (K, H, W, 3). The
-        history carries from frame to frame exactly as through K
-        ``render`` calls; the reference's one-dispatch burst has no
-        counterpart in eager PyTorch."""
-        return torch.stack([self.render(cs, exposure=exposure,
-                                        svgf_phi=svgf_phi)
-                            for cs in cam_states])
+                     svgf_phi=DEFAULT_PHI):
+        """Render one frame per camera state in order → (K, H, W, 3): all
+        K rows in one copy, then K frames through ``render``'s graphs,
+        each row copied on the device into the frame's row buffer; the
+        frames and the history are exactly those of K ``render``
+        calls."""
+        rows = self._upload_rows(np.stack([
+            pack_row(cs, exposure, svgf_phi, self.frame_count + i)
+            for i, cs in enumerate(cam_states)]))
+        one, outs = self._row_buffer(1), []
+        for i in range(rows.shape[0]):
+            if rows is not one:
+                one[0].copy_(rows[i])
+            outs.append(self._render_row())
+        return torch.stack(outs)
 
     def switch_path(self, path_type):
-        """Live render-path switch: new pass stack, history dropped; the
-        scene is kept, and the tracer too unless the new path needs one
-        that is missing."""
-        self.apply_settings(path=path_type)
+        """Live render-path switch: new pass stack, history and graphs
+        dropped; the scene is kept, and the tracer too unless the new
+        path needs one that is missing."""
+        _log().info("switching render path", to=str(path_type))
+        self._apply(path=path_type)
 
     def apply_settings(self, **changes):
         """Live settings change (flags, display mode, resolution, path,
         trace_backend): rebuild the pass stack, keep the scene, drop the
-        history. The tracer is kept while it still serves (the reference
-        keeps it whatever changes), built when one is needed and missing,
-        and rebuilt when trace_backend or wide_kernel moves to another
-        traversal kernel, so that the setting takes effect."""
+        history and the graphs. The tracer is kept while it still serves
+        (the reference keeps it whatever changes), built when one is
+        needed and missing, and rebuilt when trace_backend or wide_kernel
+        moves to another traversal kernel, so that the setting takes
+        effect."""
+        _log().info("applying settings",
+                    **{k: str(v) for k, v in changes.items()})
+        self._apply(**changes)
+
+    def _apply(self, **changes):
         settings = self.settings.replace(**changes)
         path = create_render_path(settings)
         if _needs_tracer(settings, self.scene) and (
                 self.tracer is None or self.tracer.packet
                 != (settings.trace_backend == "pallas")
                 or self.tracer.wide_kernel != trace.wide_kernel_of(settings)):
-            self.tracer = trace.SceneTracer.build(self.scene, settings)
+            self.tracer = _build_tracer(self.scene, settings)
         self.settings, self.path = settings, path
+        self._history, self._graphs = {}, {}
         self.reset_history()
 
     def reset_history(self):
-        """Drop all carried history: the next frame is a first frame."""
-        self.state = FrameState.empty()
+        """Drop all carried history: the next frame is a first frame. The
+        graphs are kept, as the reference keeps its jitted programs: the
+        first frame's graph reads no history."""
         self.frame_count = 0
 
     def benchmark(self, camera, frames: int = 32, warmup: int = 4) -> dict:
@@ -157,6 +460,97 @@ class Renderer:
         return {"instances_drawn": int(s[0]), "instances_culled": int(s[1]),
                 "covered_pixels": int(s[2])}
 
+
+def _key_name(key) -> str:
+    return "/".join(str(k) for k in key[:4])
+
+
+def _capacity_for(needed: int) -> int:
+    return BIN_HEADROOM * needed + BIN_SLACK
+
+
+def _replay_frame(graph):
+    """Replays a key's frame graph → the most tile entries a raster
+    needed (None for a key without a frame); waits for the frame."""
+    graph.frame.replay()
+    native.add_counts(graph.launches)
+    needed = graph.result.needed
+    return None if needed is None else int(needed)
+
+
+def _scene_commits(renderer, scene, tracer):
+    commits = [(renderer.scene, scene)]
+    if tracer is not None:
+        commits.append((renderer.tracer, tracer))
+    return commits
+
+
+def _pairs(commits, undo=None) -> list:
+    """(buffer, new value) trees → (destination, source) tensor pairs to
+    copy. Given ``undo`` (a list; an eager frame), a history name without
+    a buffer of its shape gets one (a copy of the value) and a changed
+    non-tensor field (the refit's level order, on a first refit) is set,
+    and ``undo`` collects how to take each back; without it (under a
+    capture) either raises. A source that shares memory with any
+    destination is copied first, so the commit reads no buffer it
+    writes."""
+    pairs = []
+    for static, new in commits:
+        if isinstance(static, dict):
+            for name, v in new.items():
+                cur = static.get(name)
+                if cur is not None and cur.shape == v.shape \
+                        and cur.dtype == v.dtype:
+                    if v is not cur:
+                        pairs.append((cur, v))
+                elif undo is not None:
+                    undo.append(_restore_item(static, name))
+                    static[name] = v.clone()
+                else:
+                    raise RuntimeError(f"history '{name}' has no buffer")
+        else:
+            _tree_pairs(static, new, pairs, undo)
+    dsts = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    if len(dsts) != len(pairs):
+        raise RuntimeError("two committed buffers share memory")
+    return [(d, s.clone() if s.untyped_storage().data_ptr() in dsts else s)
+            for d, s in pairs]
+
+
+def _restore_item(d, name):
+    if name in d:
+        old = d[name]
+        return lambda: d.__setitem__(name, old)
+    return lambda: d.pop(name)
+
+
+def _tree_pairs(static, new, pairs, undo):
+    for f in dataclasses.fields(static):
+        a, b = getattr(static, f.name), getattr(new, f.name)
+        if a is b or (isinstance(a, (bool, int, float, str)) and a == b):
+            continue
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise RuntimeError(f"{f.name}: {tuple(b.shape)} {b.dtype} "
+                                   f"into {tuple(a.shape)} {a.dtype}")
+            pairs.append((a, b))
+        elif dataclasses.is_dataclass(a) and type(a) is type(b):
+            _tree_pairs(a, b, pairs, undo)
+        elif undo is not None:
+            undo.append(lambda o=static, n=f.name, v=a: setattr(o, n, v))
+            setattr(static, f.name, b)
+        else:
+            raise RuntimeError(f"{type(static).__name__}.{f.name} changed "
+                               f"under a capture")
+
+
+def _build_tracer(scene_data, settings):
+    t0 = time.perf_counter()
+    tracer = trace.SceneTracer.build(scene_data, settings)
+    _log().info("ray tracer attached", backend=settings.trace_backend,
+                tris=int(scene_data.num_triangles),
+                build_ms=round(1e3 * (time.perf_counter() - t0), 1))
+    return tracer
 
 
 def _needs_tracer(settings, scene_data) -> bool:

@@ -13,12 +13,13 @@ with the topology frozen.
 * ``update_transforms_subset``: the same for the dirty vertex and
   triangle rows only (the instance table is small and recomputed whole).
 * ``DynamicScene``: entity-level transforms, ``commit`` and
-  ``commit_and_render``.
+  ``commit_and_render`` (the update, the refit and the frame in one
+  captured graph, ``Renderer.render_dynamic``).
 
-All plain PyTorch; no kernel of the port runs here. The reference pads
-its dirty index arrays to multiples of 4096 so that its jit traces are
-reused; eager PyTorch needs no padding, and the port passes the dirty
-rows as they are.
+All plain PyTorch, with no host sync; no kernel of the port runs here.
+The reference pads its dirty index arrays to multiples of 4096 so that
+its jit traces are reused; the port caches each dirty set's index
+tensors, and the renderer keeps one graph for each set.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import maths
 from . import schema
 
 
@@ -114,9 +116,9 @@ def _update_instances(data, maps: DynamicMaps, transforms,
         .transpose(1, 2)
 
     # world boxes from the 8 local corners
-    combos = torch.tensor([[(c >> a) & 1 for a in range(3)]
-                           for c in range(8)], dtype=torch.float32,
-                          device=tf.device)
+    combos = maths.constant(tuple(tuple(float((c >> a) & 1)
+                                        for a in range(3)) for c in range(8)),
+                            tf.device)
     corners = (maps.local_lo[:, None, :] * (1.0 - combos[None])
                + maps.local_hi[:, None, :] * combos[None])   # (N, 8, 3)
     wc = torch.einsum("nij,nkj->nki", tf[:, :3, :3], corners) \
@@ -292,16 +294,14 @@ class DynamicScene:
         return out
 
     def _pending(self):
-        """The dirty set's update arguments, the transforms on the device:
-        (transforms, vert_idx, tri_idx, use_subset, update_lights)."""
+        """The dirty set's update arguments, the transforms on the host
+        (the renderer copies them into its buffer): (transforms,
+        vert_idx, tri_idx, use_subset, update_lights)."""
         vert_idx, tri_idx, lights = self._dirty_indices(
             frozenset(self._dirty_entities))
         n_tri = tri_idx.shape[0]
         use_subset = bool(n_tri and n_tri <= self.ranges["n_tris"] // 2)
         tf = torch.from_numpy(self._transforms.copy())
-        if self.device.type == "cuda":
-            # a pinned staging copy keeps the upload off the host's path
-            tf = tf.pin_memory().to(self.device, non_blocking=True)
         return tf, vert_idx, tri_idx, use_subset, lights
 
     def commit(self):
@@ -315,6 +315,12 @@ class DynamicScene:
         self._dirty_entities.clear()
 
     def commit_and_render(self, cam_state, **kw):
-        """``commit()``, then the frame."""
-        self.commit()
-        return self.renderer.render(cam_state, **kw)
+        """``commit()`` and the frame as one (``Renderer.render_dynamic``);
+        a plain frame when nothing is dirty."""
+        if not self._dirty_entities:
+            return self.renderer.render(cam_state, **kw)
+        tf, vert_idx, tri_idx, use_subset, lights = self._pending()
+        out = self.renderer.render_dynamic(cam_state, self.maps, tf, vert_idx,
+                                           tri_idx, use_subset, lights, **kw)
+        self._dirty_entities.clear()
+        return out

@@ -557,7 +557,8 @@ def test_cuda_frame_matches_cpu_frame(dev, path, flags, cam_kw, max_off,
     imgs, hits = [], []
     for d in (torch.device("cpu"), dev):
         native.reset_counts()
-        r = Renderer.for_scene(s, scene().build(d))
+        # eager frames: the hit recorder reads each query on the host
+        r = Renderer.for_scene(s, scene().build(d), capture=False)
         take = record_secondary_hits(r) if r.tracer is not None else list
         cam = OrbitCamera(width=size, height=size, **cam_kw)
         for _ in range(3):
@@ -779,3 +780,226 @@ def test_cuda_textured_frame_matches_cpu_frame(dev, scene, svgf, max_off,
     print(f"card vs CPU, {scene}, SVGF {svgf}: off-edge max {off_max} u8, "
           f"p99 {p99}")
     assert off_max <= max_off and p99 <= max_p99, (off_max, p99)
+
+
+# --- the captured frame ------------------------------------------------------
+
+def _capture_case(case):
+    """(settings, host scene factory, camera, taa, dynamic) of a case."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+
+    hyb = RenderFlags.default_hybrid()
+    rt = RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.EMISSIVE \
+        | RenderFlags.TAA
+    path, flags, scene, cam, taa = {
+        "hybrid": ("HYBRID", hyb, scenes.cornell_scene, CORNELL_KW, False),
+        "full_graph": ("HYBRID", hyb | RenderFlags.REFLECTION
+                       | RenderFlags.GI, scenes.cornell_scene, CORNELL_KW,
+                       False),
+        "forward_taa": ("FORWARD", RenderFlags.LIGHT | RenderFlags.IBL
+                        | RenderFlags.TAA, scenes.cube_scene, CUBE_KW, True),
+        "raytraced": ("RAYTRACED", rt, scenes.cube_scene, CUBE_KW, True),
+        "dynamic": ("HYBRID", hyb, scenes.cube_scene, CUBE_KW, False),
+        "cutout": ("HYBRID", hyb, scenes.cutout_scene, CUTOUT_KW, False),
+    }[case]
+    s = RenderSettings(width=64, height=64, path=RenderPathType[path],
+                       flags=flags, ao_block=8, gi_block=8)
+    return s, scene, cam, taa, case == "dynamic"
+
+
+def _render_frames(dev, case, capture, frames=4):
+    """``frames`` frames of a case on the card → (images, launches a
+    kernel made, the renderer); the dynamic case moves entity 1 before
+    each frame through DynamicScene.commit_and_render."""
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene.dynamic import DynamicScene
+
+    s, scene, cam_kw, taa, dynamic = _capture_case(case)
+    host = scene()
+    r = Renderer.for_scene(s, host.build(dev), capture=capture)
+    dyn = DynamicScene(host, r) if dynamic else None
+    cam = OrbitCamera(width=64, height=64, **cam_kw)
+    native.reset_counts()
+    imgs = []
+    for i in range(frames):
+        cs = cam.step(taa_enabled=taa)
+        if dyn is not None:
+            t = np.eye(4, dtype=np.float32)
+            t[:3, 3] = [0.3 * i, 0.75, 0.1 * i]
+            dyn.set_entity_transform(1, t)
+            imgs.append(dyn.commit_and_render(cs))
+        else:
+            imgs.append(r.render(cs))
+        cam.orbit(0.02, 0.0)
+    counts = {k.name: (k.launches, k.plain_cuda_calls)
+              for k in native.KERNELS.values()}
+    return imgs, counts, r
+
+
+@pytest.mark.parametrize("case", ["hybrid", "full_graph", "forward_taa",
+                                  "raytraced", "dynamic", "cutout"])
+def test_captured_frame_equals_eager_frame(dev, case):
+    """Four frames through the captured renderer (frames 1 and 2 run
+    eagerly and capture their keys' graphs; 3 and 4 replay) against the
+    same frames run eagerly (``capture=False``): equal bit for bit, and
+    the same kernel launches, counted over the replays."""
+    captured, counts_c, r = _render_frames(dev, case, True)
+    eager, counts_e, _ = _render_frames(dev, case, False)
+    assert sorted(k[0] for k in r._graphs) == (
+        ["dynamic", "dynamic"] if case == "dynamic" else ["frame", "frame"])
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), (case, i)
+    assert counts_c == counts_e
+    assert not any(plain for _, plain in counts_c.values())
+
+
+def test_captured_burst_and_restore(dev, tmp_path):
+    """render_burst of 4 hybrid frames equals 4 captured render() calls,
+    history included; a checkpoint after 2 frames restored into a
+    captured renderer that has run (and captured) other frames resumes
+    the same frames 3 and 4."""
+    from hybridrenderer_tpu_torch.runtime import state_io
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    s, scene, cam_kw, _, _ = _capture_case("hybrid")
+    data = scene().build(dev)
+
+    def cams(n, yaw=0.0):
+        cam = OrbitCamera(width=64, height=64, **cam_kw)
+        cam.orbit(yaw, 0.0)
+        return [cam.step() for _ in range(n)]
+
+    seq = Renderer.for_scene(s, data)
+    frames = [seq.render(c) for c in cams(2)]
+    ck = str(tmp_path / "state.npz")
+    state_io.save_renderer(ck, seq)
+    frames += [seq.render(c) for c in cams(4)[2:]]
+    bur = Renderer.for_scene(s, data)
+    burst = bur.render_burst(cams(4))
+    assert all(torch.equal(burst[i], frames[i]) for i in range(4))
+    for k, v in seq.state.history.items():
+        assert torch.equal(bur.state.history[k], v), k
+    other = Renderer.for_scene(s, data)
+    for c in cams(3, yaw=0.5):
+        other.render(c)
+    state_io.restore_renderer(ck, other)
+    resumed = [other.render(c) for c in cams(4)[2:]]
+    assert torch.equal(resumed[0], frames[2])
+    assert torch.equal(resumed[1], frames[3])
+
+
+def test_binning_overflow_raises(dev):
+    """A captured frame whose rasters need more tile entries than a fixed
+    binning capacity raises before its commit: no image, the history and
+    the frame count as they were. With the capacity no longer fixed, the
+    same view then renders (its key captured again at a capacity sized
+    from what it needed) and equals the eager frame bit for bit."""
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    s, scene, cam_kw, _, _ = _capture_case("hybrid")
+    data = scene().build(dev)
+    r = Renderer.for_scene(s, data)
+    eager = Renderer.for_scene(s, data, capture=False)
+    r.bin_capacity = 16
+    cam = OrbitCamera(width=64, height=64, **cam_kw)
+    states = [cam.step() for _ in range(3)]
+    for cs in states[:2]:     # the eager first frames bin exactly
+        r.render(cs)
+        eager.render(cs)
+    before = {k: v.clone() for k, v in r.state.history.items()}
+    with pytest.raises(RuntimeError, match="binning capacity"):
+        r.render(states[2])
+    assert r.frame_count == 2
+    assert all(torch.equal(before[k], v) for k, v in r.state.history.items())
+    r.bin_capacity = None
+    assert torch.equal(r.render(states[2]), eager.render(states[2]))
+    assert r._graphs[("frame", True)].capacity > 16
+    for k, v in eager.state.history.items():
+        assert torch.equal(r.state.history[k], v), k
+
+
+def test_binning_overflow_recaptures(dev, monkeypatch):
+    """With the per-key capacity (the default), a view that needs more
+    tile entries than its key's graph holds is captured again at a larger
+    capacity and rendered, not dropped: the cube scene at 64x64 with the
+    slack set to 0, frames 1-2 far (12 entries, capacity 24), frames 3-4
+    near (48 entries): every frame equals the eager frame bit for bit."""
+    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+
+    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    s, scene, cam_kw, _, _ = _capture_case("dynamic")
+    data = scene().build(dev)
+    far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
+                      yaw=0.0, focal_point=(0, 2.5, 0))
+    near = OrbitCamera(width=64, height=64, **cam_kw)
+    states = [far.step(), far.step(), near.step(), near.step()]
+    imgs = []
+    for capture in (True, False):
+        r = renderer_mod.Renderer.for_scene(s, data, capture=capture)
+        imgs.append([r.render(cs) for cs in states])
+        if capture:
+            assert r._graphs[("frame", True)].capacity == 2 * 48
+    for i, (a, b) in enumerate(zip(*imgs)):
+        assert torch.equal(a, b), i
+
+
+def test_cuda_display_shadow_matches_cpu(dev):
+    """The SHADOW display golden's scene, camera and two frames (cube,
+    hybrid flags, 128x128) with SVGF off, the raw 1-spp shadow and AO
+    signal, on the card against the CPU, off edges: at most 4 pixels
+    more than 2 u8 apart (one ray's hit or miss a pixel can flip on an
+    ulp), p99 1. With SVGF on the two read 32 / 3 (the chaos of
+    test_torch_display_goldens.py), so that frame is no tight witness."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import (DisplayMode, RenderFlags,
+                                                     RenderPathType)
+    from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
+    from hybridrenderer_tpu_torch.runtime.output import to_u8
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    size = 128
+    s = RenderSettings(width=size, height=size, path=RenderPathType.HYBRID,
+                       flags=RenderFlags.default_hybrid() & ~(
+                           RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
+                           | RenderFlags.SVGF_SPATIAL),
+                       display_mode=DisplayMode.SHADOW, ao_block=8,
+                       gi_block=8)
+    imgs = []
+    for d in (torch.device("cpu"), dev):
+        r = Renderer.for_scene(s, scenes.cube_scene().build(d))
+        cam = OrbitCamera(width=size, height=size, **CUBE_KW)
+        for _ in range(2):
+            img = r.render(cam.step())
+        imgs.append(to_u8(img.cpu().numpy()))
+        tri = r.state.history["ObjectID"].cpu().numpy()
+    edges = tri_boundary_mask(tri)
+    diff = np.abs(imgs[0].astype(int) - imgs[1].astype(int))
+    flips = int((diff.max(-1)[~edges] > 2).sum())
+    p99 = float(np.percentile(diff, 99))
+    print(f"card vs CPU, SHADOW signal: {flips} pixels more than 2 u8 "
+          f"apart off edges, p99 {p99}")
+    assert imgs[0].std() > 0 and flips <= 4 and p99 <= 1.0, (flips, p99)
+
+
+def test_capture_failure_raises(dev):
+    """A frame that reads a device value on the host cannot be captured:
+    the renderer raises after its eager first use and never renders it
+    eagerly instead."""
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    s, scene, cam_kw, _, _ = _capture_case("forward_taa")
+    r = Renderer.for_scene(s, scene().build(dev))
+    post = r.path.graph.passes[-1]
+    fn = post.fn
+
+    def syncing(reg, ctx):
+        out = fn(reg, ctx)
+        float(out["RENDER_OUTPUT"].sum())    # a host sync
+        return out
+
+    post.fn = syncing
+    cam = OrbitCamera(width=64, height=64, **cam_kw)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        r.render(cam.step(taa_enabled=True))
+    assert not r._graphs

@@ -261,12 +261,12 @@ def test_dynamic_render_matches_reference(reference_dynamic, kernel, svgf):
 
 def test_commit_and_render_equals_commit_then_render():
     """Renderer.render_dynamic, given the dirty set's update arguments,
-    is the same update, refit and frame as commit(); render() (which
-    commit_and_render runs): equal images, and the same scene and tracer
-    left on the renderer."""
+    and DynamicScene.commit_and_render (which runs it) are the same
+    update, refit and frame as commit(); render(): equal images, and the
+    same scene and tracer left on the renderer."""
     size = 32
 
-    def run(fused):
+    def run(mode):
         host = port_scenes.cube_scene()
         s = RenderSettings(width=size, height=size,
                            path=RenderPathType.HYBRID,
@@ -278,19 +278,25 @@ def test_commit_and_render_equals_commit_then_render():
         imgs = []
         for i in range(3):
             dyn.set_entity_transform(1, _translate(0.4 * i, 0.75, 0.0))
-            if fused:
+            if mode == "fused":
                 tf, vert_idx, tri_idx, use_subset, lights = dyn._pending()
                 dyn._dirty_entities.clear()
                 imgs.append(r.render_dynamic(cam.step(), dyn.maps, tf,
                                              vert_idx, tri_idx, use_subset,
                                              lights))
-            else:
+            elif mode == "commit_and_render":
                 imgs.append(dyn.commit_and_render(cam.step()))
+            else:
+                dyn.commit()
+                imgs.append(r.render(cam.step()))
         return imgs, r
 
-    (a, ra), (b, rb) = run(False), run(True)
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
-    assert torch.equal(ra.scene.raster_rows, rb.scene.raster_rows)
-    assert torch.equal(ra.tracer.wide.nodes_flat, rb.tracer.wide.nodes_flat)
-    assert torch.equal(ra.tracer.shade_rows, rb.tracer.shade_rows)
+    a, ra = run("commit")
+    for mode in ("fused", "commit_and_render"):
+        b, rb = run(mode)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert torch.equal(ra.scene.raster_rows, rb.scene.raster_rows)
+        assert torch.equal(ra.tracer.wide.nodes_flat,
+                           rb.tracer.wide.nodes_flat)
+        assert torch.equal(ra.tracer.shade_rows, rb.tracer.shade_rows)

@@ -9,7 +9,7 @@ For each case (the slice test's scenes and cameras, 64x64, 3 frames,
 golden settings) it renders the reference twice — jitted, and eagerly
 under ``jax.disable_jit()`` — and the port once, from the same scene
 arrays, and prints the off-edge max and p99 (u8) of reference jit vs
-eager and of port vs reference jit, for the last frame. The two
+eager and of port vs reference jit and eager, for the last frame. The two
 reference renders run the same operations; only multiply-add
 contraction and fusion under jit separate them. CASE is one of
 cube, cornell, cube_no_spatial, cornell_no_spatial, cube_full,
@@ -18,6 +18,7 @@ case (128x128, 2 frames), which also prints each render against
 tests/goldens/cornell_full_128.png, or stress_textured_128 or
 cutout_hybrid_128: the textured and the cut-out goldens' cases
 (tests/test_torch_textured_frames.py; hybrid flags, 128x128, 2 frames),
+or a display-mode golden's case (tests/test_torch_display_goldens.py),
 printed against their goldens too. An eager reference frame of the hybrid
 frame takes about a minute on a CPU, of the full graph several.
 """
@@ -35,6 +36,7 @@ from hybridrenderer_tpu_torch.runtime.output import read_png, to_u8
 from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
+from .test_torch_display_goldens import DISPLAY
 from .test_torch_full_graph import FULL_CASES
 from .test_torch_textured_frames import GOLDENS
 from .test_torch_slice import (CASES, _edge_tri_ids, _settings,
@@ -53,7 +55,14 @@ def reading(case):
             GOLDEN_128)
     base, _, spatial = case.partition("_no_")
     ref_flags, flags = RefFlags.default_hybrid(), RenderFlags.default_hybrid()
-    if case in GOLDENS:
+    display = 0
+    if case in DISPLAY:
+        mode, frames, gate_off, gate_p99 = DISPLAY[case]
+        scene_fn, cam_kw, _, _ = CASES["cube"]
+        size, display = 128, int(mode)
+        golden = read_png(os.path.join(os.path.dirname(__file__), "goldens",
+                                       case + ".png"))
+    elif case in GOLDENS:
         scene_fn, _, cam_kw, gate_off, gate_p99 = GOLDENS[case]
         size, frames = 128, 2
         golden = read_png(os.path.join(os.path.dirname(__file__), "goldens",
@@ -69,10 +78,11 @@ def reading(case):
         ref_flags &= ~RefFlags.SVGF_SPATIAL
         flags &= ~RenderFlags.SVGF_SPATIAL
     ref_data = scene_fn().build()
-    jit = reference_renderer(ref_data, size, ref_flags)
-    eager = reference_renderer(ref_data, size, ref_flags)
-    port = Renderer.for_scene(_settings(size).replace(flags=flags),
-                              scene_from_numpy(flatten(ref_data), "cpu"))
+    jit = reference_renderer(ref_data, size, ref_flags, display)
+    eager = reference_renderer(ref_data, size, ref_flags, display)
+    port = Renderer.for_scene(
+        _settings(size, display_mode=display).replace(flags=flags),
+        scene_from_numpy(flatten(ref_data), "cpu"))
     cams = [RefCamera(width=size, height=size, **cam_kw) for _ in range(2)]
     cam = OrbitCamera(width=size, height=size, **cam_kw)
     for _ in range(frames):
@@ -86,7 +96,8 @@ def reading(case):
     port_off, port_p99 = off_edge_errors(p, a, tri)
     gate = f"gate {gate_off} / {gate_p99:g}" if not spatial else "no gate"
     print(f"{case} {size}x{size}: reference jit vs eager {self_off} / "
-          f"{self_p99:g}; port vs reference {port_off} / {port_p99:g} "
+          f"{self_p99:g}; port vs reference {port_off} / {port_p99:g}, "
+          f"vs its eager render {'%d / %g' % off_edge_errors(p, b, tri)} "
           f"(off-edge max u8 / p99; {gate})", flush=True)
     if golden is not None:
         print("  against the golden: " + "; ".join(
