@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --find-big-scene   # only the search for
+                                             # BIG_OBJECTS
 
 Phases (a failed kernel check is reported and the renders still run,
 so one run shows every failure; any failure makes the script exit
@@ -18,9 +20,12 @@ non-zero without printing a result):
    and its time on the heaviest tile alone), with the tolerance stated,
    timed with CUDA events beside the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time (library); and the bilinear texture sampler (plain
-   PyTorch, no kernel) on one textured 1080p G-buffer's lookups against
-   the CPU, with its time;
+   call's time (library); K1's bf16 mode (raster_attr_bits=16) beside
+   its f32 mode; the bilinear texture sampler (plain PyTorch, no kernel)
+   on one textured 1080p G-buffer's lookups against the CPU, with its
+   time; and K2 / K2c over the bf16 triangles of a scene above the
+   reference's 96 MiB record budget (R-w-big's, BIG_OBJECTS objects) on
+   one 1080p ray-traced frame's primary and occlusion rays, exact;
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
    cube_forward_64.png, cube_raytraced_128.png, stress_textured_128.png,
    cutout_hybrid_128.png, textured_gltf_96.png (tests/goldens/
@@ -62,6 +67,16 @@ non-zero without printing a result):
       through K2c); RC, the cut-out scene on the ray-traced path (the
       primary rays' alpha re-traces and their sun occlusion through
       K2c).
+   i. the large-scene contract, 6 frames each: bench.py's Sponza-scale
+      rungs on stress_scene(1000) (284,066 triangles), S (the headline's
+      flags), S-tex (textured) and S-fwd-tex (forward + TAA, textured);
+      F-1000 and R-1000, the full graph and the ray-traced path there,
+      whose radiance hits shade from the quantized rows; R-w-big, the
+      ray-traced path with wide_kernel "compressed" on BIG_OBJECTS
+      objects (4 frames), which must trace K2 / K2c over bf16 triangles
+      and launch no K2w, as the reference demotes it; H-a16, the
+      headline with raster_attr_bits=16 (8 frames, K1's bf16 mode), with
+      each rung's binning capacity a key.
    variance_blur is checked in phase 3 but launched by no path: its
    output feeds nothing (ops/svgf.py);
 6. the captured frame: H, F, T, P, D and C at 1080p through the captured
@@ -121,6 +136,20 @@ RAYTRACED_FLAGS = ("LIGHT", "IBL", "EMISSIVE", "TAA")
 # the textured headline (bench.py's headline_tex1024_ms rung): the stress
 # scene with its four procedural colour textures at 1024^2
 TEX_SIZE = 1024
+# bench.py's Sponza-scale rungs (bench.py:251-290): 1000 objects, 284,066
+# triangles, above the reference's exact shade-row table (98,304)
+SPONZA_OBJECTS = 1000
+# a stress scene just above the reference's 96 MiB budget for 8-wide f32
+# records, so that its tracer traces bf16 triangles: 1,199,222 triangles,
+# 100,687,872 bytes of records (4177 objects: 100,638,720, below). Found
+# by `python3 chip_smoke.py --find-big-scene`, a bisection over the object
+# count (the bytes are not monotone in it: 4185 objects give less than
+# 4180), which prints each probe's triangles and bytes
+BIG_OBJECTS = 4178
+# the large-scene rungs run fewer frames than the 65k ones, to keep the
+# run's length: 6 (R-w-big 4)
+LARGE_FRAMES = 6
+BIG_FRAMES = 4
 # tests/test_golden_ladder.py: the textured golden's camera and the cut-out
 # golden's, which the cut-out paths C and RC take at 1080p too
 STRESS_GOLDEN_CAM = dict(distance=18.0, pitch=0.5, yaw=0.8,
@@ -357,6 +386,153 @@ def check_raster(dev):
                       f"({ec_o.shape[0]} tile entries, up to {most_o} in a "
                       f"tile)",
                 tol="exact (tri ids and all outputs), at both sizes")
+
+
+def check_raster_bf16(dev):
+    """K1's bf16 mode (raster_attr_bits=16) on the headline's 1080p
+    candidates, against its plain version (the f32 raster rounded to
+    nearest bf16), bit for bit; its bound counts the attribute image at
+    2 bytes a value, half of the f32 mode's."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    rec, bbox, valid = rc.pack_candidates(_clipped(data, W, H, HEADLINE_CAM))
+    ts, ec = rc.bin_candidates(bbox, valid, W, H)
+    args = (rec, ts, ec, data.raster_rows, W, H)
+    vk, ak = rc.raster_tiles(*args, attr_bits=16)
+    vp, ap = rc.raster_tiles_bf16_plain(*args)
+    same = all(torch.equal(a, b) for a, b in (
+        (vk.tri_id, vp.tri_id), (vk.depth, vp.depth), (vk.bary1, vp.bary1),
+        (vk.bary2, vp.bary2), (ak.view(torch.int16), ap.view(torch.int16))))
+    if not same:
+        raise AssertionError("K1's bf16 mode disagrees with its plain "
+                             "version at 1920x1080")
+    ms = cuda_time(lambda: rc.raster_tiles(*args, attr_bits=16), 20)
+    ms32 = cuda_time(lambda: rc.raster_tiles(*args), 20)
+    plain_ms = cuda_time(lambda: rc.raster_tiles_bf16_plain(*args), 2)
+    b = bound(nbytes(rec, ts, ec, data.raster_rows, vk.tri_id, vk.depth,
+                     vk.bary1, vk.bary2, ak),
+              20.0 * ec.shape[0] * rc.TILE * rc.TILE)
+    log(f"[kernel] raster_tiles_bf16: {ms:.4f} ms against the f32 mode's "
+        f"{ms32:.4f} ms in the same call")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=b,
+                shape=f"{W}x{H}, {ec.shape[0]} tile entries, "
+                      f"{rec.shape[0]} candidates, bf16 attributes; the f32 "
+                      f"mode {ms32:.4f} ms in the same call",
+                tol="exact (tri ids, depth, barycentrics and the bf16 bits)")
+
+
+def _big_scene():
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    return scenes.stress_scene(num_objects=BIG_OBJECTS)
+
+
+def check_quantized_trace(dev):
+    """K2 and K2c over a quantized scene (R-w-big: stress_scene of
+    BIG_OBJECTS objects, trace_backend "pallas-wide", wide_kernel
+    "compressed", which the reference demotes to its direct kernel over
+    bf16 records) on the rays of one 1080p ray-traced frame: the primary
+    rays (K2c) and their sun occlusion (K2), recorded as the path hands
+    them to the tracer, against the plain versions: every triangle, t,
+    u and v equal."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import trace_cuda
+    from hybridrenderer_tpu_torch.ops.trace import (OCCLUSION_TMIN,
+                                                    RADIANCE_TMIN,
+                                                    VMEM_SCENE_BUDGET)
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    t0 = time.perf_counter()
+    data = _big_scene().build(dev)
+    r = Renderer.for_scene(_raytraced_settings(
+        W, H, trace_backend="pallas-wide", wide_kernel="compressed"), data,
+        capture=False)
+    tracer = r.tracer
+    log(f"[quantized] stress_scene({BIG_OBJECTS}): {data.num_triangles} "
+        f"triangles, 8-wide f32 records {tracer.wide_bytes} bytes (budget "
+        f"{VMEM_SCENE_BUDGET}); bf16 {tracer.quantized}, wide kernel "
+        f"{tracer.wide_kernel}, demotion: {tracer.demotion}; scene + "
+        f"tracer {time.perf_counter() - t0:.1f} s")
+    if not tracer.quantized or tracer.wide_kernel is not None:
+        raise AssertionError("R-w-big's tracer is not K2 / K2c over bf16 "
+                             "triangles")
+    closest, occl = [], []
+    trace, occluded = tracer.trace_radiance, tracer.occluded
+
+    def rec_radiance(scene, origin, direction, ctx, depth=0, active=None):
+        closest.append(tracer.radiance_rays(origin, direction, active))
+        return trace(scene, origin, direction, ctx, depth, active=active)
+
+    def rec_occluded(origin, direction, tmax, active, width=0):
+        R = origin.shape[0]
+        occl.append((origin.contiguous(), direction.contiguous(),
+                     torch.full((R,), float(tmax), device=origin.device),
+                     active.contiguous()))
+        return occluded(origin, direction, tmax, active, width)
+
+    tracer.trace_radiance, tracer.occluded = rec_radiance, rec_occluded
+    r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
+        taa_enabled=True))
+    del tracer.trace_radiance, tracer.occluded
+    if len(closest) != 1 or len(occl) != 1:
+        raise AssertionError(f"expected one primary and one occlusion "
+                             f"query, got {len(closest)}, {len(occl)}")
+    (o, d, t, a), (oo, od, ot, oa) = closest[0], occl[0]
+    p = tracer.packed
+    kc = trace_cuda.intersect_closest(p, o, d, RADIANCE_TMIN, t, a, W)
+    pc = trace_cuda.intersect_closest_plain(p, o, d, RADIANCE_TMIN, t, a)
+    ka = trace_cuda.intersect_any(p, oo, od, OCCLUSION_TMIN, ot, oa, W)
+    pa = trace_cuda.intersect_any_plain(p, oo, od, OCCLUSION_TMIN, ot, oa)
+    same = all(torch.equal(x, y) for x, y in zip(kc, pc)) \
+        and torch.equal(ka, pa)
+    hit = (pc[1] >= 0)[a].float().mean().item()
+    ms_c = cuda_time(lambda: trace_cuda.intersect_closest(
+        p, o, d, RADIANCE_TMIN, t, a, W), 10)
+    ms_a = cuda_time(lambda: trace_cuda.intersect_any(
+        p, oo, od, OCCLUSION_TMIN, ot, oa, W), 10)
+    log(f"[quantized] K2c on {int(a.sum())} primary rays (hit {hit:.3f}) "
+        f"{ms_c:.4f} ms, K2 on {int(oa.sum())} occlusion rays {ms_a:.4f} "
+        f"ms, tree depth {p.depth}; equal to the plain versions: {same} "
+        f"on {nvidia_smi_line()}")
+    if not same:
+        raise AssertionError("K2 / K2c over bf16 triangles disagree with "
+                             "their plain versions")
+
+
+def find_big_scene():
+    """Bisection over stress_scene's object count for the smallest whose
+    8-wide f32 records exceed the reference's 96 MiB budget (the scene
+    built on the card, the SAH tree and the collapse on the host)."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import bvh, bvh_wide, trace
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    dev = torch.device("cuda", 0)
+
+    def size(n):
+        s = scenes.stress_scene(num_objects=n).build(dev).triangles
+        wide = bvh_wide.build_wide(bvh.build_sah(s.v0, s.v1, s.v2),
+                                   s.v0, s.v1, s.v2)
+        log(f"[big] stress_scene({n}): {s.count} triangles, records "
+            f"{wide.vmem_bytes} bytes, meta {4 * wide.meta.numel()} bytes")
+        return wide.vmem_bytes > trace.VMEM_SCENE_BUDGET
+
+    lo, hi = 4000, 4700
+    if size(lo) or not size(hi):
+        raise AssertionError("the budget lies outside the search range")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if size(mid) else (mid, hi)
+    log(f"[big] smallest object count above the budget: {hi} "
+        f"({lo} below)")
 
 
 def check_trace(dev):
@@ -1383,6 +1559,10 @@ def frame_breakdown(name, r, cam, next_frame):
     return busy, ops
 
 
+def _key(key) -> str:
+    return "/".join(str(k) for k in key[:2])
+
+
 def rot_y(a):
     """bench.py's dynamic rung's entity rotation."""
     c, s = float(np.cos(a)), float(np.sin(a))
@@ -1420,17 +1600,19 @@ def _path_renderer(dev, settings, host_fn, dynamic, capture=True):
 
 def phase_render(dev, out_dir, name, settings, kernels, absent=(),
                  dynamic=False, host_fn=None, cam_kw=HEADLINE_CAM,
-                 per_frame=None):
-    """8 frames at 1920x1080 through the captured renderer (frames 1 and
-    2 run eagerly and capture their keys' graphs, frames 3-8 replay) with
+                 per_frame=None, frames=None, check=None):
+    """``frames`` (default 8) frames at 1920x1080 through the captured
+    renderer (frames 1 and 2 run eagerly and capture their keys' graphs,
+    the later frames replay) with
     the counts set to 0 just before and read just after; ``kernels`` must
     each have launched, ``absent`` none, and each kernel of ``per_frame``
     exactly that many times a frame (replays count the launches their
     graph captured). ``host_fn`` and ``dynamic`` as for _path_renderer;
     the camera, seen from ``cam_kw``, orbits 0.01 rad a frame but on the
-    dynamic paths (its TAA jitter steps). Returns (the launch counts, the
-    last frame, the profiled frame's (device ms, device operations) or
-    None, the median ms/frame)."""
+    dynamic paths (its TAA jitter steps); ``check(renderer)`` raises on
+    what the rung must show of its scene and tracer. Returns (the launch
+    counts, the last frame, the profiled frame's (device ms, device
+    operations) or None, the median ms/frame)."""
     import torch
 
     from hybridrenderer_tpu_torch import native
@@ -1438,11 +1620,20 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     from hybridrenderer_tpu_torch.core.types import RenderPathType
     from hybridrenderer_tpu_torch.runtime.output import write_png
 
-    W, H, F = settings.width, settings.height, HEADLINE["frames"]
+    W, H = settings.width, settings.height
+    F = HEADLINE["frames"] if frames is None else frames
     t0 = time.perf_counter()
     r, dyn, next_frame = _path_renderer(dev, settings, host_fn, dynamic)
+    tracer = r.tracer
+    rows = "exact" if r.scene.shade_rows_q is None else "quantized"
     log(f"[{name}] {r.scene.num_triangles} triangles; BVH build + renderer "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; hit shading from {rows} rows"
+        + ("" if tracer is None else
+           f"; tracer {tracer.backend}, wide kernel {tracer.wide_kernel}, "
+           f"bf16 triangles {tracer.quantized}, wide records "
+           f"{tracer.wide_bytes} bytes, demotion {tracer.demotion}"))
+    if check is not None:
+        check(r)
     cam = OrbitCamera(width=W, height=H, **cam_kw)
 
     torch.cuda.synchronize()
@@ -1494,10 +1685,12 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     if wide is not None:
         log(f"[{name}] leaf pushes past the reference's 128 entries: "
             f"{int(wide.deep_pushes.item())}")
+    capacity = {_key(k): g.capacity for k, g in r._graphs.items()}
     log(f"[{name}] median ms/frame (frames 3-{F}, replayed) {med:.2f} on "
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
         f"launches {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; image {png}")
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; binning "
+        f"capacity {capacity}; image {png}")
     prof = frame_breakdown(name, r, cam, next_frame)
     return launches, img, prof, med
 
@@ -1723,6 +1916,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=tempfile.gettempdir(),
                     help="directory for the rendered PNGs")
+    ap.add_argument("--find-big-scene", action="store_true",
+                    help="only search the object count BIG_OBJECTS names")
     args = ap.parse_args(argv)
 
     import torch
@@ -1740,11 +1935,16 @@ def main(argv=None):
     from hybridrenderer_tpu_torch import native
 
     phase_environment()
+    if args.find_big_scene:
+        native.bvh_library()
+        find_big_scene()
+        return 0
     phase_build()
     # every check runs, so one call reports every failure; any failure
     # fails the script after the renders
     results, failures = {}, []
     for name, check in (("raster_tiles", check_raster),
+                        ("raster_tiles_bf16", check_raster_bf16),
                         ("trace_any", check_trace),
                         ("trace_closest", check_trace_closest),
                         ("packet_path", check_packet_path),
@@ -1769,11 +1969,13 @@ def main(argv=None):
             + (f" vs {lib:.4f} ms library" if lib is not None else "")
             + f"; bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) "
             f"at {res['shape']}{off}")
-    try:
-        check_sampler(dev)
-    except AssertionError as e:
-        log(f"[sampler] FAILED: {e}")
-        failures.append("sampler")
+    for name, check in (("sampler", check_sampler),
+                        ("quantized", check_quantized_trace)):
+        try:
+            check(dev)
+        except AssertionError as e:
+            log(f"[{name}] FAILED: {e}")
+            failures.append(name)
     phase_golden(dev)
     from hybridrenderer_tpu_torch.core.types import RenderFlags
     from hybridrenderer_tpu_torch.scene import scene as scenes
@@ -1850,6 +2052,60 @@ def main(argv=None):
             _raytraced_settings(W, H, wide_kernel=k, **wide),
             ["raster_tiles", kernel, "window_sample"],
             absent=direct + [other[kernel]])
+    # the large-scene contract: bench.py's 1000-object rungs (S, S-tex,
+    # S-fwd-tex) and the full graph and ray-traced path on the same scene
+    # (F-1000, R-1000), whose radiance hits shade from the quantized rows;
+    # R-w-big, the ray-traced path with wide_kernel "compressed" on the
+    # smallest scene above the 96 MiB record budget, traced as the
+    # reference does there (K2 / K2c over bf16 triangles, no K2w); and
+    # H-a16, the headline with bf16 raster attributes
+    def sponza():
+        return scenes.stress_scene(num_objects=SPONZA_OBJECTS)
+
+    def sponza_tex():
+        return scenes.stress_scene(num_objects=SPONZA_OBJECTS, textured=True)
+
+    def quantized_rows(r):
+        if r.scene.shade_rows_q is None:
+            raise AssertionError("the 1000-object scene does not shade "
+                                 "from the quantized rows")
+
+    def bf16_triangles(r):
+        if not r.tracer.quantized or r.tracer.wide_kernel is not None:
+            raise AssertionError("R-w-big's tracer is not K2 / K2c over "
+                                 "bf16 triangles")
+
+    rt = ["raster_tiles", "trace_closest", "trace_any", "window_sample"]
+    large = dict(frames=LARGE_FRAMES)
+    runs["sponza"] = phase_render(dev, args.out, "sponza",
+                                  _hybrid_settings(W, H), hybrid,
+                                  host_fn=sponza, **large)
+    runs["sponza_tex"] = phase_render(dev, args.out, "sponza_tex",
+                                      _hybrid_settings(W, H), hybrid,
+                                      host_fn=sponza_tex, **large)
+    runs["sponza_fwd_tex"] = phase_render(
+        dev, args.out, "sponza_fwd_tex", _forward_settings(W, H),
+        ["raster_tiles", "window_sample"], host_fn=sponza_tex, **large)
+    runs["full_graph_1000"] = phase_render(
+        dev, args.out, "full_graph_1000", _hybrid_settings(
+            W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
+        hybrid + ["trace_closest"], host_fn=sponza, check=quantized_rows,
+        **large)
+    runs["raytraced_1000"] = phase_render(
+        dev, args.out, "raytraced_1000", _raytraced_settings(W, H), rt,
+        host_fn=sponza, check=quantized_rows, **large)
+    runs["raytraced_wide_big"] = phase_render(
+        dev, args.out, "raytraced_wide_big",
+        _raytraced_settings(W, H, wide_kernel="compressed", **wide), rt,
+        absent=["trace_wide", "trace_mimt"], host_fn=_big_scene,
+        check=bf16_triangles, frames=BIG_FRAMES)
+    runs["headline_a16"] = phase_render(
+        dev, args.out, "headline_a16",
+        _hybrid_settings(W, H, raster_attr_bits=16),
+        ["raster_tiles_bf16"] + hybrid[1:], absent=["raster_tiles"])
+    diff = np.abs(runs["headline_a16"][1] - runs["headline"][1])
+    log(f"[headline_a16] last frame against the headline's (f32 "
+        f"attributes): max abs diff {diff.max():.3g}, mean {diff.mean():.3g}")
     paths = {name: launches for name, (launches, *_) in runs.items()}
     # the wide kernels change no visibility and no closest t: the dynamic
     # and ray-traced frames equal the K2 / K2c paths' frames

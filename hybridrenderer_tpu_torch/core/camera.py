@@ -181,6 +181,15 @@ class OrbitCamera:
             self.focal_point + self.forward * fwd + self.right * strafe
             + np.array([0.0, lift, 0.0], np.float32))
 
+    def resize(self, width: int, height: int):
+        self.width, self.height = width, height
+        self._jitter_table = maths.halton_jitter_sequence(width, height)
+
+    def frustum_planes(self):
+        """(6, 4) inward planes of the current view (reversed-Z)."""
+        return maths.frustum_from_viewproj(
+            torch.from_numpy(self.proj_matrix() @ self.view_matrix()))
+
     def step(self, taa_enabled: bool = False) -> CameraState:
         view = self.view_matrix()
         proj = self.proj_matrix()

@@ -2,18 +2,19 @@
 
 Only the fields the ported paths read are ported, with the reference's
 defaults. The reference's kernel-backend fields (raster_backend,
-svgf_backend, svgf_temporal_gather, bvh_builder) pick Pallas or jnp by
-platform; here the device of the tensors picks the kernel or its plain
-version, so they are not fields and passing one raises TypeError. So
-does passing gi_layout or ao_layout (relayouts of the TPU's ray packets
-that change no result), shade_fetch (an A/B switch of the hit-shading
-fetch) or debug_radiance_stage (a diagnostic cut of the radiance pass).
-Three kernel choices are settings, because they pick between kernels
-of the port: ``trace_backend``, ``wide_kernel`` and ``raster_eval``
-(below). Nothing is read from the environment. The reference's wide-tree
-shape fields ``bvh_leaf_tris`` and ``bvh_width`` are not ported (the
-tree is 8-wide with 4-triangle leaves, their defaults): passing one
-raises TypeError.
+svgf_backend, svgf_temporal_gather) pick Pallas or jnp by platform;
+here the device of the tensors picks the kernel or its plain version, so
+they are not fields and passing one raises TypeError. So does passing
+gi_layout or ao_layout (relayouts of the TPU's ray packets that change
+no result), shade_fetch (an A/B switch of the hit-shading fetch) or
+debug_radiance_stage (a diagnostic cut of the radiance pass). Three
+kernel choices are settings, because they pick between kernels of the
+port: ``trace_backend``, ``wide_kernel`` and ``raster_eval`` (below);
+``bvh_builder`` and ``raster_attr_bits`` change the image, as in the
+reference. Nothing is read from the environment. The reference's
+wide-tree shape fields ``bvh_leaf_tris`` and ``bvh_width`` are not
+ported (the tree is 8-wide with 4-triangle leaves, their defaults):
+passing one raises TypeError.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .types import DisplayMode, RenderFlags, RenderPathType
 TRACE_BACKENDS = ("auto", "pallas-wide", "jnp", "pallas")
 RASTER_EVALS = (None, "v1", "v2", "v3", "v4")
 WIDE_KERNELS = (None, "direct", "compressed", "mimt")
+BVH_BUILDERS = ("auto", "sah", "lbvh")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +41,9 @@ class RenderSettings:
     svgf_bits: int = 16
     # Back-face culling of opaque single-sided triangles: "back" | "none"
     raster_cull: str = "back"
-    # Raster kernel attribute output width (f32 only in the port)
+    # width of the raster kernel's 40 interpolated attribute planes: 32
+    # (f32) or 16 (bf16, rounded to nearest; upcast to f32 for the
+    # G-buffer math, as the reference's RGBA16F G-buffer targets)
     raster_attr_bits: int = 32
 
     ao_radius: float = 10.0
@@ -75,13 +79,20 @@ class RenderSettings:
     # "v1" and "v4" are K1's exact depth. The G-buffer pass always runs
     # K1: the reference downgrades v2 / v3 to v1 where attributes ride
     raster_eval: "str | None" = None
+    # BVH build: "auto" (= "sah", binned SAH) or "lbvh" (the Karras radix
+    # tree, faster to build); both by native/bvh_builder.cpp
+    bvh_builder: str = "auto"
 
     def __post_init__(self):
         if self.svgf_bits not in (16, 32):
             raise ValueError(f"svgf_bits must be 16 or 32, got "
                              f"{self.svgf_bits}")
-        if self.raster_attr_bits != 32:
-            raise ValueError("raster_attr_bits=16 is not ported")
+        if self.raster_attr_bits not in (16, 32):
+            raise ValueError(f"raster_attr_bits must be 16 or 32, got "
+                             f"{self.raster_attr_bits}")
+        if self.bvh_builder not in BVH_BUILDERS:
+            raise ValueError(f"bvh_builder must be one of {BVH_BUILDERS}, "
+                             f"got {self.bvh_builder!r}")
         if self.trace_backend not in TRACE_BACKENDS:
             raise ValueError(f"trace_backend must be one of "
                              f"{TRACE_BACKENDS}, got {self.trace_backend!r}")
@@ -100,5 +111,12 @@ class RenderSettings:
             raise ValueError(f"raster_cull must be 'back' or 'none', got "
                              f"{self.raster_cull!r}")
 
+    def has(self, flag: RenderFlags) -> bool:
+        return bool(self.flags & flag)
+
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def resolution(self):
+        return (self.height, self.width)

@@ -58,6 +58,16 @@
 // faster. The TPU kernels' 128-lane record blocks, one-hot MXU picks
 // and quantized depth keys were TPU workarounds; K1 does not keep them,
 // K1v keeps only the key's winner rule, which is its contract.
+//
+// K1's bf16 mode (raster_attr_bits=16; raster_pallas.py:1107, a Pallas
+// store of f32 values into a bf16 output) computes every attribute as
+// the f32 mode does and stores it rounded to the nearest bf16
+// (__float2bfloat16_rn, the rounding of torch's float -> bfloat16): a
+// float4 of channels goes out as 8 bytes, so the tile's attribute store,
+// the bound of the f32 mode, moves half the bytes (96 B a pixel with
+// the visibility outputs, against 176).
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -159,19 +169,37 @@ __device__ __forceinline__ int write_winner(
   return tri;
 }
 
+// four attribute channels stored as f32 (float4) or rounded to bf16
+// (uint2: four bf16, the first channel in the low half of .x)
+__device__ __forceinline__ void store4(float4* out, size_t i, float4 o) {
+  out[i] = o;
+}
+
+__device__ __forceinline__ void store4(uint2* out, size_t i, float4 o) {
+  uint2 v;
+  v.x = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(o.x))) |
+        (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(o.y)))
+         << 16);
+  v.y = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(o.z))) |
+        (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(o.w)))
+         << 16);
+  out[i] = v;
+}
+
 // K1's attribute image for the block's tile, from the winners in shared
 // memory (stri < 0: background). The tile's (pixel, channel) pairs are
-// walked as float4s in memory order, so a warp stores 512 contiguous
-// bytes: a tile row of 16 pixels is 640 contiguous floats, and a float4
-// never straddles two pixels (40 = 10 x 4). Each value is the plain
-// version's expression in its order.
+// walked as groups of four channels in memory order, so a warp stores
+// 512 (bf16: 256) contiguous bytes: a tile row of 16 pixels is 640
+// contiguous values, and a group never straddles two pixels (40 =
+// 10 x 4). Each value is the plain version's expression in its order.
+template <typename Out>
 __device__ __forceinline__ void write_attrs(
     const float* __restrict__ attr_table, const int* stri, const float* sb1,
     const float* sb2, int x0, int y0, int width, int height,
-    float* __restrict__ attr_out) {
-  constexpr int kVec = kAttrOut / 4;            // float4s per pixel
-  constexpr int kRowVec = kTile * kVec;         // float4s per tile row
-  float4* out = reinterpret_cast<float4*>(attr_out);
+    void* __restrict__ attr_out) {
+  constexpr int kVec = kAttrOut / 4;            // groups of 4 per pixel
+  constexpr int kRowVec = kTile * kVec;         // groups per tile row
+  Out* out = reinterpret_cast<Out*>(attr_out);
   for (int i = threadIdx.x; i < kTile * kRowVec; i += kThreads) {
     const int ly = i / kRowVec;
     const int j = i - ly * kRowVec;
@@ -196,12 +224,14 @@ __device__ __forceinline__ void write_attrs(
         o = row[8 + v];
       }
     }
-    out[(static_cast<size_t>(y0 + ly) * width + x0 + lx) * kVec + v] = o;
+    store4(out, (static_cast<size_t>(y0 + ly) * width + x0 + lx) * kVec + v,
+           o);
   }
 }
 
-// kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group
-template <bool kAttrs, bool kKeyed>
+// kKeyed: K1v's winner rule (vis-only), in chunks of one 128-entry group;
+// Out: the attribute store, float4 (f32) or uint2 (bf16)
+template <bool kAttrs, bool kKeyed, typename Out>
 __global__ void __launch_bounds__(kThreads)
 raster_tiles_kernel(const float4* __restrict__ rec4,
                     const int* __restrict__ tile_start,
@@ -209,7 +239,7 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
                     const float* __restrict__ attr_table, int width,
                     int height, int ntx, float* __restrict__ depth_out,
                     int* __restrict__ tri_out, float* __restrict__ bary_out,
-                    float* __restrict__ attr_out) {
+                    void* __restrict__ attr_out) {
   constexpr int kChunk = kKeyed ? kGroup : kThreads;
   __shared__ float4 srec[kChunk * kRec4];
   __shared__ int scand[kChunk];
@@ -282,31 +312,33 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
     sb1[threadIdx.x] = b1;
     sb2[threadIdx.x] = b2;
     __syncthreads();
-    write_attrs(attr_table, stri, sb1, sb2, (tile % ntx) * kTile,
-                (tile / ntx) * kTile, width, height, attr_out);
+    write_attrs<Out>(attr_table, stri, sb1, sb2, (tile % ntx) * kTile,
+                     (tile / ntx) * kTile, width, height, attr_out);
   }
 }
 
 }  // namespace
 
-// attr_table and attrs null: vis-only; keyed (vis-only): K1v. rec (and
-// attr_table, attrs) are 16-byte aligned.
+// attr_table and attrs null: vis-only; keyed (vis-only): K1v; attr_bf16:
+// attrs is bf16 (K1's bf16 mode). rec (and attr_table, attrs) are
+// 16-byte aligned.
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
-                              int keyed, int width, int height, int ntx,
-                              void* depth, void* tri, void* bary,
+                              int keyed, int attr_bf16, int width, int height,
+                              int ntx, void* depth, void* tri, void* bary,
                               void* attrs, void* stream) {
   if (keyed && attr_table) return static_cast<int>(cudaErrorInvalidValue);
   const int nty = (height + kTile - 1) / kTile;
-  auto kernel = keyed        ? raster_tiles_kernel<false, true>
-                : attr_table ? raster_tiles_kernel<true, false>
-                             : raster_tiles_kernel<false, false>;
+  auto kernel = keyed ? raster_tiles_kernel<false, true, float4>
+                : !attr_table ? raster_tiles_kernel<false, false, float4>
+                : attr_bf16   ? raster_tiles_kernel<true, false, uint2>
+                              : raster_tiles_kernel<true, false, float4>;
   kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
       static_cast<const float*>(attr_table), width, height, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
-      static_cast<float*>(bary), static_cast<float*>(attrs));
+      static_cast<float*>(bary), attrs);
   HR_RETURN_LAUNCH_STATUS();
 }
 

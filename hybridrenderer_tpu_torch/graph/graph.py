@@ -30,6 +30,10 @@ class RenderGraph:
         self.passes: List[PassDecl] = []
         self._compiled = False
 
+    def reset(self):
+        self.passes.clear()
+        self._compiled = False
+
     def add_pass(self, name, fn, reads=(), writes=(), save_as_history=None,
                  kind="compute"):
         self.passes.append(PassDecl(name, fn, list(reads), list(writes),

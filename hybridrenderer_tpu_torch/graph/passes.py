@@ -94,7 +94,7 @@ def make_gbuffer_pass(settings):
         def raster(tris):
             return raster_cuda.rasterize_binned(
                 tris, settings.width, settings.height, sc.raster_rows,
-                binning=ctx.binning)
+                binning=ctx.binning, attr_bits=settings.raster_attr_bits)
 
         if sc.has_alpha_test:
             mat = sc.instances.material[sc.triangles.instance.long()].long()

@@ -86,12 +86,13 @@ def _build(out_path, cmd_for):
 
 @functools.cache
 def bvh_library() -> ctypes.CDLL:
-    """The native BVH builder, compiled with g++ at first use."""
+    """The native BVH builders (binned SAH and LBVH), compiled with g++
+    at first use."""
     lib = ctypes.CDLL(_host_library(BVH_SOURCE, "libhr_bvh"))
     fp, ip = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
-    lib.hrtpu_build_sah.argtypes = [fp, fp, fp, ctypes.c_int64, fp, fp,
-                                    ip, ip, ip]
-    lib.hrtpu_build_sah.restype = ctypes.c_int
+    for fn in (lib.hrtpu_build_sah, lib.hrtpu_build_lbvh):
+        fn.argtypes = [fp, fp, fp, ctypes.c_int64, fp, fp, ip, ip, ip]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -134,7 +135,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name → argument types (every one ends with the stream)
 _SIGNATURES = {
-    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                        _P],
     "hr_trace_packet": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
                         _P, _P, _P],
     "hr_trace_any": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
@@ -210,6 +212,9 @@ KERNELS = {
         # K1's keyed vis-only mode (csrc/raster.cu), counted on its own
         Kernel("raster_vis", _CSRC + "raster.cu",
                _TPU + "raster_pallas.py:519"),
+        # K1's bf16 attribute mode (raster_attr_bits=16), counted on its own
+        Kernel("raster_tiles_bf16", _CSRC + "raster.cu",
+               _TPU + "raster_pallas.py:784"),
         Kernel("trace_any", _CSRC + "trace.cu",
                _TPU + "trace_pallas.py:869"),
         Kernel("trace_closest", _CSRC + "trace.cu",

@@ -1,7 +1,10 @@
 """Binary BVH over the world-space triangle soup
-(hybridrenderer_tpu/ops/bvh.py): the binned-SAH host build of
+(hybridrenderer_tpu/ops/bvh.py): the binned-SAH and LBVH host builds of
 native/bvh_builder.cpp, loaded through ctypes (native.bvh_library), and
-the frozen-topology refit of dynamic scenes.
+the frozen-topology refit of dynamic scenes. The reference refits with a
+sparse table of range minima (its refit_plan / refit_bvh_rmq); that
+takes the same exact min / max unions over the same leaf sets as the
+level refit here, so it is not ported.
 
 Node indexing for T triangles: internal nodes 0 .. T-2 (root 0), leaf k
 = node (T-1)+k holding one triangle.
@@ -28,10 +31,18 @@ class BVH:
     num_tris: int
 
 
-def build_sah(v0, v1, v2, device=None) -> BVH:
-    """(T, 3) world-space triangle corners → binned-SAH BVH on
-    ``device`` (default: the corners' device). The build runs on the
-    host; a failed build raises."""
+BUILDERS = {"sah": "hrtpu_build_sah", "lbvh": "hrtpu_build_lbvh"}
+
+
+def build_bvh(v0, v1, v2, builder="sah", device=None) -> BVH:
+    """(T, 3) world-space triangle corners → BVH on ``device`` (default:
+    the corners' device) from the native ``builder``: "sah" (binned SAH,
+    the reference's default) or "lbvh" (the Karras radix tree over Morton
+    codes). The build runs on the host; a failed build raises."""
+    entry = BUILDERS.get(builder)
+    if entry is None:
+        raise ValueError(f"bvh builder must be one of {tuple(BUILDERS)}, "
+                         f"got {builder!r}")
     device = v0.device if device is None else torch.device(device)
     a0, a1, a2 = (np.ascontiguousarray(v.detach().cpu().numpy(), np.float32)
                   for v in (v0, v1, v2))
@@ -49,13 +60,18 @@ def build_sah(v0, v1, v2, device=None) -> BVH:
         return x.ctypes.data_as(ctypes.POINTER(t))
 
     f, i = ctypes.c_float, ctypes.c_int32
-    rc = native.bvh_library().hrtpu_build_sah(
+    rc = getattr(native.bvh_library(), entry)(
         p(a0, f), p(a1, f), p(a2, f), T, p(nmin, f), p(nmax, f),
         p(left, i), p(right, i), p(tri, i))
     if rc != 0:
-        raise RuntimeError(f"hrtpu_build_sah failed with code {rc}")
+        raise RuntimeError(f"{entry} failed with code {rc}")
     return BVH(*(torch.from_numpy(x).to(device)
                  for x in (nmin, nmax, left, right, tri)), num_tris=T)
+
+
+def build_sah(v0, v1, v2, device=None) -> BVH:
+    """``build_bvh`` with the binned-SAH builder."""
+    return build_bvh(v0, v1, v2, "sah", device)
 
 
 def refit_levels(bvh: BVH) -> list:

@@ -24,9 +24,13 @@ layouts (``nodes`` / ``leaves`` (T, 48, 128), ``pack_p8``,
   the binary node behind each slot and the triangle behind each cluster
   entry (-1 for none), the maps of ``refit_wide``.
 
-``quantize_bf16`` (the reference's bf16 records, used only when the f32
-records exceed its 96 MiB VMEM budget) is not ported: SceneTracer raises
-there instead (ops/trace.py).
+``quantize_bf16`` gives the reference's bf16 records, which it traces
+when the f32 records exceed its 96 MiB VMEM budget (ops/trace.py):
+child boxes rounded outward (min down, max up), leaf v0 / e1 / e2
+rounded to nearest, ids exact. The port keeps them in the same f32
+records, where every bf16 value is exact, so the kernels read them
+unchanged; ``quantize_triangles`` gives the same leaf geometry a
+triangle, which K2 / K2c trace in the reference's direct kernel's place.
 """
 from __future__ import annotations
 
@@ -57,11 +61,15 @@ class WideBVH:
     # entries, which the reference's kernels drop (ops/trace_cuda.py
     # WIDE_LEAF_STACK); a refit keeps the counter
     deep_pushes: Any = None
+    # the records hold the bf16 values of quantize_bf16 (in f32)
+    quantized: bool = False
 
     @property
     def vmem_bytes(self) -> int:
-        """The f32 records' size, the reference's VMEM-budget measure."""
-        return 4 * (self.nodes_flat.numel() + self.leaves_flat.numel())
+        """The records' size as the reference stores them (f32, or bf16
+        once quantized), its VMEM-budget measure."""
+        return (2 if self.quantized else 4) * (self.nodes_flat.numel()
+                                               + self.leaves_flat.numel())
 
 
 def _depths(parent: np.ndarray) -> np.ndarray:
@@ -379,5 +387,73 @@ def refit_wide(wide: WideBVH, node_min, node_max, v0, v1, v2) -> WideBVH:
                  torch.zeros((rows, 2), dtype=torch.float32,
                              device=p0.device)]
     leaves = torch.cat(cols, dim=-1)
+    if wide.quantized:
+        nodes, leaves = quantize_refit_device(nodes, leaves)
     return dataclasses.replace(wide, nodes_flat=nodes.contiguous(),
                                leaves_flat=leaves.contiguous())
+
+
+# bf16 rounding on bit patterns, in int32 (a bf16's 16 bits as a value in
+# [0, 65535]); torch's float32 → bfloat16 conversion rounds to nearest
+# even, as the reference's does
+def _bf16_rne(x):
+    """(bf16 nearest to x, its bits)."""
+    b = x.to(torch.float32).to(torch.bfloat16)
+    return b, b.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def _bf16_of(bits):
+    return torch.where(bits >= 32768, bits - 65536, bits).to(
+        torch.int16).view(torch.bfloat16)
+
+
+def _bf16_down(x):
+    """Largest bfloat16 <= x (an AABB minimum rounded outward): a value
+    rounded up steps one bf16 toward -inf; +0 steps to the smallest
+    negative value."""
+    b, bits = _bf16_rne(x)
+    stepped = torch.where(bits >= 0x8000, bits + 1, bits - 1) & 0xFFFF
+    stepped = torch.where(bits == 0, 0x8001, stepped)
+    return _bf16_of(torch.where(b.to(torch.float32) > x, stepped, bits))
+
+
+def _bf16_up(x):
+    """Smallest bfloat16 >= x (an AABB maximum rounded outward); -0 is
+    taken as +0 so that the step is monotone."""
+    b, bits = _bf16_rne(x)
+    bits0 = torch.where(bits == 0x8000, 0, bits)
+    stepped = torch.where(bits0 >= 0x8000, bits0 - 1, bits0 + 1) & 0xFFFF
+    return _bf16_of(torch.where(b.to(torch.float32) < x, stepped, bits0))
+
+
+def quantize_refit_device(nodes_flat, leaves_flat):
+    """f32 records → the same records holding the reference's bf16
+    values (quantize_bf16's rounding, on the records' device, no host
+    work): box minima down, maxima up, leaf v0 / e1 / e2 to nearest, ids
+    and padding kept (exact in f32 below 2^24, where the reference splits
+    them into three byte rows)."""
+    col = torch.arange(nodes_flat.shape[1], device=nodes_flat.device)
+    is_max = (col % 6) >= 3
+    nodes = torch.where(is_max, _bf16_up(nodes_flat).to(torch.float32),
+                        _bf16_down(nodes_flat).to(torch.float32))
+    lcol = torch.arange(leaves_flat.shape[1], device=leaves_flat.device)
+    geom = (lcol % 12) < 9
+    leaves = torch.where(geom, leaves_flat.to(torch.bfloat16).to(
+        torch.float32), leaves_flat)
+    return nodes.contiguous(), leaves.contiguous()
+
+
+def quantize_bf16(wide: WideBVH) -> WideBVH:
+    """The reference's bf16 record variant (its VMEM footprint halves):
+    quantized boxes contain the f32 ones, so traversal only adds visits;
+    the triangles move by up to 2^-8 relative."""
+    nodes, leaves = quantize_refit_device(wide.nodes_flat, wide.leaves_flat)
+    return dataclasses.replace(wide, nodes_flat=nodes, leaves_flat=leaves,
+                               quantized=True)
+
+
+def quantize_triangles(v0, v1, v2):
+    """Each triangle as the bf16 leaf records hold it → (v0, e1 = v1 - v0,
+    e2 = v2 - v0), each rounded to the nearest bf16, in f32."""
+    q = lambda x: x.to(torch.bfloat16).to(torch.float32)
+    return q(v0), q(v1 - v0), q(v2 - v0)

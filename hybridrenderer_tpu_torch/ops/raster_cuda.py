@@ -14,11 +14,14 @@
 3. ``raster_tiles`` resolves each pixel's winner (largest reversed-Z
    depth; ties to the lowest candidate index) and writes the
    VisibilityBuffer and, unless it runs vis-only, the (H, W, 40)
-   interpolated attribute image. CUDA tensors run kernel K1
-   (csrc/raster.cu); CPU tensors run ``raster_tiles_plain``, the same
-   arithmetic in PyTorch. With ``keyed`` it runs vis-only with the
-   winner rule of the reference's eval modes v2 / v3: kernel K1v (K1's
-   keyed mode), plain version ``raster_vis_plain``. That rule differs
+   interpolated attribute image, f32, or with ``attr_bits=16`` rounded
+   to bf16 (K1's bf16 mode; ``rasterize_binned`` hands the G-buffer
+   math its f32 upcast, as the reference's rasterize_binned does). CUDA
+   tensors run kernel K1 (csrc/raster.cu); CPU tensors run
+   ``raster_tiles_plain``, the same arithmetic in PyTorch. With
+   ``keyed`` it runs vis-only with the winner rule of the reference's
+   eval modes v2 / v3: kernel K1v (K1's keyed mode), plain version
+   ``raster_vis_plain``. That rule differs
    from K1's only between candidates within 2^-17 of reversed-Z
    (csrc/raster.cu says how).
 
@@ -40,6 +43,7 @@ GROUP = 128       # K1v's candidates per key group
 KEY_SCALE = 131071.0   # K1v's 17-bit depth quantization
 KERNEL = native.KERNELS["raster_tiles"]
 KERNEL_VIS = native.KERNELS["raster_vis"]
+KERNEL_BF16 = native.KERNELS["raster_tiles_bf16"]
 
 
 def pack_candidates(tris):
@@ -151,10 +155,12 @@ def _tiles(width, height):
 
 
 def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
-                 keyed=False):
+                 keyed=False, attr_bits=32):
     """Resolve every pixel → (VisibilityBuffer, attrs (H, W, 40)), or
     (VisibilityBuffer, None) vis-only when ``attr_table`` is None.
-    ``keyed`` (vis-only) takes the v2 / v3 winner rule.
+    ``keyed`` (vis-only) takes the v2 / v3 winner rule; ``attr_bits``
+    16 gives the attributes as bf16, each the f32 value rounded to
+    nearest (K1's bf16 mode, counted as ``raster_tiles_bf16``).
 
     CUDA tensors launch kernel K1, which replaces the TPU kernel
     raster_pallas._raster_kernel_t, or with ``keyed`` kernel K1v, which
@@ -166,10 +172,17 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     """
     if keyed and attr_table is not None:
         raise ValueError("raster_tiles: the keyed mode is vis-only")
+    if attr_bits not in (16, 32):
+        raise ValueError(f"raster_tiles: attr_bits must be 16 or 32, got "
+                         f"{attr_bits}")
+    bf16 = attr_bits == 16 and attr_table is not None
     if rec.device.type == "cpu":
         if keyed:
             return raster_vis_plain(rec, tile_start, entry_cand, width,
                                     height), None
+        if bf16:
+            return raster_tiles_bf16_plain(rec, tile_start, entry_cand,
+                                           attr_table, width, height)
         return raster_tiles_plain(rec, tile_start, entry_cand, attr_table,
                                   width, height)
     if rec.device.type != "cuda":
@@ -188,16 +201,17 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
                      (None, ATTR_ROW), dev)
         # the kernel reads rows as float4s
         attr_table = native.aligned(attr_table)
-        attrs = torch.empty((height, width, ATTR_OUT), dtype=torch.float32,
-                            device=dev)
+        attrs = torch.empty((height, width, ATTR_OUT), device=dev,
+                            dtype=torch.bfloat16 if bf16 else torch.float32)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tri = torch.empty((height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((height, width, 2), dtype=torch.float32, device=dev)
-    (KERNEL_VIS if keyed else KERNEL).launch(
+    kernel = KERNEL_VIS if keyed else KERNEL_BF16 if bf16 else KERNEL
+    kernel.launch(
         "hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
         native.ptr(entry_cand),
         None if attrs is None else native.ptr(attr_table), int(keyed),
-        width, height, ntx, native.ptr(depth), native.ptr(tri),
+        int(bf16), width, height, ntx, native.ptr(depth), native.ptr(tri),
         native.ptr(bary), None if attrs is None else native.ptr(attrs))
     vis = VisibilityBuffer(tri_id=tri, bary1=bary[..., 0], bary2=bary[..., 1],
                            depth=depth)
@@ -297,6 +311,12 @@ def raster_tiles_plain(rec, tile_start, entry_cand, attr_table, width,
     the kernel's arithmetic in the kernel's order. Padded lists
     (a ``Binning`` capacity) are read up to their last tile's end."""
     KERNEL.note_plain(rec)
+    return _raster_f32_plain(rec, tile_start, entry_cand, attr_table, width,
+                             height, chunk_entries)
+
+
+def _raster_f32_plain(rec, tile_start, entry_cand, attr_table, width,
+                      height, chunk_entries):
     entry_cand = entry_cand[:int(tile_start[-1])]
     best = torch.full((_padded_size(width, height),), -1, dtype=torch.int64,
                       device=rec.device)
@@ -311,6 +331,16 @@ def raster_tiles_plain(rec, tile_start, entry_cand, attr_table, width,
     hit = best >= 0
     win = torch.where(hit, MASK32 - (best & MASK32), 0)
     return _winner_outputs(rec, attr_table, hit, win, width, height)
+
+
+def raster_tiles_bf16_plain(rec, tile_start, entry_cand, attr_table, width,
+                            height, chunk_entries=4096):
+    """Plain PyTorch version of K1's bf16 mode: the f32 raster, its
+    attributes rounded to the nearest bf16."""
+    KERNEL_BF16.note_plain(rec)
+    vis, attrs = _raster_f32_plain(rec, tile_start, entry_cand, attr_table,
+                                   width, height, chunk_entries)
+    return vis, attrs.to(torch.bfloat16)
 
 
 def raster_vis_plain(rec, tile_start, entry_cand, width, height,
@@ -375,16 +405,20 @@ def raster_vis_plain(rec, tile_start, entry_cand, width, height,
 
 
 def rasterize_binned(tris, width, height, attr_table, vis_eval=None,
-                     binning=None):
+                     binning=None, attr_bits=32):
     """pack → bin → raster: ClippedTriangles → (VisibilityBuffer, attrs).
     ``attr_table`` None resolves vis-only (attrs None), through K1v when
     ``vis_eval`` is "v2" or "v3", else through K1. ``binning``, a
-    ``Binning``, says how to bin (default: exact lists)."""
+    ``Binning``, says how to bin (default: exact lists). With
+    ``attr_bits`` 16 the attributes are stored as bf16 and returned
+    upcast to f32."""
     rec, bbox, valid = pack_candidates(tris)
     tile_start, entry_cand = (binning or Binning()).bin(bbox, valid, width,
                                                         height)
     if attr_table is not None:
         attr_table = attr_table.contiguous()
-    return raster_tiles(rec, tile_start, entry_cand, attr_table, width,
-                        height, keyed=attr_table is None
-                        and vis_eval in ("v2", "v3"))
+    vis, attrs = raster_tiles(rec, tile_start, entry_cand, attr_table, width,
+                              height, keyed=attr_table is None
+                              and vis_eval in ("v2", "v3"),
+                              attr_bits=attr_bits)
+    return vis, None if attrs is None else attrs.to(torch.float32)

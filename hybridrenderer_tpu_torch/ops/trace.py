@@ -10,6 +10,16 @@ K2b instead; with ``trace_backend="pallas-wide"`` and ``wide_kernel``
 "compressed" or "mimt", through the wide-BVH traversal K2w or K2m.
 ``refit`` follows a dynamic scene's moved triangles without a rebuild.
 
+Large scenes take the reference's decisions on its numbers. Hit
+shading reads the quantized rows of scene/schema.py above 98,304
+triangles (``schema.shade_table_kind``). Under "pallas-wide" the 8-wide
+records are measured against the reference's 96 MiB budget
+(``plan_wide``): above it the traced triangles are its bf16 ones, K2w
+gives way to K2 / K2c once its meta table exceeds 900 KiB or leaf
+records stream, K2m whenever the records are bf16, and beyond even
+bf16 node records the exact f32 traversal runs. "auto", "jnp" and
+"pallas" trace the exact triangles at every size.
+
 The reference relayouts rays tile- or pattern-major for its TPU packets;
 a relayout changes no per-ray result, so the per-ray kernels trace in
 pixel order. K2b traces image queries in pixel order too: handed the
@@ -27,9 +37,11 @@ import torch
 
 from ..core import maths
 from ..core.types import RenderFlags
+from ..scene import schema
+from ..scene.schema import SHADE_COLS
 from . import sampling, shade, sky, texture
-from .bvh import build_sah, refit_bvh, refit_levels
-from .bvh_wide import build_wide, refit_wide
+from .bvh import build_bvh, refit_bvh, refit_levels
+from .bvh_wide import build_wide, quantize_bf16, quantize_triangles, refit_wide
 from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
                          PackedBVH, check_wide_stacks, intersect_any,
                          intersect_closest, intersect_mimt, intersect_packet,
@@ -39,17 +51,12 @@ TMIN = 0.01  # shadow_query's ray start, past the normal offset
 OCCLUSION_TMIN = 1e-3   # occluded's ray start
 RADIANCE_TMIN, RADIANCE_TMAX = 0.01, 1e6
 HIT_ID_LIMIT = 1 << 29  # ids at or above it are the TPU kernel's sentinels
-# The reference's hit shading fetches the attr_rows columns below
-# (scene/schema.py _SHADE_COLS), exactly, from a u16 table of at most
-# SHADE_ROWS_MAX rows; above it, it switches to a quantized table that
-# changes the image and is not ported.
-SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
-              + list(range(45, 54)) + [66] + list(range(67, 83)))
-SHADE_ROWS_MAX = 98304
 WIDE_TILE = 32          # K2w / K2m: a 1024-ray packet is a 32x32 tile
-# trace_pallas.VMEM_SCENE_BUDGET: above it the reference traces bf16
-# records (bvh_wide.quantize_bf16), which change the image
+# trace_pallas.VMEM_SCENE_BUDGET and META_SMEM_LIMIT: the reference's
+# 8-wide records against its VMEM budget, and the meta table K2w's TPU
+# kernel keeps in SMEM
 VMEM_SCENE_BUDGET = 96 * 1024 * 1024
+META_SMEM_LIMIT = 900 * 1024
 ALPHA_ROUNDS = 4        # transparency continuations through cut-out layers
 ALPHA_STEP = 1e-3       # how far past a transparent hit a round restarts
 
@@ -80,8 +87,25 @@ def _pixel_order(pos, x, lead):
 
 
 def _shade_rows(scene_data):
+    """The (T, 53) hit-shading rows: decoded from the quantized table
+    where the scene has one, else the exact attr_rows columns."""
+    q = scene_data.shade_rows_q
+    if q is not None:
+        side = scene_data.inst_shade
+        inst = torch.clamp(q[:, schema.SHQ_INST].long(), 0,
+                           side.shape[0] - 1)
+        return schema.decode_shade_rows_q(q, side[inst]).contiguous()
     cols = maths.constant(tuple(SHADE_COLS), scene_data.device, torch.int64)
     return scene_data.attr_rows[:, cols].contiguous()
+
+
+def _alpha_uv(scene_data):
+    """The exact uv of each triangle's corners, (T, 6), which the alpha
+    test reads where the hit-shading rows hold quantized ones (the
+    reference's surface_alpha reads attr_rows); None elsewhere."""
+    if scene_data.shade_rows_q is None or not scene_data.has_alpha_test:
+        return None
+    return scene_data.attr_rows[:, [13, 14, 28, 29, 43, 44]].contiguous()
 
 
 def wide_kernel_of(settings) -> "str | None":
@@ -89,6 +113,62 @@ def wide_kernel_of(settings) -> "str | None":
     "mimt" (K2m) or None (K2 / K2c, the reference's direct kernel)."""
     k = None if settings is None else settings.wide_kernel
     return k if k in ("compressed", "mimt") else None
+
+
+def builder_of(settings) -> str:
+    """The BVH builder ``settings`` ask for: "sah" (also for "auto") or
+    "lbvh"."""
+    builder = "auto" if settings is None else settings.bvh_builder
+    return "sah" if builder == "auto" else builder
+
+
+def request_of(settings, num_triangles: int) -> tuple:
+    """What a tracer built for ``settings`` over ``num_triangles``
+    triangles depends on: the packet kernel or not, the wide kernel asked
+    for, the BVH builder, and whether "pallas-wide" may trace bf16
+    triangles there. Its 8-wide records take at most a wide node and a
+    leaf cluster of 48 f32 a triangle, in tiles of 128: below
+    VMEM_SCENE_BUDGET "auto", "jnp" and "pallas-wide" build the same
+    tracer."""
+    backend = "auto" if settings is None else settings.trace_backend
+    may_quantize = backend == "pallas-wide" and \
+        4 * 48 * (2 * num_triangles + 256) > VMEM_SCENE_BUDGET
+    return (backend == "pallas", wide_kernel_of(settings),
+            builder_of(settings), may_quantize)
+
+
+def plan_wide(wide, kernel):
+    """The reference's choice over its 8-wide records
+    (ops/trace.py:284-327) for the wide kernel asked for → (the wide
+    kernel that runs, None for K2 / K2c; whether the traced triangles are
+    bf16; why the kernel asked for does not run, or None). Above
+    VMEM_SCENE_BUDGET the records are quantized; where the bf16 records
+    still exceed it but their node records do not, the reference streams
+    the leaf records, and beyond that it traces the exact f32 triangles
+    (its jnp fallback, the port's K2 / K2c). K2w runs only while neither
+    streaming nor its meta table exceeds META_SMEM_LIMIT; K2m only over
+    f32 records."""
+    quantized = wide.vmem_bytes > VMEM_SCENE_BUDGET
+    stream = False
+    if quantized:
+        # bf16 halves the records
+        if wide.vmem_bytes // 2 > VMEM_SCENE_BUDGET:
+            if 2 * wide.nodes_flat.numel() > VMEM_SCENE_BUDGET:
+                return None, False, (
+                    f"exact traversal: even the bf16 node records exceed "
+                    f"the {VMEM_SCENE_BUDGET}-byte budget")
+            stream = True
+    why = None
+    if kernel == "compressed" and (
+            stream or 4 * wide.meta.numel() > META_SMEM_LIMIT):
+        why = "leaf records streamed" if stream else \
+            f"meta table of {4 * wide.meta.numel()} bytes above " \
+            f"{META_SMEM_LIMIT}"
+    elif kernel == "mimt" and (stream or quantized):
+        why = "leaf records streamed" if stream else "bf16 records"
+    if why is not None:
+        return None, quantized, f"{kernel} runs as K2 / K2c: {why}"
+    return kernel, quantized, None
 
 
 @dataclasses.dataclass
@@ -104,62 +184,102 @@ class SceneTracer:
     # the scene's TextureStack when it has alpha-tested (cut-out)
     # materials: every query then skips their transparent texels
     cutout: Any = None
-    # the binary SAH tree, and its refit order (bvh.refit_levels), taken
-    # on the first refit
+    # the binary tree, and its refit order (bvh.refit_levels), taken on
+    # the first refit; over a quantized scene's K2 / K2c its boxes hold
+    # the bf16 triangles
     bvh: Any = None
     levels: Any = None
     # wide_kernel "compressed" (K2w) or "mimt" (K2m): every query over
     # the 8-wide tree ``wide`` (bvh_wide.WideBVH)
     wide_kernel: "str | None" = None
     wide: Any = None
+    # the traced triangles are the reference's bf16 ones (plan_wide)
+    quantized: bool = False
+    # the traversal family after the reference's resolution: the
+    # trace_backend asked for, or "jnp" where plan_wide falls back to the
+    # exact traversal
+    backend: str = "auto"
+    # why the wide kernel asked for does not run (plan_wide), or None
+    demotion: "str | None" = None
+    # the f32 8-wide records' bytes plan_wide measured (0: none built)
+    wide_bytes: int = 0
+    # the exact corner uv the alpha test reads (_alpha_uv), or None
+    alpha_uv: Any = None
+    # request_of of the settings and scene the tracer was built for
+    request: tuple = ()
 
     @staticmethod
     def build(scene_data, settings=None) -> "SceneTracer":
-        """Binned-SAH BVH over the scene's triangle soup, on the scene's
-        device, for the traversal ``settings.trace_backend`` and
-        ``settings.wide_kernel`` pick. The reference's bf16 wide records,
-        which it traces when the f32 records exceed its 96 MiB budget,
-        are not ported: the wide kernels raise above it."""
-        packet = settings is not None and settings.trace_backend == "pallas"
+        """BVH over the scene's triangle soup (binned SAH, or the LBVH
+        with ``bvh_builder="lbvh"``), on the scene's device, for the
+        traversal ``settings.trace_backend`` and ``settings.wide_kernel``
+        pick, under the reference's size rules (``plan_wide``)."""
+        backend = "auto" if settings is None else settings.trace_backend
+        packet = backend == "pallas"
         kernel = wide_kernel_of(settings)
         soup = scene_data.triangles
-        bvh = build_sah(soup.v0, soup.v1, soup.v2)
-        packed = wide = None
+        v0, v1, v2 = soup.v0, soup.v1, soup.v2
+        bvh = build_bvh(v0, v1, v2, builder_of(settings))
+        packed = wide = levels = edges = None
+        quantized, demotion, wide_bytes = False, None, 0
+        if backend == "pallas-wide":
+            wide = build_wide(bvh, v0, v1, v2)
+            wide_bytes = wide.vmem_bytes
+            kernel, quantized, demotion = plan_wide(wide, kernel)
+            if demotion is not None and demotion.startswith("exact"):
+                backend = "jnp"
+            if kernel is None:
+                wide = None
+            elif quantized:
+                wide = quantize_bf16(wide)
         if kernel is None:
-            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
-                              PACKET_STACK_DEPTH if packet else STACK_DEPTH)
+            if quantized:
+                # the reference's direct kernel over bf16 leaves: K2 / K2c
+                # trace the same rounded triangles, in boxes that hold them
+                v0, e1, e2 = quantize_triangles(v0, v1, v2)
+                v1, v2, edges = v0 + e1, v0 + e2, (e1, e2)
+                levels = refit_levels(bvh)
+                bvh = refit_bvh(bvh, v0, v1, v2, levels)
+            packed = pack_bvh(bvh, v0, v1, v2,
+                              PACKET_STACK_DEPTH if packet else STACK_DEPTH,
+                              edges=edges)
         else:
-            wide = build_wide(bvh, soup.v0, soup.v1, soup.v2)
-            if wide.vmem_bytes > VMEM_SCENE_BUDGET:
-                raise NotImplementedError(
-                    f"wide records of {wide.vmem_bytes} bytes exceed the "
-                    f"reference's {VMEM_SCENE_BUDGET}-byte budget, above "
-                    f"which it traces bf16 records (not ported yet)")
             check_wide_stacks(wide, kernel == "mimt")
         return SceneTracer(packed=packed, shade_rows=_shade_rows(scene_data),
-                           packet=packet, bvh=bvh, wide_kernel=kernel,
-                           wide=wide, cutout=scene_data.textures
-                           if scene_data.has_alpha_test else None)
+                           packet=packet, bvh=bvh, levels=levels,
+                           wide_kernel=kernel, wide=wide,
+                           cutout=scene_data.textures
+                           if scene_data.has_alpha_test else None,
+                           quantized=quantized, backend=backend,
+                           demotion=demotion, wide_bytes=wide_bytes,
+                           alpha_uv=_alpha_uv(scene_data),
+                           request=request_of(settings, soup.count))
 
     def refit(self, scene_data) -> "SceneTracer":
         """The tracer after a dynamic update moved triangles (the
         topology frozen): the binary tree's boxes refit, the records
-        repacked on the known topology, or the wide records refit, and the
-        hit-shading rows taken anew from the scene's attribute rows. All
-        on the scene's device; only the first refit of a tree walks it on
-        the host, for the level order it keeps."""
+        repacked on the known topology, or the wide records refit (and
+        quantized again where they are bf16), and the hit-shading rows
+        taken anew from the scene. All on the scene's device; only the
+        first refit of a tree walks it on the host, for the level order
+        it keeps."""
         soup = scene_data.triangles
         levels = self.levels if self.levels is not None \
             else refit_levels(self.bvh)
-        bvh = refit_bvh(self.bvh, soup.v0, soup.v1, soup.v2, levels)
+        v0, v1, v2 = soup.v0, soup.v1, soup.v2
+        edges = None
+        if self.quantized and self.wide is None:
+            v0, e1, e2 = quantize_triangles(v0, v1, v2)
+            v1, v2, edges = v0 + e1, v0 + e2, (e1, e2)
+        bvh = refit_bvh(self.bvh, v0, v1, v2, levels)
         packed = wide = None
         if self.wide is not None:
             wide = refit_wide(self.wide, bvh.node_min, bvh.node_max,
-                              soup.v0, soup.v1, soup.v2)
+                              v0, v1, v2)
         else:
-            packed = pack_bvh(bvh, soup.v0, soup.v1, soup.v2,
+            packed = pack_bvh(bvh, v0, v1, v2,
                               PACKET_STACK_DEPTH if self.packet
-                              else STACK_DEPTH, like=self.packed)
+                              else STACK_DEPTH, like=self.packed, edges=edges)
         return dataclasses.replace(self, packed=packed, bvh=bvh,
                                    levels=levels, wide=wide,
                                    shade_rows=_shade_rows(scene_data))
@@ -254,8 +374,13 @@ class SceneTracer:
         safe = torch.clamp(tri, 0, self.shade_rows.shape[0] - 1).long()
         row = self.shade_rows[safe]
         b1, b2 = u.unsqueeze(-1), v.unsqueeze(-1)
-        uv = row[:, 7:9] * (1.0 - b1 - b2) + row[:, 16:18] * b1 \
-            + row[:, 25:27] * b2
+        if self.alpha_uv is None:
+            uv = row[:, 7:9] * (1.0 - b1 - b2) + row[:, 16:18] * b1 \
+                + row[:, 25:27] * b2
+        else:
+            c = self.alpha_uv[safe]
+            uv = c[:, 0:2] * (1.0 - b1 - b2) + c[:, 2:4] * b1 \
+                + c[:, 4:6] * b2
         tex = row[:, 47].to(torch.int32)
         is_mask = (row[:, 51].to(torch.int32) == 1) & (tex >= 0)
         rgba = texture.sample_stack(self.cutout, tex, uv,

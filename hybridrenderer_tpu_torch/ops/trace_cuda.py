@@ -6,11 +6,12 @@ traversal K2b (trace_pallas.py _traverse_kernel, trace_backend
 
 ``pack_bvh`` lays the binary BVH out twice. The plain versions read per
 node two float4 (min xyz + left child id bits, max xyz + right child id
-bits), the leaf triangle ids, and the triangle corners as (T, 9) floats.
-K2, K2c and K2b read one record per internal node holding both
-children's boxes and references (``inner_records``), and one row per
-leaf holding its triangle's v0, e1 = v1 - v0 and e2 = v2 - v0
-(``leaf_rows``); see csrc/trace.cu.
+bits) and the leaf triangle ids. K2, K2c and K2b read one record per
+internal node holding both children's boxes and references
+(``inner_records``). Kernels and plain versions alike test a leaf's
+triangle from its row of ``leaf_rows``: v0, e1 = v1 - v0 and
+e2 = v2 - v0 (or the bf16-rounded edges of a quantized scene, which no
+subtraction of corners gives back); see csrc/trace.cu.
 ``intersect_any`` returns, per ray, the id of a triangle hit with
 tmin <= t <= tmax, or -1. ``intersect_closest`` returns (t, tri, u, v)
 of the nearest such hit, with t = +inf, tri = -1 and u = v = 0 on a miss.
@@ -87,7 +88,8 @@ class PackTopology(NamedTuple):
 class PackedBVH:
     nodes: Any       # (N, 8) f32: min xyz, left bits, max xyz, right bits
     node_tri: Any    # (N,) i32 triangle id of leaves, -1 internal
-    tri_verts: Any   # (T, 9) f32 triangle corners
+    tri_verts: Any   # (T, 9) f32 triangle corners (the traversals read
+    #                  ``leaf_rows``)
     n_internal: int
     depth: int       # of the deepest leaf; the root is at depth 0
     # K2, K2c and K2b's records: (n_internal, 16) f32, internal node i's
@@ -122,7 +124,8 @@ def _bits(x):
     return x.to(torch.int32).view(torch.float32)
 
 
-def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
+def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None,
+             edges=None) -> PackedBVH:
     """The binary tree ``bvh`` over triangles (v0, v1, v2) in the
     per-node layout the plain versions read and in the kernels' records,
     built on their device with no host sync but the depth walk. Raises if
@@ -133,7 +136,10 @@ def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
     child in a register, need D). Within that bound no kernel nor plain
     version ever drops a child. ``like``, a packing of a tree of the same
     shape (a refit's), lends its depth and topology: no host walk, and
-    five device operations for the records."""
+    five device operations for the records. ``edges`` (e1, e2), each
+    (T, 3), are the leaves' edges where they are not v1 - v0 and v2 - v0
+    (the bf16 triangles of ops/bvh_wide.quantize_triangles, whose
+    rounded edges a subtraction of corners would not give back)."""
     depth = tree_depth(bvh.left, bvh.right) if like is None else like.depth
     _check_depth(depth, stack)
     n = bvh.num_tris - 1
@@ -155,10 +161,14 @@ def pack_bvh(bvh, v0, v1, v2, stack=STACK_DEPTH, like=None) -> PackedBVH:
                       dim=-1)[topo.kids]
     # leaf k's triangle: v0 and the id, e1 = v1 - v0, e2 = v2 - v0
     corners = tri_verts[topo.leaf_tri].view(-1, 3, 3)
-    edges = corners[:, 1:] - corners[:, :1]
+    if edges is None:
+        e = corners[:, 1:] - corners[:, :1]
+        e1, e2 = e[:, 0], e[:, 1]
+    else:
+        e1, e2 = edges[0][topo.leaf_tri], edges[1][topo.leaf_tri]
     zero = topo.zero[:n + 1]
     rows = torch.cat([corners[:, 0], _bits(node_tri[n:]).unsqueeze(-1),
-                      edges[:, 0], zero, edges[:, 1], zero], dim=-1)
+                      e1, zero, e2, zero], dim=-1)
     return PackedBVH(nodes=nodes, node_tri=node_tri, tri_verts=tri_verts,
                      n_internal=n, depth=depth,
                      inner_records=inner.view(n, 16), leaf_rows=rows,
@@ -340,9 +350,6 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     node_max = bvh.nodes[:, 4:7]
     left_of = bvh.nodes[:, 3].contiguous().view(torch.int32).long()
     right_of = bvh.nodes[:, 7].contiguous().view(torch.int32).long()
-    tv = bvh.tri_verts
-    T = tv.shape[0]
-
     pk = torch.arange(P, device=dev)
     stack = torch.zeros((P, PACKET_STACK_DEPTH), dtype=torch.long,
                         device=dev)
@@ -364,10 +371,10 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
             trail.append(torch.where(live, node, -1))
         is_leaf = node >= bvh.n_internal
         tri = bvh.node_tri[node]
-        safe = torch.clamp(tri, 0, T - 1).long()
-        corner = lambda k: tv[safe, 3 * k:3 * k + 3].unsqueeze(1)
-        hit, t, u, v = ray_triangle(org, dirs, corner(0), corner(1),
-                                    corner(2), tmin, best)
+        leaf = _leaf_rows(bvh, node).unsqueeze(1)
+        hit, t, u, v = ray_triangle_edges(org, dirs, leaf[..., 0:3],
+                                          leaf[..., 4:7], leaf[..., 8:11],
+                                          tmin, best)
         take = (live & is_leaf & (tri >= 0)).unsqueeze(1) & act & hit
         out = torch.where(take, tri.unsqueeze(1), out)
         best = torch.where(take, t, best)
@@ -410,6 +417,12 @@ def intersect_packet_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
         return y
 
     return flat(t), flat(out), flat(bu), flat(bv)
+
+
+def _leaf_rows(bvh: PackedBVH, node):
+    """The kernels' leaf row (v0, e1, e2) of each node; a row of leaf 0
+    for an internal node."""
+    return bvh.leaf_rows[torch.clamp(node - bvh.n_internal, min=0)]
 
 
 def ray_triangle(o, d, p0, p1, p2, tmin, tmax):
@@ -473,8 +486,6 @@ def _traverse_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
     node_max = bvh.nodes[:, 4:7]
     left_of = bvh.nodes[:, 3].contiguous().view(torch.int32).long()
     right_of = bvh.nodes[:, 7].contiguous().view(torch.int32).long()
-    tv = bvh.tri_verts
-    T = tv.shape[0]
     tiny = torch.where(d < 0, -1e-12, 1e-12)
     inv_d = 1.0 / torch.where(torch.abs(d) < 1e-12, tiny, d)
 
@@ -493,9 +504,9 @@ def _traverse_plain(bvh: PackedBVH, o, d, tmin: float, tmax, active,
 
         is_leaf = node >= bvh.n_internal
         tri = bvh.node_tri[node]
-        safe = torch.clamp(tri, 0, T - 1).long()
-        hit, t, u, v = ray_triangle(o, d, tv[safe, 0:3], tv[safe, 3:6],
-                                    tv[safe, 6:9], tmin, best)
+        leaf = _leaf_rows(bvh, node)
+        hit, t, u, v = ray_triangle_edges(o, d, leaf[:, 0:3], leaf[:, 4:7],
+                                          leaf[:, 8:11], tmin, best)
         take = live & is_leaf & hit & (tri >= 0)
         out = torch.where(take, tri, out)
         best = torch.where(take, t, best)

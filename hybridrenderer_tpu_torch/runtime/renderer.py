@@ -111,7 +111,7 @@ class Renderer:
         """Renderer with the ray tracer attached when the path or the
         flags ask for ray-traced passes."""
         tracer = _build_tracer(scene_data, settings) \
-            if _needs_tracer(settings, scene_data) else None
+            if _needs_tracer(settings) else None
         return cls(settings, scene_data, tracer=tracer, capture=capture)
 
     # --- frame functions -------------------------------------------------
@@ -409,9 +409,9 @@ class Renderer:
         trace_backend): rebuild the pass stack, keep the scene, drop the
         history and the graphs. The tracer is kept while it still serves
         (the reference keeps it whatever changes), built when one is
-        needed and missing, and rebuilt when trace_backend or wide_kernel
-        moves to another traversal kernel, so that the setting takes
-        effect."""
+        needed and missing, and rebuilt when the traversal kernel, the BVH
+        builder, or (on a scene large enough) the triangles "pallas-wide"
+        traces would change, so that the setting takes effect."""
         _log().info("applying settings",
                     **{k: str(v) for k, v in changes.items()})
         self._apply(**changes)
@@ -419,10 +419,10 @@ class Renderer:
     def _apply(self, **changes):
         settings = self.settings.replace(**changes)
         path = create_render_path(settings)
-        if _needs_tracer(settings, self.scene) and (
-                self.tracer is None or self.tracer.packet
-                != (settings.trace_backend == "pallas")
-                or self.tracer.wide_kernel != trace.wide_kernel_of(settings)):
+        if _needs_tracer(settings) and (
+                self.tracer is None
+                or self.tracer.request != trace.request_of(
+                    settings, self.scene.num_triangles)):
             self.tracer = _build_tracer(self.scene, settings)
         self.settings, self.path = settings, path
         self._history, self._graphs = {}, {}
@@ -547,26 +547,18 @@ def _tree_pairs(static, new, pairs, undo):
 def _build_tracer(scene_data, settings):
     t0 = time.perf_counter()
     tracer = trace.SceneTracer.build(scene_data, settings)
-    _log().info("ray tracer attached", backend=settings.trace_backend,
+    _log().info("ray tracer attached", backend=tracer.backend,
+                wide_kernel=tracer.wide_kernel, bf16=tracer.quantized,
                 tris=int(scene_data.num_triangles),
                 build_ms=round(1e3 * (time.perf_counter() - t0), 1))
+    if tracer.demotion is not None:
+        _log().info("wide kernel demoted, as the reference demotes it",
+                    asked=settings.wide_kernel, reason=tracer.demotion)
     return tracer
 
 
-def _needs_tracer(settings, scene_data) -> bool:
-    """Whether the settings run ray-traced passes. Radiance rays (the
-    reflection and GI passes, and the ray-traced path's primary rays) on
-    a scene above SHADE_ROWS_MAX triangles raise, before any BVH is
-    built: there the reference shades from a quantized table, which is
-    not ported."""
-    raytraced = settings.path == RenderPathType.RAYTRACED
-    radiance = raytraced or bool(settings.flags & (RenderFlags.REFLECTION
-                                                   | RenderFlags.GI))
-    if radiance and scene_data.num_triangles > trace.SHADE_ROWS_MAX:
-        raise NotImplementedError(
-            f"radiance rays (reflection, GI, the ray-traced path) above "
-            f"{trace.SHADE_ROWS_MAX} triangles (the quantized shade_rows_q "
-            f"fetch) are not ported yet")
-    return raytraced or bool(settings.flags & (
-        RenderFlags.SHADOW | RenderFlags.AO | RenderFlags.REFLECTION
-        | RenderFlags.GI))
+def _needs_tracer(settings) -> bool:
+    """Whether the settings run ray-traced passes."""
+    return settings.path == RenderPathType.RAYTRACED or bool(
+        settings.flags & (RenderFlags.SHADOW | RenderFlags.AO
+                          | RenderFlags.REFLECTION | RenderFlags.GI))

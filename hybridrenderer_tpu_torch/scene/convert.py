@@ -7,7 +7,11 @@ device, the card unless the caller asks for the CPU, so both packages
 render from identical arrays. Fields the port does not use (the
 reference's TPU gather tables, its texture quads and window atlas) are
 ignored; the texture stack's ``slot_usage`` is derived from the
-materials, as ``Scene.build`` derives it.
+materials, as ``Scene.build`` derives it. The reference's choice of
+hit-shading table is carried over: its quantized ``shade_rows_q`` (and
+``inst_shade``) where the tree has one, none where the tree says None,
+and the reference's rule (``schema.shade_table_kind``) where the tree
+does not say.
 """
 from __future__ import annotations
 
@@ -68,4 +72,13 @@ def scene_from_numpy(tree, device="cuda") -> schema.SceneData:
         else:
             rows = torch.from_numpy(np.array(rows)).to(device)
         setattr(data, name, rows)
+    if "shade_rows_q" not in tree:
+        return schema.set_shade_tables(data)
+    q, inst = tree["shade_rows_q"], tree.get("inst_shade")
+    if q is not None:
+        data.shade_rows_q = torch.from_numpy(
+            np.asarray(q).astype(np.int32)).to(device)
+        data.inst_shade = schema.build_inst_shade(
+            data.instances, data.materials) if inst is None else \
+            torch.from_numpy(np.array(inst)).to(device)
     return data

@@ -9,7 +9,9 @@ with the topology frozen.
   new SceneData with the inverse and normal transforms, world boxes,
   world vertex positions, triangle soup, light CDF and the attribute
   rows recomputed; ``prev_transform`` takes the old current transforms,
-  so the G-buffer's motion vectors see one frame of object motion.
+  so the G-buffer's motion vectors see one frame of object motion; a
+  scene that shades from the quantized table gets its per-instance side
+  table (``inst_shade``) rebuilt, the reference's refresh.
 * ``update_transforms_subset``: the same for the dirty vertex and
   triangle rows only (the instance table is small and recomputed whole).
 * ``DynamicScene``: entity-level transforms, ``commit`` and
@@ -143,6 +145,13 @@ def _update_light_cdf(data, maps: DynamicMaps, soup):
     return lights
 
 
+def _inst_shade(data, new_inst):
+    """The quantized shade rows' side table of the moved instances (the
+    whole table: it has a row an instance), or None without one."""
+    return None if data.inst_shade is None else \
+        schema.build_inst_shade(new_inst, data.materials)
+
+
 def _world(tf, vertex_instance, position):
     """World positions of vertices with their instances' transforms."""
     vt = tf[vertex_instance.long()]
@@ -168,7 +177,8 @@ def update_transforms(data, maps: DynamicMaps, transforms,
         attr_rows=schema.build_attr_rows(new_verts, new_inst, new_soup,
                                          data.materials),
         raster_rows=schema.build_raster_rows(new_verts, new_inst, new_soup,
-                                             data.materials))
+                                             data.materials),
+        inst_shade=_inst_shade(data, new_inst))
 
 
 def update_transforms_subset(data, maps: DynamicMaps, transforms,
@@ -209,7 +219,8 @@ def update_transforms_subset(data, maps: DynamicMaps, transforms,
     return dataclasses.replace(
         data, instances=new_inst, vertices=new_verts, triangles=new_soup,
         lights=_update_light_cdf(data, maps, new_soup) if update_lights
-        else data.lights, attr_rows=attr, raster_rows=rattr)
+        else data.lights, attr_rows=attr, raster_rows=rattr,
+        inst_shade=_inst_shade(data, new_inst))
 
 
 def build_host_ranges(scene) -> dict:

@@ -144,6 +144,21 @@ def uv_sphere(radius=1.0, rings=16, sectors=32, material=0) -> MeshData:
     return _mesh(P, N, U, I, material, name="sphere")
 
 
+def merge(meshes: list) -> MeshData:
+    """Concatenate meshes that share a material."""
+    off, P, N, T, U, I = 0, [], [], [], [], []
+    for m in meshes:
+        P.append(m.positions)
+        N.append(m.normals)
+        T.append(m.tangents)
+        U.append(m.uvs)
+        I.append(m.indices + off)
+        off += m.num_vertices
+    return MeshData(np.concatenate(P), np.concatenate(N), np.concatenate(T),
+                    np.concatenate(U), np.concatenate(I),
+                    meshes[0].material, "merged")
+
+
 def stress_scene_meshes(num_objects=400, seed=0):
     """A Sponza-scale procedural stress set: a floor, columns, and random
     boxes/spheres — used for benchmarks that need ~10^5 triangles without

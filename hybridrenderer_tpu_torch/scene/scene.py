@@ -27,6 +27,7 @@ from .schema import (
     VertexArrays,
     build_attr_rows,
     build_raster_rows,
+    set_shade_tables,
 )
 
 
@@ -201,7 +202,7 @@ class Scene:
                                          data.triangles, data.materials)
         data.raster_rows = build_raster_rows(data.vertices, data.instances,
                                              data.triangles, data.materials)
-        return data
+        return set_shade_tables(data)
 
 
 def _world_positions(positions, tf, rows, mesh_voffset, meshes):

@@ -2,9 +2,12 @@
 (hybridrenderer_tpu/scene/schema.py).
 
 Field names and layouts are the reference's, so the JAX SceneData can be
-carried over field by field (scene/convert.py). Only what the hybrid
-path reads is kept; the reference's TPU-specific gather tables
-(shade_rows, shade_rows_q, inst_shade, texture quads) are not.
+carried over field by field (scene/convert.py). Only what the port reads
+is kept: the reference's exact u16 ``shade_rows`` (a bitcast of
+attr_rows columns) and its texture quads are TPU gather tables that
+give the same values, and are not. Its quantized ``shade_rows_q`` and
+``inst_shade`` are kept, because above 98,304 triangles the reference
+shades radiance hits from them and the image changes with them.
 """
 from __future__ import annotations
 
@@ -223,6 +226,11 @@ class SceneData:
     has_sky_texture: bool = False
     attr_rows: Any = None    # (T, 84), layout below
     raster_rows: Any = None  # (T, 72), layout below
+    # the quantized hit-shading table and its per-instance side table
+    # (layouts below), set where the reference shades from them
+    # (shade_table_kind); None where it shades from exact values
+    shade_rows_q: Any = None  # (T, 29) i32 holding u16 values
+    inst_shade: Any = None    # (N, 26) f32
 
     @property
     def num_triangles(self) -> int:
@@ -311,3 +319,164 @@ def build_raster_rows(vertices, instances, soup, materials, tris=None):
         inst[:, None].float(),
         torch.zeros((T, 6), device=nmat.device)], dim=-1)
     return torch.cat([vert(i0), vert(i1), vert(i2), const], dim=-1)
+
+
+# The reference's hit shading reads 53 attr_rows columns (SHADE_COLS,
+# its _SHADE_COLS) decoded into this layout: vertex k at 9k — [0:3]
+# normal, [3:7] tangent, [7:9] uv; [27:36] normal matrix (3x3 row-major),
+# [36] material id, [37:53] packed material row. At most SHADE_ROWS_MAX
+# triangles it fetches them exactly (its u16 shade_rows); above, up to
+# SHADE_Q_ROWS_MAX triangles and 65,536 instances, from the quantized
+# table below; beyond those, exactly from attr_rows again.
+SHADE_COLS = (list(range(6, 15)) + list(range(21, 30)) + list(range(36, 45))
+              + list(range(45, 54)) + [66] + list(range(67, 83)))
+SHADE_ROWS_MAX = 98304
+
+# shade_rows_q, (T, 29) u16 values a triangle, transform-invariant:
+#   [0:9]   vertex normals (3 x xyz, local space), bf16 bit patterns
+#           (truncated, not rounded)
+#   [9:18]  vertex tangents xyz (local space), bf16 bit patterns
+#   [18]    tangent w signs: bit k set means vertex k's w = +1, else -1
+#   [19:23] uv0 exactly (u hi, u lo, v hi, v lo: f32 bit halves)
+#   [23:27] (uv1 - uv0, uv2 - uv0) as f16 bit patterns
+#   [27]    material id  [28] instance id
+# inst_shade, (N, 26) f32 an instance, follows transforms: [0:9] normal
+# matrix, [9:25] packed material row, [25] material id.
+SHQ_WIDTH = 29
+SHQ_N0 = 0
+SHQ_T0 = 9
+SHQ_WSIGN = 18
+SHQ_UV0 = 19
+SHQ_DUV = 23
+SHQ_MAT = 27
+SHQ_INST = 28
+SHADE_Q_MAX_BYTES = 16 * 1024 * 1024
+SHADE_Q_ROWS_MAX = SHADE_Q_MAX_BYTES // (2 * SHQ_WIDTH)
+SHADE_Q_INSTANCES_MAX = 65536
+SHQI_NMAT = 0
+SHQI_MROW = 9
+SHQI_MAT = 25
+SHQI_WIDTH = 26
+
+
+def shade_table_kind(num_triangles: int, num_instances: int) -> str:
+    """The table the reference's hit shading reads for a scene of these
+    sizes (its Scene.build, scene.py:236-244): "shade_rows" (exact, at
+    most SHADE_ROWS_MAX triangles), "shade_rows_q" (quantized) or
+    "attr_rows" (exact, where neither fits)."""
+    if num_triangles <= SHADE_ROWS_MAX:
+        return "shade_rows"
+    if num_triangles <= SHADE_Q_ROWS_MAX \
+            and num_instances <= SHADE_Q_INSTANCES_MAX:
+        return "shade_rows_q"
+    return "attr_rows"
+
+
+# Bit work in int32 (torch's uint16 lacks most operations): a u16 value
+# is an int32 in [0, 65535].
+def _signed16(b):
+    """u16 values (int32) → int16 with the same bits."""
+    return torch.where(b >= 32768, b - 65536, b).to(torch.int16)
+
+
+def _u32_to_f32(v):
+    """u32 bit patterns (int64) → f32."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(
+        torch.int32).view(torch.float32)
+
+
+def _f32_to_bf16_bits(x):
+    """The upper half of each f32's bits: bf16 by truncation."""
+    return (x.to(torch.float32).contiguous().view(torch.int32) >> 16) \
+        & 0xFFFF
+
+
+def _bf16_bits_to_f32(b):
+    return _signed16(b).view(torch.bfloat16).to(torch.float32)
+
+
+def _f32_to_f16_bits(x):
+    """f16 by round to nearest even, overflowing to inf."""
+    return x.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def _f16_bits_to_f32(b):
+    return _signed16(b).view(torch.float16).to(torch.float32)
+
+
+def build_shade_rows_q(vertices, instances, soup):
+    """(T, 29) i32 quantized shade rows (layout above), or None above
+    SHADE_Q_ROWS_MAX triangles or SHADE_Q_INSTANCES_MAX instances. No
+    column depends on a transform, so dynamic updates leave the table;
+    only ``build_inst_shade`` follows them."""
+    T = soup.i0.shape[0]
+    if T > SHADE_Q_ROWS_MAX \
+            or instances.transform.shape[0] > SHADE_Q_INSTANCES_MAX:
+        return None
+    ik = [i.long() for i in (soup.i0, soup.i1, soup.i2)]
+    n_bits = torch.cat([_f32_to_bf16_bits(vertices.normal[i]) for i in ik],
+                       dim=-1)
+    t_bits = torch.cat([_f32_to_bf16_bits(vertices.tangent[i][:, :3])
+                        for i in ik], dim=-1)
+    wsign = sum((vertices.tangent[i][:, 3] > 0.0).to(torch.int32) << k
+                for k, i in enumerate(ik))
+    uv0 = vertices.uv[ik[0]]
+    bits = uv0.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    uv0_cols = torch.stack([bits[:, 0] >> 16, bits[:, 0] & 0xFFFF,
+                            bits[:, 1] >> 16, bits[:, 1] & 0xFFFF],
+                           dim=-1).to(torch.int32)
+    duv = torch.cat([vertices.uv[ik[1]] - uv0, vertices.uv[ik[2]] - uv0],
+                    dim=-1)
+    inst = soup.instance.long()
+    mat = instances.material.long()[inst].to(torch.int32) & 0xFFFF
+    return torch.cat([n_bits, t_bits, wsign.unsqueeze(-1), uv0_cols,
+                      _f32_to_f16_bits(duv), mat.unsqueeze(-1),
+                      (inst.to(torch.int32) & 0xFFFF).unsqueeze(-1)],
+                     dim=-1).contiguous()
+
+
+def build_inst_shade(instances, materials):
+    """(N, 26) f32 per-instance side table of the quantized rows: the
+    normal matrix, the packed material row and the material id."""
+    from ..ops.shade import pack_materials  # local: avoid import cycle
+
+    n = instances.transform.shape[0]
+    mat_ids = instances.material.long()
+    return torch.cat([instances.normal_transform[:, :3, :3].reshape(n, 9),
+                      pack_materials(materials)[mat_ids],
+                      mat_ids[:, None].float()], dim=-1)
+
+
+def decode_shade_rows_q(qrow, inst_row):
+    """(..., 29) quantized rows and their instances' (..., 26) side rows
+    → the (..., 53) f32 hit-shading layout above; vertex k's uv is uv0
+    plus its f16 delta (vertex 0's exact)."""
+    u = ((qrow[..., SHQ_UV0].long() << 16) | qrow[..., SHQ_UV0 + 1].long())
+    v = ((qrow[..., SHQ_UV0 + 2].long() << 16) | qrow[..., SHQ_UV0 + 3].long())
+    uv0 = torch.stack([_u32_to_f32(u), _u32_to_f32(v)], dim=-1)
+    parts = []
+    for k in range(3):
+        n = _bf16_bits_to_f32(qrow[..., SHQ_N0 + 3 * k:SHQ_N0 + 3 * k + 3])
+        t3 = _bf16_bits_to_f32(qrow[..., SHQ_T0 + 3 * k:SHQ_T0 + 3 * k + 3])
+        w = torch.where((qrow[..., SHQ_WSIGN:SHQ_WSIGN + 1] & (1 << k)) > 0,
+                        1.0, -1.0)
+        uv = uv0 if k == 0 else uv0 + _f16_bits_to_f32(
+            qrow[..., SHQ_DUV + 2 * (k - 1):SHQ_DUV + 2 * k])
+        parts += [n, t3, w, uv]
+    return torch.cat(parts + [inst_row[..., SHQI_NMAT:SHQI_NMAT + 9],
+                              inst_row[..., SHQI_MAT:SHQI_MAT + 1],
+                              inst_row[..., SHQI_MROW:SHQI_MROW + 16]],
+                     dim=-1)
+
+
+def set_shade_tables(data):
+    """Give ``data`` the quantized tables where the reference builds them
+    (``shade_table_kind``), and None elsewhere."""
+    q = None
+    if shade_table_kind(data.num_triangles,
+                        data.instances.transform.shape[0]) == "shade_rows_q":
+        q = build_shade_rows_q(data.vertices, data.instances, data.triangles)
+    data.shade_rows_q = q
+    data.inst_shade = None if q is None else build_inst_shade(
+        data.instances, data.materials)
+    return data

@@ -1003,3 +1003,97 @@ def test_capture_failure_raises(dev):
     with pytest.raises(RuntimeError, match="cannot be captured"):
         r.render(cam.step(taa_enabled=True))
     assert not r._graphs
+
+
+@pytest.mark.parametrize("W,H", [(200, 120), (203, 117)])
+def test_raster_bf16_kernel_matches_plain(dev, W, H):
+    """K1's bf16 mode (raster_attr_bits=16) against its plain version,
+    the f32 raster rounded to nearest bf16: every output bit for bit."""
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
+    vp = cam.proj @ cam.view
+    corners = torch.stack([raster.transform_to_clip(v, vp)
+                           for v in (data.triangles.v0, data.triangles.v1,
+                                     data.triangles.v2)], dim=1)
+    rec, bbox, valid = raster_cuda.pack_candidates(
+        raster.clip_triangles(corners, W, H))
+    ts, ec = raster_cuda.bin_candidates(bbox, valid, W, H)
+    before = native.KERNELS["raster_tiles_bf16"].launches
+    vk, ak = raster_cuda.raster_tiles(rec, ts, ec, data.raster_rows, W, H,
+                                      attr_bits=16)
+    assert native.KERNELS["raster_tiles_bf16"].launches == before + 1
+    vp_, ap = raster_cuda.raster_tiles_bf16_plain(rec, ts, ec,
+                                                  data.raster_rows, W, H)
+    assert ak.dtype == ap.dtype == torch.bfloat16
+    assert torch.equal(ak.view(torch.int16), ap.view(torch.int16))
+    for a, b in ((vk.tri_id, vp_.tri_id), (vk.depth, vp_.depth),
+                 (vk.bary1, vp_.bary1), (vk.bary2, vp_.bary2)):
+        assert torch.equal(a, b)
+
+
+def test_quantized_trace_kernels_match_plain(dev, monkeypatch):
+    """K2 and K2c over a quantized scene's records (the budget
+    monkeypatched below the wide records, trace_backend "pallas-wide",
+    wide_kernel "mimt", which the reference demotes to its direct kernel
+    over bf16 records): every triangle, t, u and v equal to the plain
+    versions', also after a dynamic update moved an entity and the
+    tracer refit."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.ops import trace
+    from hybridrenderer_tpu_torch.scene import dynamic
+
+    monkeypatch.setattr(trace, "VMEM_SCENE_BUDGET", 600_000)
+    host = scenes.stress_scene(num_objects=40)
+    data = host.build(dev)
+    tracer = SceneTracer.build(data, RenderSettings(
+        trace_backend="pallas-wide", wide_kernel="mimt"))
+    assert tracer.quantized and tracer.wide_kernel is None
+    maps = dynamic.build_maps(host, dev)
+    tf = np.stack([r[1] for r in host._built["rows"]]).astype(np.float32)
+    tf[maps.instance_entity.cpu().numpy() == 3, :3, 3] += [0.5, 0.2, -0.4]
+    moved = dynamic.update_transforms(data, maps, _t(tf, dev))
+    g = np.random.default_rng(5)
+    R = 8192
+    o = _t(g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3)).astype(
+        np.float32), dev)
+    d = g.standard_normal((R, 3)).astype(np.float32)
+    d = _t(d / np.linalg.norm(d, axis=-1, keepdims=True), dev)
+    tmax = _t(g.choice([10.0, 1e6], R).astype(np.float32), dev)
+    active = _t(g.random(R) < 0.9, dev)
+    for t in (tracer, tracer.refit(moved)):
+        args = (t.packed, o, d, 0.01, tmax, active)
+        assert torch.equal(trace_cuda.intersect_any(*args),
+                           trace_cuda.intersect_any_plain(*args))
+        k = trace_cuda.intersect_closest(*args)
+        p = trace_cuda.intersect_closest_plain(*args)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+
+
+def test_captured_quantized_full_graph_equals_eager(dev):
+    """The full graph on cornell at 64x64 shading its radiance hits from
+    the forced quantized table: four captured frames (two replayed) equal
+    the eager frames bit for bit, with the same launches."""
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import schema
+
+    s, scene, cam_kw, taa, _ = _capture_case("full_graph")
+    imgs, counts = [], []
+    for capture in (True, False):
+        data = scene().build(dev)
+        data.shade_rows_q = schema.build_shade_rows_q(
+            data.vertices, data.instances, data.triangles)
+        data.inst_shade = schema.build_inst_shade(data.instances,
+                                                  data.materials)
+        r = Renderer.for_scene(s, data, capture=capture)
+        cam = OrbitCamera(width=64, height=64, **cam_kw)
+        native.reset_counts()
+        frames = []
+        for _ in range(4):
+            frames.append(r.render(cam.step(taa_enabled=taa)))
+            cam.orbit(0.02, 0.0)
+        imgs.append(frames)
+        counts.append(native.counts())
+    for a, b in zip(*imgs):
+        assert torch.equal(a, b)
+    assert counts[0] == counts[1]

@@ -112,16 +112,21 @@ def test_settings_keep_reference_defaults_and_reject_unported():
             s.ao_interleaved, s.raster_cull, s.raster_attr_bits) == \
         (128, 16, 3, True, "back", 32)
     # the reference's backend fields are not settings of the port, but
-    # for trace_backend and raster_eval, which pick between its kernels
+    # for trace_backend and raster_eval, which pick between its kernels;
+    # bvh_builder and raster_attr_bits change the image and are ported
     for kw in (dict(raster_backend="pallas"), dict(svgf_backend="pallas"),
-               dict(svgf_temporal_gather="tile"), dict(bvh_builder="lbvh")):
+               dict(svgf_temporal_gather="tile")):
         with pytest.raises(TypeError):
             RenderSettings(**kw)
-    assert (s.trace_backend, s.raster_eval) == ("auto", None)
+    assert (s.trace_backend, s.raster_eval, s.bvh_builder) == \
+        ("auto", None, "auto")
     for backend in ("auto", "pallas-wide", "jnp", "pallas"):
         assert RenderSettings(trace_backend=backend).trace_backend == backend
-    for kw in (dict(raster_attr_bits=16), dict(trace_backend="wide"),
-               dict(raster_eval="v5")):
+    assert RenderSettings(raster_attr_bits=16).raster_attr_bits == 16
+    for builder in ("auto", "sah", "lbvh"):
+        assert RenderSettings(bvh_builder=builder).bvh_builder == builder
+    for kw in (dict(raster_attr_bits=8), dict(trace_backend="wide"),
+               dict(raster_eval="v5"), dict(bvh_builder="binned")):
         with pytest.raises(ValueError):
             RenderSettings(**kw)
 
@@ -152,3 +157,62 @@ def test_full_graph_settings_keep_reference_defaults():
                dict(shade_fetch="attr"), dict(debug_radiance_stage="noocc")):
         with pytest.raises(TypeError):
             RenderSettings(**kw)
+
+
+def test_public_helpers_match_reference():
+    """The reference's small public helpers, ported: RenderSettings.has
+    and resolution, OrbitCamera.resize and frustum_planes,
+    RenderGraph.reset, geometry.merge and postprocess.to_srgb_u8."""
+    import jax.numpy as jnp
+
+    from hybridrenderer_tpu.core.camera import OrbitCamera as RefCamera
+    from hybridrenderer_tpu.core.config import RenderSettings as RefSettings
+    from hybridrenderer_tpu.core.types import RenderFlags as RefFlags
+    from hybridrenderer_tpu.graph.graph import RenderGraph as RefGraph
+    from hybridrenderer_tpu.ops import postprocess as ref_post
+    from hybridrenderer_tpu.scene import geometry as ref_geometry
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.graph.graph import RenderGraph
+    from hybridrenderer_tpu_torch.ops import postprocess
+    from hybridrenderer_tpu_torch.scene import geometry
+
+    s, ref_s = RenderSettings(width=96, height=40), \
+        RefSettings(width=96, height=40)
+    assert s.resolution == ref_s.resolution == (40, 96)
+    for flag in ("LIGHT", "SHADOW", "TAA"):
+        assert s.has(RenderFlags[flag]) == ref_s.has(RefFlags[flag])
+
+    kw = dict(distance=9.0, pitch=0.3, yaw=0.7, focal_point=(0, 1, 0))
+    cam, ref_cam = OrbitCamera(width=64, height=64, **kw), \
+        RefCamera(width=64, height=64, **kw)
+    cam.resize(120, 80)
+    ref_cam.resize(120, 80)
+    a, b = cam.step(taa_enabled=True), ref_cam.step(taa_enabled=True)
+    np.testing.assert_array_equal(np.asarray(a.jitter),
+                                  np.asarray(b.jitter))
+    np.testing.assert_allclose(cam.frustum_planes().numpy(),
+                               np.asarray(ref_cam.frustum_planes()),
+                               rtol=1e-6, atol=1e-6)
+
+    graph, ref_graph = RenderGraph(8, 8), RefGraph(8, 8)
+    for g in (graph, ref_graph):
+        g.add_pass("A", lambda reg, ctx: {}, writes=("X",))
+        g.reset()
+        assert g.passes == []
+
+    meshes = [geometry.cube(), geometry.uv_sphere(rings=4, sectors=6)]
+    ref_meshes = [ref_geometry.cube(),
+                  ref_geometry.uv_sphere(rings=4, sectors=6)]
+    m, rm = geometry.merge(meshes), ref_geometry.merge(ref_meshes)
+    for f in ("positions", "normals", "tangents", "uvs", "indices"):
+        np.testing.assert_array_equal(getattr(m, f), getattr(rm, f))
+    assert (m.material, m.name) == (rm.material, rm.name)
+
+    x = np.random.default_rng(1).uniform(-0.5, 1.5, (7, 5, 3)).astype(
+        np.float32)
+    u8 = postprocess.to_srgb_u8(torch.from_numpy(x))
+    assert u8.dtype == torch.uint8
+    np.testing.assert_array_equal(u8.numpy(),
+                                  np.asarray(ref_post.to_srgb_u8(
+                                      jnp.asarray(x))))

@@ -15,7 +15,6 @@ SVGF cases are held to 24 u8 / p99 8, just above that floor. Everything
 before SVGF — the G-buffer, shading and the raw shadow and AO signals —
 is held to 2 u8 / p99 1 with SVGF off."""
 import os
-import types
 
 import numpy as np
 import pytest
@@ -34,7 +33,7 @@ from hybridrenderer_tpu_torch.core.config import RenderSettings
 from hybridrenderer_tpu_torch.core.types import (DisplayMode, RenderFlags,
                                                  RenderPathType)
 from hybridrenderer_tpu_torch.graph.params import RS
-from hybridrenderer_tpu_torch.ops.trace import SHADE_ROWS_MAX
+from hybridrenderer_tpu_torch.scene import schema
 from hybridrenderer_tpu_torch.runtime.output import read_png, to_u8
 from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene import scene as port_scenes
@@ -181,19 +180,28 @@ def test_frame_state_and_stats(bits):
 
 def test_unported_options_raise():
     """Radiance rays (reflection, GI and the ray-traced path's primary
-    rays) above the reference's exact shade-row table (it switches to a
-    quantized one) are not ported yet, and raise before any BVH is
-    built. Bound textures are ported: a stack that no material samples
-    leaves the frame as it was."""
+    rays) on a scene that shades from the reference's quantized table,
+    which a scene above SHADE_ROWS_MAX triangles gets, render: finite,
+    and within the quantization of the exact table's frame. Bound
+    textures are ported: a stack that no material samples leaves the
+    frame as it was."""
     data = port_scenes.cube_scene().build("cpu")
-    big = types.SimpleNamespace(num_triangles=SHADE_ROWS_MAX + 1)
+    assert schema.shade_table_kind(schema.SHADE_ROWS_MAX + 1, 1) \
+        == "shade_rows_q"
+    quantized = port_scenes.cube_scene().build("cpu")
+    quantized.shade_rows_q = schema.build_shade_rows_q(
+        quantized.vertices, quantized.instances, quantized.triangles)
+    quantized.inst_shade = schema.build_inst_shade(quantized.instances,
+                                                   quantized.materials)
     s = _settings(16)
+    cam = OrbitCamera(width=16, height=16, **CUBE_CAM).step()
     for kw in (dict(flags=s.flags | RenderFlags.REFLECTION),
                dict(flags=s.flags | RenderFlags.GI),
                dict(path=RenderPathType.RAYTRACED)):
-        with pytest.raises(NotImplementedError, match="shade_rows_q"):
-            Renderer.for_scene(s.replace(**kw), big)
-    cam = OrbitCamera(width=16, height=16, **CUBE_CAM).step()
+        frame = Renderer.for_scene(s.replace(**kw), quantized).render(cam)
+        exact = Renderer.for_scene(s.replace(**kw), data).render(cam)
+        assert torch.isfinite(frame).all() and frame.max() > 0
+        assert (frame - exact).abs().max() < 0.05
     plain = Renderer.for_scene(_settings(16), data).render(cam)
     data.textures.data = torch.ones((1, 4, 4, 4))
     r = Renderer.for_scene(_settings(16), data)
