@@ -25,7 +25,14 @@ non-zero without printing a result):
    on one textured 1080p G-buffer's lookups against the CPU, with its
    time; and K2 / K2c over the bf16 triangles of a scene above the
    reference's 96 MiB record budget (R-w-big's, BIG_OBJECTS objects) on
-   one 1080p ray-traced frame's primary and occlusion rays, exact;
+   one 1080p ray-traced frame's primary and occlusion rays, exact; K1
+   (f32 and vis-only) and K3 over the row windows of a SHARDS-way split
+   of the 1080p frame (270 rows), exact against their plain versions
+   and the whole image's rows; K2w over 8- and 16-triangle clusters
+   (bvh_leaf_tris) on the four wide queries, exact, beside its bound
+   and the 4-triangle time; the headline's shadow and AO rays as one
+   shadow_query_pair (one K2 launch) against two queries, same
+   visibility;
 4. goldens: tests/goldens/cube_hybrid_128.png, cornell_full_128.png,
    cube_forward_64.png, cube_raytraced_128.png, stress_textured_128.png,
    cutout_hybrid_128.png, textured_gltf_96.png (tests/goldens/
@@ -76,7 +83,12 @@ non-zero without printing a result):
       objects (4 frames), which must trace K2 / K2c over bf16 triangles
       and launch no K2w, as the reference demotes it; H-a16, the
       headline with raster_attr_bits=16 (8 frames, K1's bf16 mode), with
-      each rung's binning capacity a key.
+      each rung's binning capacity a key;
+   j. the wide tree's shapes and the fused query: D-w and R-w with
+      bvh_leaf_tris=8 (K2w over 8-triangle clusters), R-w with
+      bvh_width=16 (the reference demotes K2w: no K2w launch), each held
+      to its default-shape frame; H with fuse_shadow_ao (one K2 launch
+      a frame, the headline's last frame bit for bit).
    variance_blur is checked in phase 3 but launched by no path: its
    output feeds nothing (ops/svgf.py);
 6. the captured frame: H, F, T, P, D and C at 1080p through the captured
@@ -87,7 +99,13 @@ non-zero without printing a result):
    its frame commits, and the same view must then render at a capacity
    sized per key; the CLI (--scene stress --path hybrid --frames 3 at
    1920x1080, a process of its own) and the HTTP viewer (/frame.png and
-   /input on localhost) on the card.
+   /input on localhost) on the card;
+7. the row-sharded frame (parallel/): H, F, T and R at 1920x1080
+   sharded SHARDS ways on the one card, frames 1-3 eager, against the
+   single-device eager frames within 2e-4 (the reference's tolerance),
+   each frame's max abs difference, ms/frame and peak MiB printed, with
+   the counts set to 0 just before the sharded frames and every kernel
+   of the path launched.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's ``nvidia-smi`` name and power limit, and
@@ -220,6 +238,20 @@ def cuda_time(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_time(fn, reps):
+    """Mean ms per replay of ``fn``'s launches captured into one CUDA
+    graph (after an eager warm-up), timed with CUDA events: the device's
+    time for them, which the host's wrapper calls do not pace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_time(graph.replay, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -423,6 +455,169 @@ def check_raster_bf16(dev):
                       f"{rec.shape[0]} candidates, bf16 attributes; the f32 "
                       f"mode {ms32:.4f} ms in the same call",
                 tol="exact (tri ids, depth, barycentrics and the bf16 bits)")
+
+
+# the row-sharded frames' split of the 1080p image (parallel/sharded.py)
+SHARDS = 4
+
+
+def check_raster_window(dev):
+    """K1 (f32 attributes) and K1 vis-only over the row windows of a
+    SHARDS-way split of the headline's 1920x1080 frame (270 rows each,
+    which cut the 16-row bands): each window exact against its plain
+    version, and the windows stacked equal to the whole image's K1
+    outputs bit for bit. Times, replayed from CUDA graphs (device time):
+    the windows' K1 launches against the whole image's in the same call;
+    and the windows' eager calls, which the host paces."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import raster_cuda as rc
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    h = H // SHARDS
+    data = _headline_scene(dev, HEADLINE["objects"])
+    rec, bbox, valid = rc.pack_candidates(_clipped(data, W, H, HEADLINE_CAM))
+    ts, ec = rc.bin_candidates(bbox, valid, W, H)
+    whole = {a: rc.raster_tiles(rec, ts, ec, a, W, H)
+             for a in (data.raster_rows, None)}
+    windows, entries = [], 0
+    for k in range(SHARDS):
+        row0 = k * h
+        ts_k, ec_k = rc.bin_candidates(bbox, valid, W, h, row0, H)
+        entries += ec_k.shape[0]
+        for a in (data.raster_rows, None):
+            vk, ak = rc.raster_tiles(rec, ts_k, ec_k, a, W, h, row0=row0)
+            vp, ap = rc.raster_tiles_plain(rec, ts_k, ec_k, a, W, h,
+                                           row0=row0)
+            vw, aw = whole[a]
+            rows = slice(row0, row0 + h)
+            for x, y, z in ((vk.tri_id, vp.tri_id, vw.tri_id[rows]),
+                            (vk.depth, vp.depth, vw.depth[rows]),
+                            (vk.bary1, vp.bary1, vw.bary1[rows]),
+                            (vk.bary2, vp.bary2, vw.bary2[rows]),
+                            (ak, ap, None if aw is None else aw[rows])):
+                if x is None:
+                    continue
+                if not (torch.equal(x, y) and torch.equal(x, z)):
+                    raise AssertionError(
+                        f"K1 over rows {row0}..{row0 + h - 1} "
+                        f"({'vis-only' if a is None else 'f32'}) differs "
+                        f"from its plain version or the whole image's")
+        windows.append((ts_k, ec_k, row0))
+
+    def run_windows(a):
+        for ts_k, ec_k, row0 in windows:
+            rc.raster_tiles(rec, ts_k, ec_k, a, W, h, row0=row0)
+
+    ms = graph_time(lambda: run_windows(data.raster_rows), 20)
+    ms_vis = graph_time(lambda: run_windows(None), 20)
+    eager_ms = cuda_time(lambda: run_windows(data.raster_rows), 20)
+    whole_ms = graph_time(lambda: rc.raster_tiles(rec, ts, ec,
+                                                  data.raster_rows, W, H), 20)
+    whole_vis = graph_time(lambda: rc.raster_tiles(rec, ts, ec, None, W, H),
+                           20)
+    plain_ms = cuda_time(lambda: [rc.raster_tiles_plain(
+        rec, t_, e_, data.raster_rows, W, h, row0=r0)
+        for t_, e_, r0 in windows], 2)
+    log(f"[kernel] raster_tiles row windows: {SHARDS} x {W}x{h} exact "
+        f"against the plain version and the whole image's rows (f32 and "
+        f"vis-only); {entries} tile entries against the whole image's "
+        f"{ec.shape[0]}; replayed: {ms:.4f} ms for the {SHARDS} windows "
+        f"(vis-only {ms_vis:.4f}) vs {whole_ms:.4f} ms whole (vis-only "
+        f"{whole_vis:.4f}); eager calls {eager_ms:.4f}; plain "
+        f"{plain_ms:.4f}; on {nvidia_smi_line()}")
+
+
+def check_temporal_window(dev):
+    """K3 over the row windows of a SHARDS-way split at 1920x1080: the
+    current planes 270 rows, the history the whole image's; each window
+    exact against its plain version and the whole image's K3 rows."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import temporal_cuda
+
+    H, W = HEADLINE["height"], HEADLINE["width"]
+    h = H // SHARDS
+    depth, oid, nrm, mp, g = _frame_planes(dev, H, W, 1)
+    hist_sig = torch.from_numpy(g.random((H, W, 4)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    hist_mom = torch.from_numpy(g.random((H, W, 4)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+    prev_depth = (depth * 1.01).contiguous()
+    hist = (hist_sig, hist_mom, nrm, prev_depth, oid)
+    whole = temporal_cuda.temporal_fetch(*hist, mp, nrm, oid)
+    err, args = 0.0, []
+    for k in range(SHARDS):
+        rows = slice(k * h, (k + 1) * h)
+        cur = tuple(x[rows].contiguous() for x in (mp, nrm, oid))
+        args.append((*hist, *cur, k * h))
+        kk = temporal_cuda.temporal_fetch(*args[-1])
+        pp = temporal_cuda.temporal_fetch_plain(*args[-1])
+        if not torch.equal(kk, whole[rows]):
+            raise AssertionError(f"K3 over rows {rows} differs from the "
+                                 f"whole image's")
+        err = max(err, (kk - pp).abs().max().item())
+    if err > 0.0:
+        raise AssertionError(f"K3 row windows: max err {err} against the "
+                             f"plain version")
+    ms = graph_time(lambda: [temporal_cuda.temporal_fetch(*a)
+                             for a in args], 50)
+    eager_ms = cuda_time(lambda: [temporal_cuda.temporal_fetch(*a)
+                                  for a in args], 50)
+    whole_ms = graph_time(lambda: temporal_cuda.temporal_fetch(
+        *hist, mp, nrm, oid), 50)
+    log(f"[kernel] temporal_fetch row windows: {SHARDS} x {W}x{h} over the "
+        f"{W}x{H} history, exact against the whole image's rows and the "
+        f"plain version; replayed: {ms:.4f} ms for the {SHARDS} windows "
+        f"vs {whole_ms:.4f} ms whole; eager calls {eager_ms:.4f}; on "
+        f"{nvidia_smi_line()}")
+
+
+def check_shadow_pair(dev):
+    """The headline frame's shadow and AO queries at 1920x1080 as one
+    shadow_query_pair (one K2 launch of 2R rays) against two
+    shadow_query calls (two launches): visibility equal, one launch
+    against two; both timed."""
+    import torch
+
+    from hybridrenderer_tpu_torch import native
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, HEADLINE["objects"])
+    r = Renderer.for_scene(_hybrid_settings(W, H), data, capture=False)
+    tracer, query, calls = r.tracer, r.tracer.shadow_query, []
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return query(*a, **kw)
+
+    tracer.shadow_query = recording
+    r.render(OrbitCamera(width=W, height=H, **HEADLINE_CAM).step(
+        taa_enabled=True))
+    del tracer.shadow_query
+    (wp, n, d_a, t_a), kw = calls[0]
+    (_, _, d_b, t_b), _ = calls[1]
+    act = kw["active"]
+    k = native.KERNELS["trace_any"]
+    n0 = k.launches
+    pair = tracer.shadow_query_pair(wp, n, d_a, t_a, d_b, t_b, active=act)
+    n1 = k.launches
+    two = [tracer.shadow_query(*a, **kw_) for a, kw_ in calls]
+    n2 = k.launches
+    same = [torch.equal(x, y) for x, y in zip(pair, two)]
+    if (n1 - n0, n2 - n1) != (1, 2) or not all(same):
+        raise AssertionError(f"the pair: {n1 - n0} K2 launches against "
+                             f"{n2 - n1}, visibility equal {same}")
+    pair_ms = cuda_time(lambda: tracer.shadow_query_pair(
+        wp, n, d_a, t_a, d_b, t_b, active=act), 10)
+    two_ms = cuda_time(lambda: [tracer.shadow_query(*a, **kw_)
+                                for a, kw_ in calls], 10)
+    log(f"[kernel] shadow_query_pair: the headline's shadow and AO rays "
+        f"({2 * W * H} rays) in 1 K2 launch, visibility equal to 2 "
+        f"shadow_query launches; {pair_ms:.4f} ms vs {two_ms:.4f} ms (the "
+        f"queries with their ray set-up) on {nvidia_smi_line()}")
 
 
 def _big_scene():
@@ -967,7 +1162,7 @@ def wide_queries(dev):
         raise AssertionError(f"expected the {names} queries, got modes "
                              f"{[c[-1] for c in calls]}")
     return ([(n, *c) for n, c in zip(names, calls)], tracers[0].wide,
-            data)
+            data, tracers[0].bvh)
 
 
 def torch_equal_nan(a, b):
@@ -1007,7 +1202,7 @@ def check_wide(dev):
     from hybridrenderer_tpu_torch.ops import trace_cuda as tc
     from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 
-    queries, wide, data = wide_queries(dev)
+    queries, wide, data, tree = wide_queries(dev)
     packed = SceneTracer.build(data).packed
     rays = [q[1:6] for q in queries]        # o, d, tmin, tmax, active
     modes = [q[6] for q in queries]
@@ -1104,7 +1299,72 @@ def check_wide(dev):
                   f"past the reference's 128 entries; build {info}; ms for "
                   f"all four",
             tol="exact (t, tri, u, v)")
+    check_wide_clusters(wide, tree, data, queries, ref, visits,
+                        out["trace_wide"]["ms"])
     return out
+
+
+def check_wide_clusters(wide4, tree, data, queries, ref, visits, ms4):
+    """K2w over 8- and 16-triangle leaf clusters (bvh_leaf_tris) of the
+    same binary tree, on the four wide queries: exact against its plain
+    version (t, tri, u, v), no visibility flip and closest t equal
+    against the per-ray K2 / K2c; timed beside its bound and the
+    4-triangle clusters' time, with the build's registers, local memory
+    and shared memory."""
+    from hybridrenderer_tpu_torch.ops import trace_cuda as tc
+    from hybridrenderer_tpu_torch.ops.bvh_wide import build_wide
+
+    soup = data.triangles
+    rays = [q[1:6] for q in queries]
+    modes = [q[6] for q in queries]
+    for leaf_tris in (8, 16):
+        wide = build_wide(tree, soup.v0, soup.v1, soup.v2,
+                          leaf_tris=leaf_tris)
+        ks = [tc.intersect_wide(wide, *r, m) for r, m in zip(rays, modes)]
+        steps = {}
+        ps = [tc.intersect_wide_plain(wide, *r, m, visits=steps)
+              for r, m in zip(rays, modes)]
+        for (qn, *_), k, p in zip(queries, ks, ps):
+            bad = [f for f, a, b in zip("t tri u v".split(), k, p)
+                   if not torch_equal_nan(a, b)]
+            if bad:
+                raise AssertionError(f"K2w over {leaf_tris}-triangle "
+                                     f"clusters differs from its plain "
+                                     f"version on the {qn} rays in {bad}")
+        flips, t_diff = 0, 0.0
+        for r, m, k, ref_out in zip(rays, modes, ks, ref):
+            tri = k[1].clone()
+            tri[tri == tc.INACTIVE_TRI] = -1
+            ref_tri = ref_out if m else ref_out[1]
+            flips += int(((tri >= 0) != (ref_tri >= 0))[r[4]].sum())
+            if not m:
+                hit = (ref_tri >= 0) & r[4]
+                t_diff = max(t_diff, (k[0] - ref_out[0]).abs()[hit].max()
+                             .item())
+        total = sum(int(r[4].sum()) for r in rays)
+        if flips > 1e-3 * total or t_diff > 1e-4:
+            raise AssertionError(f"K2w over {leaf_tris}-triangle clusters "
+                                 f"against K2 / K2c: {flips} visibility "
+                                 f"flips, closest t differs by {t_diff}")
+        times = [cuda_time(lambda r=r, m=m: tc.intersect_wide(wide, *r, m),
+                           5) for r, m in zip(rays, modes)]
+        b = trace_bound((wide.nodes_flat, wide.leaves_flat, wide.meta),
+                        [(r[0], r[1], r[3], r[4]) for r in rays],
+                        [k if not m else k[1] for k, m in zip(ks, modes)],
+                        visits)
+        log(f"[kernel] trace_wide over {leaf_tris}-triangle clusters "
+            f"(bvh_leaf_tris={leaf_tris}): exact against its plain version "
+            f"on the four wide queries, {flips} visibility flips and closest "
+            f"t within {t_diff:.3g} against K2 / K2c; "
+            + " + ".join(f"{t:.4f}" for t in times)
+            + f" = {sum(times):.4f} ms vs {ms4:.4f} ms over 4-triangle "
+            f"clusters; bound {b[0]:.4f} ms ({b[1]}); tree of "
+            f"{wide.num_wide} nodes, {wide.num_clusters} clusters "
+            f"(4-triangle: {wide4.num_clusters}), records "
+            f"{wide.vmem_bytes} bytes; packet pops {steps['internal']} "
+            f"nodes, {steps['leaf']} clusters in {steps['steps']} program "
+            f"steps; build {tc.wide_kernel_info(False, leaf_tris)} (shared "
+            f"memory in bytes); on {nvidia_smi_line()}")
 
 
 def _frame_planes(dev, H, W, seed):
@@ -1695,6 +1955,158 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     return launches, img, prof, med
 
 
+# phase 7: the row-sharded frame (parallel/sharded.py)
+SHARDED_FRAMES = 3
+# the reference's tolerance for its sharded frames with ray passes
+# (tests/test_parallel.py)
+SHARDED_TOL = 2e-4
+
+
+def phase_sharded(dev, out_dir):
+    """H, F, T and R at 1920x1080 sharded SHARDS ways on one card (every
+    shard on ``dev``), frames 1-3 eagerly, against the single-device eager
+    frames within SHARDED_TOL; the counts set to 0 just before the
+    sharded frames and read just after, every kernel of the path
+    launched and no plain version on the card. Prints each frame's max
+    abs difference, ms/frame and peak MiB of both. → {path: launches}."""
+    import torch
+
+    from hybridrenderer_tpu_torch import native
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+    from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
+    from hybridrenderer_tpu_torch.runtime.output import write_png
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    data = _headline_scene(dev, HEADLINE["objects"])
+    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+              "filter_moments", "atrous"]
+    paths = (
+        ("H", _hybrid_settings(W, H), hybrid),
+        ("F", _hybrid_settings(
+            W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
+         hybrid + ["trace_closest"]),
+        ("T", _forward_settings(W, H), ["raster_tiles", "window_sample"]),
+        ("R", _raytraced_settings(W, H),
+         ["raster_tiles", "trace_closest", "trace_any", "window_sample"]))
+    out, failures = {}, []
+    for name, settings, kernels in paths:
+        frames, ms, peak = {}, {}, {}
+        for kind in ("single", "sharded"):
+            if kind == "single":
+                r = Renderer.for_scene(settings, data, capture=False)
+            else:
+                r = ShardedRenderer.for_scene(settings, data, mesh)
+            cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            native.reset_counts()
+            frames[kind], ms[kind] = [], []
+            for _ in range(SHARDED_FRAMES):
+                t = time.perf_counter()
+                img = r.render(cam.step(taa_enabled=True))
+                torch.cuda.synchronize()
+                ms[kind].append(1e3 * (time.perf_counter() - t))
+                frames[kind].append(img)
+                cam.orbit(0.01, 0.0)
+            peak[kind] = torch.cuda.max_memory_allocated() / 2**20
+        launches = {k.name: k.launches for k in native.KERNELS.values()
+                    if k.launches}
+        plain = {k.name: k.plain_cuda_calls for k in native.KERNELS.values()
+                 if k.plain_cuda_calls}
+        diffs = [(a - b).abs().max().item()
+                 for a, b in zip(frames["single"], frames["sharded"])]
+        img = frames["sharded"][-1].cpu().numpy()
+        write_png(os.path.join(out_dir, f"chip_smoke_sharded_{name}.png"),
+                  np.clip(img, 0.0, 1.0))
+        missing = [k for k in kernels if not launches.get(k)]
+        ok = (not missing and not plain and max(diffs) <= SHARDED_TOL
+              and img.shape == (H, W, 3) and np.isfinite(img).all())
+        log(f"[sharded {name}] {SHARDS} shards of {W}x{H // SHARDS} on "
+            f"{dev}, frames 1-{SHARDED_FRAMES} eager: max abs diff against "
+            f"the single-device frames {diffs} (tol {SHARDED_TOL}); ms/frame "
+            f"sharded {[round(t, 2) for t in ms['sharded']]} vs single "
+            f"{[round(t, 2) for t in ms['single']]}; peak MiB sharded "
+            f"{peak['sharded']:.1f} vs single {peak['single']:.1f}; sharded "
+            f"launches {launches}; plain on the card {plain}; frame stats "
+            f"{r.frame_stats()}; on {nvidia_smi_line()}: "
+            + ("ok" if ok else f"FAILED (never launched: {missing})"))
+        if not ok:
+            failures.append(f"sharded {name}")
+        out[f"sharded_{name}"] = launches
+    return out, failures
+
+
+def _wide_rungs(dev, out_dir, runs):
+    """The wide tree's shapes and the fused shadow + AO query at
+    1920x1080 through the captured renderer (phase_render): D-w and R-w
+    over 8-triangle clusters (K2w), R-w over a 16-wide tree (which the
+    reference demotes: no K2w launch), each held to its default-shape
+    frame as phase 5 holds the wide paths to K2 / K2c's; and H with
+    fuse_shadow_ao, one K2 launch a frame (the headline's two), its last
+    frame equal to the headline's bit for bit. → failures."""
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    wide = dict(trace_backend="pallas-wide", wide_kernel="compressed")
+    direct = ["trace_any", "trace_closest", "trace_packet", "trace_mimt"]
+    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+              "filter_moments", "atrous"]
+
+    def shape(width, leaf_tris):
+        def check(r):
+            w = r.tracer.wide
+            if w is not None and (w.width, w.leaf_tris) != (width,
+                                                            leaf_tris):
+                raise AssertionError(f"wide tree {w.width} wide, "
+                                     f"{w.leaf_tris} triangles a cluster")
+        return check
+
+    def demoted(r):
+        if r.tracer.wide_kernel is not None or r.tracer.demotion is None:
+            raise AssertionError("a 16-wide tree's tracer is not K2 / K2c")
+
+    runs["dynamic_wide_l8"] = phase_render(
+        dev, out_dir, "dynamic_wide_l8",
+        _hybrid_settings(W, H, bvh_leaf_tris=8, **wide),
+        ["trace_wide" if x == "trace_any" else x for x in hybrid],
+        absent=direct, dynamic=True, check=shape(8, 8))
+    runs["raytraced_wide_l8"] = phase_render(
+        dev, out_dir, "raytraced_wide_l8",
+        _raytraced_settings(W, H, bvh_leaf_tris=8, **wide),
+        ["raster_tiles", "trace_wide", "window_sample"], absent=direct,
+        check=shape(8, 8))
+    runs["raytraced_wide_w16"] = phase_render(
+        dev, out_dir, "raytraced_wide_w16",
+        _raytraced_settings(W, H, bvh_width=16, **wide),
+        ["raster_tiles", "trace_closest", "trace_any", "window_sample"],
+        absent=["trace_wide", "trace_mimt"], check=demoted)
+    runs["headline_fused"] = phase_render(
+        dev, out_dir, "headline_fused",
+        _hybrid_settings(W, H, fuse_shadow_ao=True), hybrid,
+        per_frame={"trace_any": 1})
+    failures = []
+    frames = HEADLINE["frames"]
+    if runs["headline"][0].get("trace_any") != 2 * frames:
+        failures.append("headline: not two K2 launches a frame")
+    same = np.array_equal(runs["headline_fused"][1], runs["headline"][1])
+    log(f"[headline_fused] one K2 launch a frame against the headline's "
+        f"two; last frame equal to the headline's bit for bit: {same}")
+    if not same:
+        failures.append("headline_fused frame")
+    for rung, base in (("dynamic_wide_l8", "dynamic"),
+                       ("raytraced_wide_l8", "raytraced"),
+                       ("raytraced_wide_w16", "raytraced")):
+        diff = np.abs(runs[base][1] - runs[rung][1])
+        log(f"[{rung}] last frame against {base}'s: max abs diff "
+            f"{diff.max():.3g}, {(diff > 1.0 / 255).mean():.2e} of pixel "
+            f"channels beyond 1/255")
+        if (diff > 1.0 / 255).mean() > 1e-3:
+            failures.append(f"{rung} frame")
+    return failures
+
+
 # phase 6: the captured frame against the eager frame, the burst, the
 # binning overflow, the CLI and the viewer
 CAPTURE_FRAMES = 3
@@ -1970,7 +2382,10 @@ def main(argv=None):
             + f"; bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) "
             f"at {res['shape']}{off}")
     for name, check in (("sampler", check_sampler),
-                        ("quantized", check_quantized_trace)):
+                        ("quantized", check_quantized_trace),
+                        ("raster_window", check_raster_window),
+                        ("temporal_window", check_temporal_window),
+                        ("shadow_pair", check_shadow_pair)):
         try:
             check(dev)
         except AssertionError as e:
@@ -2106,7 +2521,6 @@ def main(argv=None):
     diff = np.abs(runs["headline_a16"][1] - runs["headline"][1])
     log(f"[headline_a16] last frame against the headline's (f32 "
         f"attributes): max abs diff {diff.max():.3g}, mean {diff.mean():.3g}")
-    paths = {name: launches for name, (launches, *_) in runs.items()}
     # the wide kernels change no visibility and no closest t: the dynamic
     # and ray-traced frames equal the K2 / K2c paths' frames
     for base in ("dynamic", "raytraced"):
@@ -2117,11 +2531,18 @@ def main(argv=None):
                 f"of pixel channels beyond 1/255")
             if (diff > 1.0 / 255).mean() > 1e-3:
                 failures.append(f"{base}_{tag} frame")
+    # the wide tree's shapes and the fused shadow + AO query
+    failures += _wide_rungs(dev, args.out, runs)
+    paths = {name: launches for name, (launches, *_) in runs.items()}
     # phase 6: the captured frame's own checks
     failures += phase_captured_vs_eager(dev)
     failures += phase_burst(dev)
     failures += phase_overflow(dev)
     failures += phase_cli_viewer(dev, args.out)
+    # phase 7: the row-sharded frame
+    sharded, sharded_failures = phase_sharded(dev, args.out)
+    paths.update(sharded)
+    failures += sharded_failures
     if failures:
         raise AssertionError(f"checks failed: {failures}")
 

@@ -10,11 +10,11 @@ no result), shade_fetch (an A/B switch of the hit-shading fetch) or
 debug_radiance_stage (a diagnostic cut of the radiance pass). Three
 kernel choices are settings, because they pick between kernels of the
 port: ``trace_backend``, ``wide_kernel`` and ``raster_eval`` (below);
-``bvh_builder`` and ``raster_attr_bits`` change the image, as in the
-reference. Nothing is read from the environment. The reference's
-wide-tree shape fields ``bvh_leaf_tris`` and ``bvh_width`` are not
-ported (the tree is 8-wide with 4-triangle leaves, their defaults):
-passing one raises TypeError.
+``bvh_builder``, ``raster_attr_bits`` and the wide tree's shape
+(``bvh_width``, ``bvh_leaf_tris``) change the image, as in the
+reference; ``fuse_shadow_ao`` (the reference's RT_FUSE_SHADOW_AO)
+changes no pixel, it fuses two any-hit launches into one. Nothing is
+read from the environment.
 """
 from __future__ import annotations
 
@@ -26,6 +26,11 @@ TRACE_BACKENDS = ("auto", "pallas-wide", "jnp", "pallas")
 RASTER_EVALS = (None, "v1", "v2", "v3", "v4")
 WIDE_KERNELS = (None, "direct", "compressed", "mimt")
 BVH_BUILDERS = ("auto", "sah", "lbvh")
+# the reference's wide build takes 8 or 16 children a node
+# (ops/bvh_wide.py build_wide) and its r3 ladder 4, 8 or 16 triangles a
+# leaf cluster (BENCH.md); None is its default, 8 and 4
+BVH_WIDTHS = (None, 8, 16)
+BVH_LEAF_TRIS = (None, 4, 8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +87,17 @@ class RenderSettings:
     # BVH build: "auto" (= "sah", binned SAH) or "lbvh" (the Karras radix
     # tree, faster to build); both by native/bvh_builder.cpp
     bvh_builder: str = "auto"
+    # the 8-wide tree "pallas-wide" builds: children a node (None: 8) and
+    # triangles a leaf cluster (None: 4), the reference's bvh_width and
+    # bvh_leaf_tris (its WIDE_WIDTH and WIDE_LEAF_TRIS). They size the
+    # records, and so the reference's choice of f32 or bf16 triangles
+    # and of the kernel that runs (ops/trace.py plan_wide)
+    bvh_width: "int | None" = None
+    bvh_leaf_tris: "int | None" = None
+    # RTShadowPass traces its shadow and AO rays in one any-hit launch of
+    # 2R rays (SceneTracer.shadow_query_pair), the reference's
+    # RT_FUSE_SHADOW_AO=1; the frame is the same bit for bit
+    fuse_shadow_ao: bool = False
 
     def __post_init__(self):
         if self.svgf_bits not in (16, 32):
@@ -107,6 +123,12 @@ class RenderSettings:
         if self.raster_eval not in RASTER_EVALS:
             raise ValueError(f"raster_eval must be one of {RASTER_EVALS}, "
                              f"got {self.raster_eval!r}")
+        if self.bvh_width not in BVH_WIDTHS:
+            raise ValueError(f"bvh_width must be one of {BVH_WIDTHS}, got "
+                             f"{self.bvh_width!r}")
+        if self.bvh_leaf_tris not in BVH_LEAF_TRIS:
+            raise ValueError(f"bvh_leaf_tris must be one of "
+                             f"{BVH_LEAF_TRIS}, got {self.bvh_leaf_tris!r}")
         if self.raster_cull not in ("back", "none"):
             raise ValueError(f"raster_cull must be 'back' or 'none', got "
                              f"{self.raster_cull!r}")

@@ -61,11 +61,22 @@ def mix(a, b, t):
     return a + (b - a) * t
 
 
+def apply(m, v):
+    """The (N, K) matrix ``m`` applied to (..., K) vectors → (..., N),
+    each output a left-to-right sum of products. Per-pixel vectors go
+    through this, not a matrix product: on the card a matrix product
+    picks its kernel, and so its rounding, by the batch's size, and a
+    row-sharded frame's shards must compute their pixels as the whole
+    image does."""
+    out = v[..., 0:1] * m[:, 0]
+    for j in range(1, m.shape[1]):
+        out = out + v[..., j:j + 1] * m[:, j]
+    return out
+
+
 def transform_point_h(m, p):
     """(4, 4) applied to (..., 3) points → homogeneous (..., 4)."""
-    r = p @ m[:3, :3].T + m[:3, 3]
-    w = p @ m[3, :3] + m[3, 3]
-    return torch.cat([r, w.unsqueeze(-1)], dim=-1)
+    return apply(m[:, :3], p) + m[:, 3]
 
 
 # ---------------------------------------------------------------------------

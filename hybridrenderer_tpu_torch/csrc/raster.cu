@@ -59,6 +59,14 @@
 // and quantized depth keys were TPU workarounds; K1 does not keep them,
 // K1v keeps only the key's winner rule, which is its contract.
 //
+// A row window (a row-sharded frame's shard, parallel/sharded.py): the
+// outputs are `height` rows from image row row0, the blocks the tiles of
+// the 16-row image bands those rows touch (the lists those of the whole
+// image's bands), and a pixel's centre is (row0 + y) + 0.5 for its row y
+// in the window: the integer offset comes before the float add, so the
+// edge functions round as on the whole image. row0 0 and the image's
+// height give the whole image.
+//
 // K1's bf16 mode (raster_attr_bits=16; raster_pallas.py:1107, a Pallas
 // store of f32 values into a bf16 output) computes every attribute as
 // the f32 mode does and stores it rounded to the nearest bf16
@@ -192,6 +200,7 @@ __device__ __forceinline__ void store4(uint2* out, size_t i, float4 o) {
 // 512 (bf16: 256) contiguous bytes: a tile row of 16 pixels is 640
 // contiguous values, and a group never straddles two pixels (40 =
 // 10 x 4). Each value is the plain version's expression in its order.
+// y0, the tile's first row in the window, may be negative.
 template <typename Out>
 __device__ __forceinline__ void write_attrs(
     const float* __restrict__ attr_table, const int* stri, const float* sb1,
@@ -205,7 +214,7 @@ __device__ __forceinline__ void write_attrs(
     const int j = i - ly * kRowVec;
     const int lx = j / kVec;
     const int v = j - lx * kVec;
-    if (x0 + lx >= width || y0 + ly >= height) continue;
+    if (x0 + lx >= width || y0 + ly < 0 || y0 + ly >= height) continue;
     const int s = ly * kTile + lx;
     const int tri = stri[s];
     float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -237,18 +246,22 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ entry_cand,
                     const float* __restrict__ attr_table, int width,
-                    int height, int ntx, float* __restrict__ depth_out,
-                    int* __restrict__ tri_out, float* __restrict__ bary_out,
+                    int height, int row0, int ntx,
+                    float* __restrict__ depth_out, int* __restrict__ tri_out,
+                    float* __restrict__ bary_out,
                     void* __restrict__ attr_out) {
   constexpr int kChunk = kKeyed ? kGroup : kThreads;
   __shared__ float4 srec[kChunk * kRec4];
   __shared__ int scand[kChunk];
 
   const int tile = blockIdx.x;
+  // the tile's first row in the window: its band's first image row less
+  // row0, which the window's first band may put above the window
+  const int ty0 = (row0 / kTile) * kTile - row0 + (tile / ntx) * kTile;
   const int x = (tile % ntx) * kTile + threadIdx.x % kTile;
-  const int y = (tile / ntx) * kTile + threadIdx.x / kTile;
+  const int y = ty0 + threadIdx.x / kTile;
   const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
+  const float py = static_cast<float>(row0 + y) + 0.5f;
   const int start = tile_start[tile];
   const int end = tile_start[tile + 1];
 
@@ -297,7 +310,7 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
     }
   }
   const float* rec = reinterpret_cast<const float*>(rec4);
-  const bool inside = x < width && y < height;
+  const bool inside = x < width && y >= 0 && y < height;
   float b1 = 0.0f, b2 = 0.0f;
   const int tri = inside ? write_winner(rec, best, best_z, px, py,
                                         static_cast<size_t>(y) * width + x,
@@ -312,8 +325,8 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
     sb1[threadIdx.x] = b1;
     sb2[threadIdx.x] = b2;
     __syncthreads();
-    write_attrs<Out>(attr_table, stri, sb1, sb2, (tile % ntx) * kTile,
-                     (tile / ntx) * kTile, width, height, attr_out);
+    write_attrs<Out>(attr_table, stri, sb1, sb2, (tile % ntx) * kTile, ty0,
+                     width, height, attr_out);
   }
 }
 
@@ -321,14 +334,17 @@ raster_tiles_kernel(const float4* __restrict__ rec4,
 
 // attr_table and attrs null: vis-only; keyed (vis-only): K1v; attr_bf16:
 // attrs is bf16 (K1's bf16 mode). rec (and attr_table, attrs) are
-// 16-byte aligned.
+// 16-byte aligned. The outputs are `height` rows from image row row0 >= 0;
+// the lists are those of ntx x nty tiles, the nty bands from row0's.
 HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
                               const void* entry_cand, const void* attr_table,
                               int keyed, int attr_bf16, int width, int height,
-                              int ntx, void* depth, void* tri, void* bary,
-                              void* attrs, void* stream) {
-  if (keyed && attr_table) return static_cast<int>(cudaErrorInvalidValue);
-  const int nty = (height + kTile - 1) / kTile;
+                              int row0, int ntx, int nty, void* depth,
+                              void* tri, void* bary, void* attrs,
+                              void* stream) {
+  if ((keyed && attr_table) || row0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto kernel = keyed ? raster_tiles_kernel<false, true, float4>
                 : !attr_table ? raster_tiles_kernel<false, false, float4>
                 : attr_bf16   ? raster_tiles_kernel<true, false, uint2>
@@ -336,7 +352,7 @@ HR_EXPORT int hr_raster_tiles(const void* rec, const void* tile_start,
   kernel<<<ntx * nty, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(rec), static_cast<const int*>(tile_start),
       static_cast<const int*>(entry_cand),
-      static_cast<const float*>(attr_table), width, height, ntx,
+      static_cast<const float*>(attr_table), width, height, row0, ntx,
       static_cast<float*>(depth), static_cast<int*>(tri),
       static_cast<float*>(bary), attrs);
   HR_RETURN_LAUNCH_STATUS();

@@ -10,6 +10,11 @@
 // <= 5%. Out per pixel: the weighted history signal (4), moments m1 m2,
 // history length, and the sum of the kept weights.
 //
+// A row window: the current planes may hold rows row0 .. row0 + H - 1 of
+// an image of FH rows, whose whole history the fetch reads (a row-sharded
+// frame's shard, parallel/sharded.py; reprojection can read any row).
+// The pixel's v is (row0 + y + 0.5) / FH, its footprint clamps to FH.
+//
 // Design: one thread per pixel and the exact per-pixel footprint fetch
 // (ops/svgf.py temporal_multi, gather="pixel"). The TPU kernel's
 // windowed candidate sweep, which drops history whose footprint lies
@@ -47,25 +52,29 @@ __global__ void temporal_fetch_kernel(
     const float* __restrict__ prev_normal,
     const float* __restrict__ prev_depth, const int* __restrict__ prev_oid,
     const float* __restrict__ motion_plane, const float* __restrict__ normal,
-    const int* __restrict__ oid, int H, int W, float* __restrict__ out) {
+    const int* __restrict__ oid, int H, int W, int row0, int FH,
+    float* __restrict__ out) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
   const size_t p = static_cast<size_t>(y) * W + x;
 
   const float u = (static_cast<float>(x) + 0.5f) / static_cast<float>(W);
-  const float v = (static_cast<float>(y) + 0.5f) / static_cast<float>(H);
+  const float v =
+      (static_cast<float>(row0 + y) + 0.5f) / static_cast<float>(FH);
   const float ppx = (u - motion_plane[4 * p]) * static_cast<float>(W) - 0.5f;
-  const float ppy = (v - motion_plane[4 * p + 1]) * static_cast<float>(H) - 0.5f;
+  const float ppy =
+      (v - motion_plane[4 * p + 1]) * static_cast<float>(FH) - 0.5f;
   const float z = motion_plane[4 * p + 2];
   const float bxf = fminf(fmaxf(floorf(ppx), 0.0f), static_cast<float>(W - 2));
-  const float byf = fminf(fmaxf(floorf(ppy), 0.0f), static_cast<float>(H - 2));
+  const float byf =
+      fminf(fmaxf(floorf(ppy), 0.0f), static_cast<float>(FH - 2));
   const float fx = ppx - bxf;
   const float fy = ppy - byf;
   const int bx = static_cast<int>(bxf);
   const int by = static_cast<int>(byf);
   const bool footprint_ok = ppx >= 0.0f && ppx <= static_cast<float>(W - 1) &&
-                            ppy >= 0.0f && ppy <= static_cast<float>(H - 1);
+                            ppy >= 0.0f && ppy <= static_cast<float>(FH - 1);
   const float nx = normal[3 * p], ny = normal[3 * p + 1],
               nz = normal[3 * p + 2];
   const float oid_c = static_cast<float>(oid[p]);
@@ -144,8 +153,8 @@ HR_EXPORT int hr_temporal_fetch(const void* hist_signal,
                                 const void* prev_normal,
                                 const void* prev_depth, const void* prev_oid,
                                 const void* motion_plane, const void* normal,
-                                const void* oid, int H, int W, void* out,
-                                void* stream) {
+                                const void* oid, int H, int W, int row0,
+                                int FH, void* out, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + 31) / 32, (H + 7) / 8);
   auto s = static_cast<cudaStream_t>(stream);
@@ -156,7 +165,7 @@ HR_EXPORT int hr_temporal_fetch(const void* hist_signal,
         static_cast<const int*>(prev_oid),
         static_cast<const float*>(motion_plane),
         static_cast<const float*>(normal), static_cast<const int*>(oid), H, W,
-        static_cast<float*>(out));
+        row0, FH, static_cast<float*>(out));
   };
   if (bf16) {
     args(static_cast<const __nv_bfloat16*>(hist_signal),

@@ -465,9 +465,11 @@ trace_packet_kernel(const float4* __restrict__ inner,
 
 // ---------------------------------------------------------------------------
 // K2w and K2m: packet traversals of the 8-wide BVH (ops/bvh_wide.py: flat
-// records of 48 floats, node rows of 8 child boxes, leaf rows of 4
-// triangles as v0, e1, e2, id; meta (ibase*256 | imask, lbase*256 |
-// lmask) per node).
+// records, node rows of 8 child boxes (48 floats), leaf rows of L
+// triangles as v0, e1, e2, id (12 L floats; L = 4, 8 or 16 for K2w, one
+// instantiation each, and 4 for K2m, as the reference packs its p8
+// layout only for those); meta (ibase*256 | imask, lbase*256 | lmask)
+// per node).
 //
 // Replace hybridrenderer_tpu/ops/trace_pallas.py _wide_traverse_kernel
 // (:457, entry intersect_wide :746) and _mimt_traverse_kernel (:1518,
@@ -477,7 +479,7 @@ trace_packet_kernel(const float4* __restrict__ inner,
 // start with the sentinel id INACTIVE_TRI, so they never hit and count
 // as done for any-hit; tmax is clamped to 1e6. Each step pops one
 // internal node and one leaf cluster (per packet, or per 128-ray row for
-// K2m), runs the 4 Moller-Trumbore tests of the cluster (a hit with t <=
+// K2m), runs the L Moller-Trumbore tests of the cluster (a hit with t <=
 // the best so far replaces it, in any-hit mode too) and then the 8 slab
 // tests of the node against each ray's best t (any-hit rays with a hit
 // test against -inf), ORs the hits of the packet's (row's) rays per
@@ -517,7 +519,7 @@ trace_packet_kernel(const float4* __restrict__ inner,
 //   keep their slab tests: their bound is -1, which a box around the
 //   origin passes.
 // * 4 rays a thread, so that each record load serves them all: records
-//   are read as float4 broadcasts, 12 for a node and 12 for a leaf.
+//   are read as float4 broadcasts, 12 for a node and 3 L for a leaf.
 // * K2w: a packet runs on its own half of the block (8 warps) behind a
 //   named barrier, one a step; each thread keeps the tops of its
 //   packet's stacks, with the meta word their decode needs, in
@@ -536,7 +538,10 @@ trace_packet_kernel(const float4* __restrict__ inner,
 // tested against every ray of its packet or row) are ~67 GFLOP for K2w
 // and ~28 for K2m, 1.0 and 0.4 ms at the fp32 peak; most program steps
 // pop nothing of a kind (54% of K2w's packet steps no node, 61% of
-// K2m's row steps).
+// K2m's row steps). Larger clusters (bvh_leaf_tris 8 or 16) cut the
+// leaf pops and add the tests of their padded slots; the instantiations'
+// registers and shared memory are the same design's, reported by
+// chip_smoke.py phase 3.
 constexpr int kWidePacket = 1024;
 constexpr int kWideChunk = 16;
 constexpr int kWideMaxSteps = 1 << 16;
@@ -616,16 +621,16 @@ __device__ __forceinline__ bool warp_can_vote(const WideRay (&r)[N],
   return __any_sync(kFull, any);
 }
 
-// the 4 triangles of leaf record `rec` (12 float4: triangle k is v0,
-// e1, e2, id, 0, 0 at float4 3k..3k+2) against each of the N rays, whose
-// (u, v) are u[n], v[n]; the loop over the triangles unrolled kUnroll
-// times
-template <int kUnroll, int N>
+// the kLeafTris triangles of leaf record `rec` (3 kLeafTris float4:
+// triangle k is v0, e1, e2, id, 0, 0 at float4 3k..3k+2) against each of
+// the N rays, whose (u, v) are u[n], v[n]; the loop over the triangles
+// unrolled kUnroll times
+template <int kLeafTris, int kUnroll, int N>
 __device__ __forceinline__ void wide_leaf(const float4* __restrict__ rec,
                                           WideRay (&r)[N], float (&u)[N],
                                           float (&v)[N], float tmin) {
 #pragma unroll kUnroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < kLeafTris; ++k) {
     const float4 a = __ldg(rec + 3 * k), b = __ldg(rec + 3 * k + 1),
                  c = __ldg(rec + 3 * k + 2);
     const float p0x = a.x, p0y = a.y, p0z = a.z;
@@ -766,6 +771,8 @@ struct WideStack {
   }
 };
 
+// kLeafTris: the triangles of a leaf cluster, 4, 8 or 16
+template <int kLeafTris>
 __global__ void __launch_bounds__(kWideThreads)
 trace_wide_kernel(const float4* __restrict__ nodes,
                   const float4* __restrict__ leaves,
@@ -824,8 +831,9 @@ trace_wide_kernel(const float4* __restrict__ nodes,
       const int2 mm =
           ivalid ? __ldg(meta + min(node, n_meta - 1)) : make_int2(0, 0);
       if (lvalid && warp_can_hit(ray, tmin)) {
-        wide_leaf<4>(leaves + 12L * min(lchild, n_leaves - 1), ray, u, v,
-                     tmin);
+        wide_leaf<kLeafTris, 4>(
+            leaves + 3L * kLeafTris * min(lchild, n_leaves - 1), ray, u, v,
+            tmin);
       }
       if (ivalid && warp_can_vote(ray, any_hit)) {
         const unsigned hits = __reduce_or_sync(
@@ -923,8 +931,8 @@ trace_mimt_kernel(const float4* __restrict__ nodes,
           ivalid ? __ldg(meta + min(node, n_meta - 1)) : make_int2(0, 0);
       if (lvalid && warp_can_hit(ray, tmin)) {
         // one triangle at a time (3% faster than all four at once)
-        wide_leaf<1>(leaves + 12L * min(lchild, n_leaves - 1), ray, u, v,
-                     tmin);
+        wide_leaf<4, 1>(leaves + 12L * min(lchild, n_leaves - 1), ray, u, v,
+                        tmin);
       }
       unsigned hm = 0u;
       if (ivalid && warp_can_vote(ray, any_hit)) {
@@ -1026,18 +1034,20 @@ HR_EXPORT int hr_trace_packet(const void* inner, const void* leaves,
 }
 
 // K2w / K2m: meta is (n_meta, 2) i32; nodes and leaves (n_nodes, 48) and
-// (n_leaves, 48) f32, 16-byte aligned; any_hit 0 or 1; deep_pushes a
-// device int the kernel adds to
-#define HR_WIDE_ENTRY(NAME, KERNEL)                                          \
-  HR_EXPORT int NAME(const void* nodes, const void* leaves, const void* meta, \
-                     int n_nodes, int n_leaves, int n_meta, const void* o,    \
-                     const void* d, const void* tmax, const void* active,     \
-                     float tmin, int R, int any_hit, void* t_out,             \
-                     void* tri_out, void* u_out, void* v_out,                 \
+// (n_leaves, 12 leaf_tris) f32, 16-byte aligned; leaf_tris 4, 8 or 16
+// (K2m: 4); any_hit 0 or 1; deep_pushes a device int the kernel adds to
+#define HR_WIDE_ENTRY(NAME, KERNEL_OF)                                       \
+  HR_EXPORT int NAME(const void* nodes, const void* leaves, int leaf_tris,   \
+                     const void* meta, int n_nodes, int n_leaves, int n_meta, \
+                     const void* o, const void* d, const void* tmax,          \
+                     const void* active, float tmin, int R, int any_hit,      \
+                     void* t_out, void* tri_out, void* u_out, void* v_out,    \
                      void* deep_pushes, void* stream) {                      \
+    const auto kernel = KERNEL_OF(leaf_tris);                                \
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);   \
     if (R > 0) {                                                             \
       const int programs = (R + 2 * kWidePacket - 1) / (2 * kWidePacket);    \
-      KERNEL<<<programs, kWideThreads, 0,                                    \
+      kernel<<<programs, kWideThreads, 0,                                    \
                static_cast<cudaStream_t>(stream)>>>(                         \
           static_cast<const float4*>(nodes),                                 \
           static_cast<const float4*>(leaves),                                \
@@ -1052,10 +1062,38 @@ HR_EXPORT int hr_trace_packet(const void* inner, const void* leaves,
     HR_RETURN_LAUNCH_STATUS();                                               \
   }
 
-HR_WIDE_ENTRY(hr_trace_wide, trace_wide_kernel)
-HR_WIDE_ENTRY(hr_trace_mimt, trace_mimt_kernel)
+namespace {
 
-// K2w (which 0), K2m (1) or K2b (2) as built: registers a thread, local
+using WideKernel = void (*)(const float4*, const float4*, const int2*, int,
+                            int, int, const float*, const float*,
+                            const float*, const uint8_t*, float, int, int,
+                            float*, int*, float*, float*, int*);
+
+// K2w's instantiation for `leaf_tris`-triangle clusters, or null
+WideKernel wide_kernel_of(int leaf_tris) {
+  switch (leaf_tris) {
+    case 4:
+      return trace_wide_kernel<4>;
+    case 8:
+      return trace_wide_kernel<8>;
+    case 16:
+      return trace_wide_kernel<16>;
+    default:
+      return nullptr;
+  }
+}
+
+WideKernel mimt_kernel_of(int leaf_tris) {
+  return leaf_tris == 4 ? &trace_mimt_kernel : nullptr;
+}
+
+}  // namespace
+
+HR_WIDE_ENTRY(hr_trace_wide, wide_kernel_of)
+HR_WIDE_ENTRY(hr_trace_mimt, mimt_kernel_of)
+
+// K2w over 4-triangle clusters (which 0), K2m (1), K2b (2), K2w over 8-
+// (3) or 16-triangle clusters (4) as built: registers a thread, local
 // memory bytes a thread (stack frame and spills), static shared memory
 // bytes, threads a block and the blocks an SM holds → out[0..4] (host
 // ints)
@@ -1064,7 +1102,8 @@ HR_EXPORT int hr_trace_info(int which, void* out) {
                       ? reinterpret_cast<const void*>(trace_packet_kernel)
                   : which == 1
                       ? reinterpret_cast<const void*>(trace_mimt_kernel)
-                      : reinterpret_cast<const void*>(trace_wide_kernel);
+                      : reinterpret_cast<const void*>(wide_kernel_of(
+                            which == 3 ? 8 : which == 4 ? 16 : 4));
   const int threads = which == 2 ? kPacketBlock : kWideThreads;
   cudaFuncAttributes a{};
   int blocks = 0;

@@ -25,6 +25,12 @@ from .params import RS, FrameState
 
 @dataclasses.dataclass
 class FrameContext:
+    """One frame's inputs. A row-sharded frame (parallel/sharded.py) runs
+    the passes over a window of the image's rows: ``settings.height``
+    rows from ``row0`` of an image ``full_height`` rows tall, and
+    ``exchange`` reads the other shards' rows for the passes that need
+    them (``halo``, ``gather``). The defaults are the whole image on one
+    device."""
     scene: Any
     cam: Any                 # CameraState of tensors on the scene device
     params: Any              # FrameParams
@@ -32,17 +38,61 @@ class FrameContext:
     state: FrameState
     history_valid: bool      # False on the first frame after a reset
     shadow_query: Optional[Callable] = None  # (pos, n, dir, tmax) → vis
-    # (origin, dir, ctx, depth, active) → (rgb, hit distance)
+    # (origin, dir, ctx, depth, active, row0) → (rgb, hit distance);
+    # row0: the image row of the rays' first row, which seeds NEE
     trace_radiance: Optional[Callable] = None
     # how the rasters bin (ops/raster_cuda.Binning; None: exact lists)
     binning: Any = None
+    # (pos, n, dir_a, tmax_a, dir_b, tmax_b, active) → (vis_a, vis_b): two
+    # shadow queries in one launch (SceneTracer.shadow_query_pair)
+    shadow_query_pair: Optional[Callable] = None
+    row0: int = 0
+    full_height: Optional[int] = None
+    exchange: Any = None     # parallel/sharded.RowExchange, or None
+
+    @property
+    def image_height(self) -> int:
+        """Rows of the whole image."""
+        return self.settings.height if self.full_height is None \
+            else self.full_height
+
+    def halo(self, r: int, *images):
+        """Each (h, ...) image of this window's rows with up to ``r``
+        rows of its neighbours' above and below (none past the image's
+        edge) → (padded images, the rows added above)."""
+        if self.exchange is None:
+            return list(images), 0
+        return self.exchange.halo(r, *images)
+
+    def gather(self, *images):
+        """The whole image of each window-rows image, on this window's
+        device (itself on one device)."""
+        if self.exchange is None:
+            return list(images)
+        return self.exchange.gather(*images)
+
+    def windowed(self, r: int, fn, *images):
+        """``fn(first image row, *images)`` over the window's images
+        padded with ``r`` halo rows → its result (a tensor or a tuple of
+        them) cropped back to the window's rows: a stencil of radius at
+        most ``r`` reads there what it reads on the whole image. On one
+        device, ``fn(0, *images)``."""
+        if self.exchange is None:
+            return fn(self.row0, *images)
+        padded, top = self.halo(r, *images)
+        out = fn(self.row0 - top, *padded)
+        h = images[0].shape[0]
+        if isinstance(out, tuple):
+            return tuple(o[top:top + h] for o in out)
+        return out[top:top + h]
 
 
-def _clip_scene(settings, sc, cam, jitter_on, layers=(None,)):
+def _clip_scene(settings, sc, cam, jitter_on, layers=(None,), height=None):
     """Instance frustum cull, world → clip (jittered when ``jitter_on``),
-    then near-plane clip and back-face cull of each layer: a triangle
-    mask (T,) bool, None for all triangles → (culled instances (N,),
-    [ClippedTriangles of the kept triangles of each layer])."""
+    then near-plane clip and back-face cull of each layer, in the screen
+    space of the whole image (``height`` rows; default the settings'): a
+    triangle mask (T,) bool, None for all triangles → (culled instances
+    (N,), [ClippedTriangles of the kept triangles of each layer])."""
     vp = cam.proj @ cam.view
     culled = maths.aabb_outside_frustum(
         sc.instances.aabb_min, sc.instances.aabb_max,
@@ -54,8 +104,17 @@ def _clip_scene(settings, sc, cam, jitter_on, layers=(None,)):
                            for v in (soup.v0, soup.v1, soup.v2)], dim=1)
     single = soup.single_sided if settings.raster_cull == "back" else None
     return culled, [raster_ops.clip_triangles(
-        corners, settings.width, settings.height,
-        kept if layer is None else kept & layer, single) for layer in layers]
+        corners, settings.width, settings.height if height is None
+        else height, kept if layer is None else kept & layer, single)
+        for layer in layers]
+
+
+def _raster(ctx, tris, attr_table, **kw):
+    """The binned raster of the frame's rows (ops/raster_cuda)."""
+    return raster_cuda.rasterize_binned(
+        tris, ctx.settings.width, ctx.settings.height, attr_table,
+        binning=ctx.binning, row0=ctx.row0, full_height=ctx.image_height,
+        **kw)
 
 
 def make_depth_prepass(settings):
@@ -66,10 +125,9 @@ def make_depth_prepass(settings):
     jitter_on = bool(settings.flags & RenderFlags.TAA)
 
     def fn(reg, ctx: FrameContext):
-        _, (tris,) = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on)
-        vis, _ = raster_cuda.rasterize_binned(
-            tris, settings.width, settings.height, None,
-            vis_eval=settings.raster_eval, binning=ctx.binning)
+        _, (tris,) = _clip_scene(settings, ctx.scene, ctx.cam, jitter_on,
+                                 height=ctx.image_height)
+        vis, _ = _raster(ctx, tris, None, vis_eval=settings.raster_eval)
         return {RS.DEPTH: vis.depth}
 
     return fn, (), (RS.DEPTH,), {}
@@ -92,16 +150,16 @@ def make_gbuffer_pass(settings):
         sc, cam = ctx.scene, ctx.cam
 
         def raster(tris):
-            return raster_cuda.rasterize_binned(
-                tris, settings.width, settings.height, sc.raster_rows,
-                binning=ctx.binning, attr_bits=settings.raster_attr_bits)
+            return _raster(ctx, tris, sc.raster_rows,
+                           attr_bits=settings.raster_attr_bits)
 
         if sc.has_alpha_test:
             mat = sc.instances.material[sc.triangles.instance.long()].long()
             tri_cut = (sc.materials.alpha_mode[mat] == 1) \
                 & (sc.materials.colour_texture[mat] >= 0)
             culled, (opaque, cutout) = _clip_scene(
-                settings, sc, cam, jitter_on, (~tri_cut, tri_cut))
+                settings, sc, cam, jitter_on, (~tri_cut, tri_cut),
+                ctx.image_height)
             vis_op, attrs_op = raster(opaque)
             vis_cut, attrs_cut = raster(cutout)
             keep = (vis_cut.tri_id >= 0) \
@@ -112,9 +170,10 @@ def make_gbuffer_pass(settings):
                 for f in ("tri_id", "bary1", "bary2", "depth")})
             attrs = torch.where(keep.unsqueeze(-1), attrs_cut, attrs_op)
         else:
-            culled, (tris,) = _clip_scene(settings, sc, cam, jitter_on)
+            culled, (tris,) = _clip_scene(settings, sc, cam, jitter_on,
+                                          height=ctx.image_height)
             vis, attrs = raster(tris)
-        gb = gbuffer_ops.build_gbuffer(vis, sc, cam, attrs)
+        gb = gbuffer_ops.build_gbuffer(vis, sc, cam, attrs, window=ctx)
         drawn = (~culled).sum()
         covered = (vis.tri_id >= 0).sum()
         stats = torch.stack([drawn, culled.shape[0] - drawn, covered])
@@ -181,7 +240,7 @@ def make_svgf_multi_pass(settings, chains):
             signals, gb.albedo, gb.motion_plane(), gb.normal, gb.object_id,
             histories, prev_normal, prev_motion[..., 2], prev_oid,
             configs, ctx.params.svgf_phi,
-            history_valid=ctx.history_valid and all_ok)
+            history_valid=ctx.history_valid and all_ok, window=ctx)
 
         out = {}
         for (config, _, output_name), (res, new_hist, var_dbg) in zip(
@@ -222,7 +281,8 @@ def make_composition_pass(settings, shadow_name, gi_name, refl_name,
         refl = zeros3 if refl is None else refl[..., :3]
         var = reg.get(variance_name) if variance_name else None
         out = comp_ops.compose(gb, shadow_ao, gi, refl, ctx.scene, ctx.cam,
-                               settings, ctx.params, svgf_variance=var)
+                               settings, ctx.params, svgf_variance=var,
+                               row0=ctx.row0, full_height=ctx.image_height)
         return {RS.FINAL_COLOR: out}
 
     return fn, ("_GBuffer",), (RS.FINAL_COLOR,), {}
@@ -290,7 +350,8 @@ def make_forward_pass(settings):
             color = gb.depth.unsqueeze(-1).expand(H, W, 3)
 
         sky_rgb = sky.sample_environment(
-            comp_ops.view_directions(cam, H, W, dev), sc.sky_texture,
+            comp_ops.view_directions(cam, H, W, dev, ctx.row0,
+                                     ctx.image_height), sc.sky_texture,
             sc.textures, bool(flags & RenderFlags.IBL), sc.has_sky_texture)
         return {RS.FINAL_COLOR: torch.where(bg.unsqueeze(-1), sky_rgb, color)}
 
@@ -319,7 +380,9 @@ def make_taa_pass(settings, use_gbuffer: bool = True):
     ``use_gbuffer=False`` over the named Motion and Depth resources (the
     ray-traced path: the primary pass's motion, the prepass's depth);
     the history fetch is kernel K5 (ops/taa.py). With no history yet it
-    resolves against the current frame."""
+    resolves against the current frame. In a row window the 3x3
+    neighbourhoods read one halo row, and the history is the whole
+    image's."""
 
     def fn(reg, ctx: FrameContext):
         if use_gbuffer:
@@ -330,11 +393,15 @@ def make_taa_pass(settings, use_gbuffer: bool = True):
         history = reg.get("History_" + RS.TAA_OUTPUT)
         if history is None:
             history = reg[RS.FINAL_COLOR]
-        out = taa_ops.resolve(
-            reg[RS.FINAL_COLOR], history, motion, depth,
-            ctx.cam.jitter, ctx.cam.prev_jitter,
-            history_valid=ctx.history_valid,
-            enabled=bool(settings.flags & RenderFlags.TAA))
+        enabled = bool(settings.flags & RenderFlags.TAA)
+        if not enabled:
+            return {RS.TAA_OUTPUT: reg[RS.FINAL_COLOR]}
+        (history,) = ctx.gather(history)
+        out = ctx.windowed(
+            1, lambda row0, cur, m, d: taa_ops.resolve(
+                cur, history, m, d, ctx.cam.jitter, ctx.cam.prev_jitter,
+                history_valid=ctx.history_valid, row0=row0),
+            reg[RS.FINAL_COLOR], motion, depth)
         return {RS.TAA_OUTPUT: out}
 
     reads = (RS.FINAL_COLOR, "History_" + RS.TAA_OUTPUT) if use_gbuffer \

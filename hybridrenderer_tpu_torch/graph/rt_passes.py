@@ -1,8 +1,13 @@
 """Ray-tracing passes over the frame context's trace hooks
-(hybridrenderer_tpu/graph/rt_passes.py): RTShadowPass (unfused),
+(hybridrenderer_tpu/graph/rt_passes.py): RTShadowPass (fused or not),
 RTReflectionPass, RTDiffuseGIPass, the ray-traced path's RaytracePass
 (primary rays), and the reference's two demo passes that no path runs,
-RTAOPass and RayQueryPass."""
+RTAOPass and RayQueryPass.
+
+In a row window (a row-sharded frame's shard) every pattern and seed
+follows the image pixel: the per-pixel TEA seeds, the interleaved AO /
+GI pattern, the blue-noise offset and the NEE seeds of traced rays; the
+half-res grids keep the whole image's even rows."""
 from __future__ import annotations
 
 import torch
@@ -21,10 +26,31 @@ def _reconstruct_dirs(gb, cam):
     return maths.normalize(gb.world_pos - cam.position)
 
 
+def _half_rows(ctx):
+    """The window's rows on the half-res grid (the image's even rows) →
+    (first local row, first half-res image row)."""
+    first = ctx.row0 % 2
+    return first, (ctx.row0 + first) // 2
+
+
+def _upsample(ctx, rad_h, gb, first_half):
+    """The half-res signal of the window's half-res rows (first image
+    half row ``first_half``) → full res over the window's rows, with the
+    one halo half row the upsample reads."""
+    z_half = gb.linear_depth[ctx.row0 % 2::2, ::2]
+    (rad_p, z_p), top = ctx.halo(1, rad_h, z_half)
+    return img_ops.upsample2x_depth_aware(
+        rad_p, z_p, gb.linear_depth, row0=ctx.row0,
+        half_row0=first_half - top, full_height=ctx.image_height)
+
+
 def make_rt_shadow_pass(settings):
     """RTShadowPass: packed (shadow, AO, 0, 1) 1-spp signal from NEE light
     sampling (the sun when the scene has no emissive light) and a
-    cosine-hemisphere AO ray, both through the any-hit query (K2)."""
+    cosine-hemisphere AO ray, both through the any-hit query (K2). Under
+    ``fuse_shadow_ao``, with SHADOW, interleaved AO and the pair hook,
+    both queries go out in one launch (``shadow_query_pair``), as the
+    reference's RT_FUSE_SHADOW_AO branch: the same signal."""
 
     def fn(reg, ctx):
         gb = reg["_GBuffer"]
@@ -45,26 +71,40 @@ def make_rt_shadow_pass(settings):
         if (settings.flags & RenderFlags.SHADOW and sc.lights.count > 0) or (
                 settings.flags & RenderFlags.AO and not settings.ao_interleaved
                 and not settings.use_blue_noise):
-            pixel_idx = torch.arange(H * W, dtype=torch.int64,
-                                     device=dev).reshape(H, W)
+            pixel_idx = sampling.pixel_index(H, W, dev, ctx.row0)
             seed = sampling.init_random_seed(pixel_idx, params.frame_index)
 
         shadow = torch.ones((H, W), device=dev)
+        l = None
         if settings.flags & RenderFlags.SHADOW:
             ldir, _, seed = sampling.sample_lights(sc, gb.world_pos, seed)
             has_area = (maths.length(ldir) > 0.01).unsqueeze(-1)
             sun_dir = maths.normalize(-params.sun_direction).expand_as(ldir)
             l = torch.where(has_area, ldir, sun_dir)
-            shadow = ctx.shadow_query(gb.world_pos, n, l, 1e10, active=~bg)
 
         ao = torch.ones((H, W), device=dev)
-        if settings.flags & RenderFlags.AO:
+        fuse = (settings.fuse_shadow_ao and l is not None
+                and settings.flags & RenderFlags.AO
+                and settings.ao_interleaved
+                and ctx.shadow_query_pair is not None)
+        if fuse:
+            ao_dir = sampling.interleaved_cos_hemisphere(
+                params.frame_index, n, block=settings.ao_block,
+                row0=ctx.row0)
+            shadow, ao = ctx.shadow_query_pair(
+                gb.world_pos, n, l, 1e10, ao_dir, settings.ao_radius,
+                active=~bg)
+        elif l is not None:
+            shadow = ctx.shadow_query(gb.world_pos, n, l, 1e10, active=~bg)
+
+        if settings.flags & RenderFlags.AO and not fuse:
             if settings.ao_interleaved:
                 ao_dir = sampling.interleaved_cos_hemisphere(
-                    params.frame_index, n, block=settings.ao_block)
+                    params.frame_index, n, block=settings.ao_block,
+                    row0=ctx.row0)
             elif settings.use_blue_noise:
                 bn = sampling.blue_noise_uniforms(
-                    sc.blue_noise, params.frame_index, H, W)
+                    sc.blue_noise, params.frame_index, H, W, ctx.row0)
                 ao_dir = sampling.cos_hemisphere_from_uniforms(
                     bn[..., 0], bn[..., 1], n)
             else:
@@ -100,14 +140,15 @@ def make_rt_reflection_pass(settings):
         cut = (gb.material[..., 0] > settings.reflection_roughness_cutoff) \
             | gb.background
         if settings.reflection_half_res:
-            rad_h, _ = ctx.trace_radiance(origin[::2, ::2],
-                                          refl_dir[::2, ::2], ctx, 0,
-                                          active=~cut[::2, ::2])
-            radiance = img_ops.upsample2x_depth_aware(
-                rad_h, gb.linear_depth[::2, ::2], gb.linear_depth)
+            s, first_half = _half_rows(ctx)
+            rad_h, _ = ctx.trace_radiance(origin[s::2, ::2],
+                                          refl_dir[s::2, ::2], ctx, 0,
+                                          active=~cut[s::2, ::2],
+                                          row0=first_half)
+            radiance = _upsample(ctx, rad_h, gb, first_half)
         else:
             radiance, _ = ctx.trace_radiance(origin, refl_dir, ctx, 0,
-                                             active=~cut)
+                                             active=~cut, row0=ctx.row0)
         rgb = torch.where(cut.unsqueeze(-1), torch.zeros_like(radiance),
                           radiance)
         return {RS.REFLECTION_RAW: torch.cat(
@@ -130,37 +171,38 @@ def make_rt_gi_pass(settings):
             return {RS.GI_RAW: torch.zeros((H, W, 4), device=dev)}
         params = ctx.params
 
-        def trace_gi(nrm, wpos, bgm, hh, ww, block):
+        def trace_gi(nrm, wpos, bgm, block, row0):
+            hh, ww = nrm.shape[:2]
             if settings.gi_interleaved:
                 ray_dir = sampling.interleaved_cos_hemisphere(
-                    params.frame_index, nrm, block=block, salt=GI_SALT)
+                    params.frame_index, nrm, block=block, salt=GI_SALT,
+                    row0=row0)
             elif settings.use_blue_noise:
                 bn = sampling.blue_noise_uniforms(
-                    ctx.scene.blue_noise, params.frame_index, hh, ww)
+                    ctx.scene.blue_noise, params.frame_index, hh, ww, row0)
                 ray_dir = sampling.cos_hemisphere_from_uniforms(
                     bn[..., 2], bn[..., 3], nrm)
             else:
-                pixel_idx = torch.arange(hh * ww, dtype=torch.int64,
-                                         device=dev).reshape(hh, ww)
+                pixel_idx = sampling.pixel_index(hh, ww, dev, row0)
                 seed = sampling.init_random_seed(pixel_idx,
                                                  params.frame_index)
                 ray_dir, _ = sampling.cos_hemisphere_sample(seed, nrm)
             origin = sampling.offset_ray(wpos, nrm)
             rad, _ = ctx.trace_radiance(origin, ray_dir, ctx, 0,
-                                        active=~bgm)
+                                        active=~bgm, row0=row0)
             return rad
 
         if settings.gi_half_res:
             # half the interleave block, so each direction block covers
             # the same screen area as at full res
-            rad_h = trace_gi(gb.normal[::2, ::2], gb.world_pos[::2, ::2],
-                             gb.background[::2, ::2], (H + 1) // 2,
-                             (W + 1) // 2, max(settings.gi_block // 2, 2))
-            radiance = img_ops.upsample2x_depth_aware(
-                rad_h, gb.linear_depth[::2, ::2], gb.linear_depth)
+            s, first_half = _half_rows(ctx)
+            rad_h = trace_gi(gb.normal[s::2, ::2], gb.world_pos[s::2, ::2],
+                             gb.background[s::2, ::2],
+                             max(settings.gi_block // 2, 2), first_half)
+            radiance = _upsample(ctx, rad_h, gb, first_half)
         else:
-            radiance = trace_gi(gb.normal, gb.world_pos, gb.background, H, W,
-                                settings.gi_block)
+            radiance = trace_gi(gb.normal, gb.world_pos, gb.background,
+                                settings.gi_block, ctx.row0)
         rgb = torch.where(gb.background.unsqueeze(-1),
                           torch.zeros_like(radiance), radiance)
         return {RS.GI_RAW: torch.cat(
@@ -184,7 +226,8 @@ def make_primary_rt_pass(settings):
         H, W = settings.height, settings.width
         cam = ctx.cam
         dev = cam.position.device
-        direction = comp_ops.view_directions(cam, H, W, dev)
+        direction = comp_ops.view_directions(cam, H, W, dev, ctx.row0,
+                                             ctx.image_height)
         origin = cam.position.expand(H, W, 3)
         if ctx.trace_radiance is None:
             sc = ctx.scene
@@ -194,11 +237,11 @@ def make_primary_rt_pass(settings):
                 has_sky=sc.has_sky_texture)
             return {RS.FINAL_COLOR: rgb,
                     RS.MOTION: torch.zeros((H, W, 4), device=dev)}
-        rgb, dist = ctx.trace_radiance(origin, direction, ctx, 0)
+        rgb, dist = ctx.trace_radiance(origin, direction, ctx, 0,
+                                       row0=ctx.row0)
         hit = torch.isfinite(dist)        # the reference's test, see above
         d_safe = torch.where(hit, dist, torch.ones_like(dist)).unsqueeze(-1)
         world = origin + direction * d_safe
-        wh = torch.cat([world, torch.ones((H, W, 1), device=dev)], dim=-1)
         prev_vp = cam.prev_proj @ cam.prev_view
         cur_vp = cam.proj @ cam.view
 
@@ -207,7 +250,8 @@ def make_primary_rt_pass(settings):
             w = torch.where(torch.abs(w) < 1e-12, torch.full_like(w, 1e-12), w)
             return (clip[..., :2] / w) * 0.5 + 0.5
 
-        mv = to_uv(wh @ cur_vp.T) - to_uv(wh @ prev_vp.T)
+        mv = to_uv(maths.transform_point_h(cur_vp, world)) \
+            - to_uv(maths.transform_point_h(prev_vp, world))
         lin_z = torch.where(hit, dist, torch.zeros_like(dist))
         motion = torch.cat([torch.where(hit.unsqueeze(-1), mv,
                                         torch.zeros_like(mv)),
@@ -229,8 +273,7 @@ def make_rtao_pass(settings):
         dev = gb.depth.device
         ao = torch.ones((H, W), device=dev)
         if ctx.shadow_query is not None:
-            pixel_idx = torch.arange(H * W, dtype=torch.int64,
-                                     device=dev).reshape(H, W)
+            pixel_idx = sampling.pixel_index(H, W, dev, ctx.row0)
             seed = sampling.init_random_seed(pixel_idx,
                                              ctx.params.frame_index)
             ao_dir, _ = sampling.cos_hemisphere_sample(seed, gb.normal)
@@ -266,7 +309,8 @@ def make_rayquery_pass(settings):
         # dFdx / dFdy face normal of the deferred fragment
         wp = gb.world_pos
         ddx = torch.diff(wp, dim=1, append=wp[:, -1:])
-        ddy = torch.diff(wp, dim=0, append=wp[-1:, :])
+        ddy = ctx.windowed(1, lambda _, w: torch.diff(w, dim=0,
+                                                      append=w[-1:, :]), wp)
         face_n = maths.normalize(maths.cross(ddx, ddy))
         flip = maths.dot(face_n, v, keepdim=True) < 0.0
         face_n = torch.where(flip, -face_n, face_n)

@@ -135,19 +135,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name → argument types (every one ends with the stream)
 _SIGNATURES = {
-    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                        _P],
+    "hr_raster_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                        _P, _P, _P],
     "hr_trace_packet": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _I, _P, _P,
                         _P, _P, _P],
     "hr_trace_any": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P],
     "hr_trace_closest": [_P, _P, _I, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P,
                          _P, _P],
-    "hr_trace_wide": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,
-                      _P, _P, _P, _P, _P],
-    "hr_trace_mimt": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I, _P,
-                      _P, _P, _P, _P, _P],
-    "hr_temporal_fetch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
-                          _P],
+    "hr_trace_wide": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+    "hr_trace_mimt": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _F, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+    "hr_temporal_fetch": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _P, _P],
     "hr_window_sample": [_P, _I, _I, _I, _P, _I, _P, _P],
     "hr_atrous": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "hr_filter_moments": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],

@@ -1,12 +1,19 @@
-"""8-wide BVH with 4-triangle leaf clusters (hybridrenderer_tpu/ops/
-bvh_wide.py): the collapse of the binary SAH tree that the wide
-traversals K2w and K2m walk, and its refit for dynamic scenes.
+"""Wide BVH, 8-wide with 4-triangle leaf clusters by default
+(hybridrenderer_tpu/ops/bvh_wide.py): the collapse of the binary SAH
+tree that the wide traversals K2w and K2m walk, and its refit for
+dynamic scenes. ``build_wide`` takes the reference's shapes: 8 or 16
+children a node, any number of triangles a cluster (the settings allow
+4, 8 and 16, the reference's ladder).
 
 The build is the reference's host numpy, copied (the JAX module imports
 jax), so both packages give identical records from the same binary tree.
 The port keeps the reference's FLAT records and none of its TPU tile
 layouts (``nodes`` / ``leaves`` (T, 48, 128), ``pack_p8``,
 ``pack_meta_tiles``):
+
+Shapes below are for the default 8-wide tree with 4-triangle clusters;
+a width w makes node rows 6w floats, a cluster of L triangles leaf rows
+12L floats.
 
 * ``nodes_flat`` (Tn*128, 48) f32: row s is wide node s, child slot c's
   box at columns 6c..6c+5 (min xyz, max xyz); empty slots carry inverted
@@ -20,6 +27,8 @@ layouts (``nodes`` / ``leaves`` (T, 48, 128), ``pack_p8``,
 * ``meta`` (Nw, 2) i32: [ibase*256 | imask, lbase*256 | lmask] per wide
   node; the internal (leaf) children of a node are the ``imask``
   (``lmask``) slots, numbered from ``ibase`` (``lbase``) in slot order.
+  16 wide, whose 16-bit masks do not fit that packing, it is unpacked,
+  (Nw, 4): [ibase, imask, lbase, lmask], as in the reference.
 * ``slot_child_bin`` (Tn*128, 8) i32, ``cluster_tri`` (Tl*128, 4) i32:
   the binary node behind each slot and the triangle behind each cluster
   entry (-1 for none), the maps of ``refit_wide``.
@@ -40,18 +49,17 @@ from typing import Any
 import numpy as np
 import torch
 
-WIDTH = 8
+WIDTH = 8       # the default shape; build_wide takes the others
 LEAF_TRIS = 4
-_LEVELS = 3  # collapse depth: 2^3 = WIDTH
 
 
 @dataclasses.dataclass
 class WideBVH:
-    nodes_flat: Any      # (Tn*128, 48) f32
-    leaves_flat: Any     # (Tl*128, 48) f32
-    meta: Any            # (Nw, 2) i32
-    slot_child_bin: Any  # (Tn*128, 8) i32
-    cluster_tri: Any     # (Tl*128, 4) i32
+    nodes_flat: Any      # (Tn*128, 6 * width) f32
+    leaves_flat: Any     # (Tl*128, 12 * leaf_tris) f32
+    meta: Any            # (Nw, 2) i32; (Nw, 4) at width 16
+    slot_child_bin: Any  # (Tn*128, width) i32
+    cluster_tri: Any     # (Tl*128, leaf_tris) i32
     num_wide: int        # Nw, the super-root included
     num_clusters: int
     # depth of the deepest wide node (super-root 0, the real root 1),
@@ -63,6 +71,16 @@ class WideBVH:
     deep_pushes: Any = None
     # the records hold the bf16 values of quantize_bf16 (in f32)
     quantized: bool = False
+
+    @property
+    def width(self) -> int:
+        """Children a wide node."""
+        return self.nodes_flat.shape[1] // 6
+
+    @property
+    def leaf_tris(self) -> int:
+        """Triangles a leaf cluster."""
+        return self.leaves_flat.shape[1] // 12
 
     @property
     def vmem_bytes(self) -> int:
@@ -99,22 +117,26 @@ def _np(x):
         else np.asarray(x)
 
 
-def build_wide(bvh, tri_v0, tri_v1, tri_v2, device=None) -> WideBVH:
+def build_wide(bvh, tri_v0, tri_v1, tri_v2, device=None,
+               leaf_tris: int = LEAF_TRIS, width: int = WIDTH) -> WideBVH:
     """Binary BVH (ops/bvh.BVH) + world triangles → WideBVH on ``device``
     (default: the triangles' device). Host numpy, once per topology.
 
     Collapse rules (the reference's): a binary node whose subtree holds
-    at most 4 triangles becomes one leaf cluster (its triangles are a
-    contiguous range of the sorted leaf order, which both builders
-    give); the other nodes at binary depth 0 mod 3 become wide nodes,
-    the children of a wide node being the clusters and wide nodes whose
-    nearest mod-3 ancestor it is (at most 8). Children are ordered by
-    their leaf-range start, internal and leaf children each numbered
-    contiguously."""
+    at most ``leaf_tris`` triangles becomes one leaf cluster (its
+    triangles are a contiguous range of the sorted leaf order, which
+    both builders give); the other nodes at binary depth 0 mod
+    log2(``width``) become wide nodes, the children of a wide node being
+    the clusters and wide nodes whose nearest such ancestor it is (at
+    most ``width``: 8 or 16). Children are ordered by their leaf-range
+    start, internal and leaf children each numbered contiguously."""
     if device is None:
         device = tri_v0.device if isinstance(tri_v0, torch.Tensor) \
             else "cpu"
-    width, levels, leaf_tris = WIDTH, _LEVELS, LEAF_TRIS
+    levels = width.bit_length() - 1
+    if width not in (8, 16) or leaf_tris < 1:
+        raise ValueError(f"build_wide: width must be 8 or 16 and leaf_tris "
+                         f"positive, got {width}, {leaf_tris}")
     nmin = _np(bvh.node_min)
     nmax = _np(bvh.node_max)
     left = _np(bvh.left)
@@ -288,9 +310,13 @@ def build_wide(bvh, tri_v0, tri_v1, tri_v2, device=None) -> WideBVH:
     lfirst = first_of_kind(child_parent, child_is_leaf)
     ibase[child_parent[ifirst]] = child_entity[ifirst]
     lbase[child_parent[lfirst]] = child_entity[lfirst]
-    meta = np.stack([ibase * 256 + imask, lbase * 256 + lmask], axis=-1)
-    if not (meta >> 8 < 2 ** 23).all():
-        raise ValueError("wide build: a child base exceeds 2^23")
+    if width == 8:
+        meta = np.stack([ibase * 256 + imask, lbase * 256 + lmask], axis=-1)
+        if not (meta >> 8 < 2 ** 23).all():
+            raise ValueError("wide build: a child base exceeds 2^23")
+    else:
+        # 16-bit masks do not fit base * 256 | mask: unpacked
+        meta = np.stack([ibase, imask, lbase, lmask], axis=-1)
 
     # AABB records
     bmin = nmin[child_bin]

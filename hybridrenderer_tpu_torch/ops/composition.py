@@ -16,13 +16,14 @@ def _gray(bg, value, out):
                        .expand_as(out), out)
 
 
-def view_directions(cam, H, W, device):
+def view_directions(cam, H, W, device, row0: int = 0, full_height=None):
     """(H, W, 3) unit direction from the camera through each pixel centre
-    at the far plane (reversed-Z z_ndc = 0)."""
-    uv = img_ops.pixel_uv_grid(H, W, device)
-    ndc = torch.cat([uv * 2.0 - 1.0, torch.zeros((H, W, 1), device=device),
-                     torch.ones((H, W, 1), device=device)], dim=-1)
-    world_h = ndc @ cam.view_proj_inverse.T
+    at the far plane (reversed-Z z_ndc = 0); rows ``row0`` on of an image
+    ``full_height`` rows tall (default: the whole image)."""
+    uv = img_ops.pixel_uv_grid(H, W, device, row0, full_height)
+    # the inverse view-projection at (x, y, 0, 1): its z column drops out
+    m = cam.view_proj_inverse
+    world_h = maths.apply(m[:, :2], uv * 2.0 - 1.0) + m[:, 3]
     hw = world_h[..., 3:4]
     far_point = world_h[..., :3] / torch.where(
         torch.abs(hw) < 1e-12, torch.full_like(hw, 1e-12), hw)
@@ -30,9 +31,11 @@ def view_directions(cam, H, W, device):
 
 
 def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
-            svgf_variance=None):
+            svgf_variance=None, row0: int = 0, full_height=None):
     """G-buffer + (denoised) RT signals → linear HDR (H, W, 3).
-    ``shadow_ao`` (H, W, 2+): R shadow factor, G ray-traced AO."""
+    ``shadow_ao`` (H, W, 2+): R shadow factor, G ray-traced AO. The
+    planes hold rows ``row0`` on of an image ``full_height`` rows tall
+    (default: the whole image)."""
     H, W = gb.depth.shape
     dev = gb.depth.device
     flags = settings.flags
@@ -40,7 +43,8 @@ def compose(gb, shadow_ao, gi, reflection, scene, cam, settings, params,
     bg = gb.background
 
     sky_rgb = sky.sample_environment(
-        view_directions(cam, H, W, dev), scene.sky_texture, scene.textures,
+        view_directions(cam, H, W, dev, row0, full_height), scene.sky_texture,
+        scene.textures,
         ibl_enabled=bool(flags & RenderFlags.IBL),
         has_sky=scene.has_sky_texture)
 

@@ -67,10 +67,12 @@ def cutout_alpha_pass(scene, a):
     return rgba[..., 3] >= a[..., 31]
 
 
-def build_gbuffer(vis, scene, cam, a) -> GBuffer:
+def build_gbuffer(vis, scene, cam, a, window=None) -> GBuffer:
     """Visibility buffer + the (H, W, 40) interpolated attribute image
     (channel layout: scene raster_rows lerped vertex pack, then its
-    constants) → G-buffer. Elementwise only."""
+    constants) → G-buffer. Elementwise but for the depth gradients,
+    which in a row window (``window``, graph/passes.FrameContext) read
+    the next window's first row."""
     H, W = vis.depth.shape
     bg = vis.tri_id < 0
     world_pos = a[..., 0:3]
@@ -103,7 +105,11 @@ def build_gbuffer(vis, scene, cam, a) -> GBuffer:
     motion = to_uv(cur_clip) - to_uv(prev_clip)
     lin_depth = linearize_depth(vis.depth, cam.proj_inverse)
     lin_depth = torch.where(bg, torch.zeros_like(lin_depth), lin_depth)
-    dzdx, dzdy = screen_gradients(lin_depth)
+    if window is None:
+        dzdx, dzdy = screen_gradients(lin_depth)
+    else:
+        dzdx, dzdy = window.windowed(1, lambda _, z: screen_gradients(z),
+                                     lin_depth)
 
     shading_model = mp.material_type.to(torch.float32) / 255.0
     material_plane = torch.stack(

@@ -27,6 +27,13 @@
 
 The arithmetic is the reference's jnp resolve (ops/raster.py
 rasterize), whose goldens the port is held to; csrc/raster.cu says why.
+
+Every step takes a row window (``row0``, ``height`` rows of an image
+``full_height`` rows tall; by default the whole image), a row-sharded
+frame's shard (parallel/sharded.py): the window's pixels are those of
+the 16-row tile bands it touches, binned as on the whole image, so that
+each band's list, and with it every winner (K1v's near-ties too), is the
+whole image's; pixel centres are ``row0 + y + 0.5``.
 """
 from __future__ import annotations
 
@@ -72,16 +79,18 @@ def pack_candidates(tris):
     return rec, bbox, valid
 
 
-def bin_candidates(bbox, valid, width, height):
+def bin_candidates(bbox, valid, width, height, row0=0, full_height=None):
     """Exact per-tile candidate lists → (tile_start (ntiles + 1,) i32,
     entry_cand (E,) i32). Tile t's candidates, in ascending candidate
-    order, are entry_cand[tile_start[t]:tile_start[t + 1]]. Reading E
-    syncs with the device."""
-    tile_start, entry_cand, _ = _bin(bbox, valid, width, height, None)
+    order, are entry_cand[tile_start[t]:tile_start[t + 1]]; the tiles
+    are those of the bands rows ``row0`` .. ``row0 + height - 1`` touch.
+    Reading E syncs with the device."""
+    tile_start, entry_cand, _ = _bin(bbox, valid, width, height, None,
+                                     row0, full_height)
     return tile_start, entry_cand
 
 
-def _bin(bbox, valid, width, height, capacity):
+def _bin(bbox, valid, width, height, capacity, row0=0, full_height=None):
     """The lists in ``capacity`` entries (None: exactly as many as needed,
     read on the host) → (tile_start, entry_cand, entries needed () i64
     on the device). Entry e (in candidate order) belongs to the candidate
@@ -92,16 +101,22 @@ def _bin(bbox, valid, width, height, capacity):
     past it the last candidates' entries are dropped, and only
     ``needed > capacity`` tells."""
     dev = bbox.device
-    ntx, nty = _tiles(width, height)
+    FH = height if full_height is None else full_height
+    ntx, nty = _tiles(width, height, row0)
     ntiles = ntx * nty
     onscreen = valid & (bbox[:, 1] >= 0) & (bbox[:, 0] < width) & \
-        (bbox[:, 3] >= 0) & (bbox[:, 2] < height)
+        (bbox[:, 3] >= 0) & (bbox[:, 2] < FH)
 
     def tile_index(v, n):
         return torch.clamp(torch.floor(v / TILE), 0, n - 1).long()
 
     tx0, tx1 = tile_index(bbox[:, 0], ntx), tile_index(bbox[:, 1], ntx)
-    ty0, ty1 = tile_index(bbox[:, 2], nty), tile_index(bbox[:, 3], nty)
+    # the whole image's bands, then those of the window, from its first
+    bands = _tiles(width, FH)[1]
+    band0 = row0 // TILE
+    ty0 = torch.clamp(tile_index(bbox[:, 2], bands) - band0, min=0)
+    ty1 = torch.clamp(tile_index(bbox[:, 3], bands) - band0, max=nty - 1)
+    onscreen = onscreen & (ty0 <= ty1)
     span_w = tx1 - tx0 + 1
     count = torch.where(onscreen, span_w * (ty1 - ty0 + 1), 0)
     ends = torch.cumsum(count, 0)
@@ -137,9 +152,10 @@ class Binning:
         self.capacity = capacity
         self.needed = []
 
-    def bin(self, bbox, valid, width, height):
+    def bin(self, bbox, valid, width, height, row0=0, full_height=None):
         tile_start, entry_cand, needed = _bin(bbox, valid, width, height,
-                                              self.capacity)
+                                              self.capacity, row0,
+                                              full_height)
         self.needed.append(needed)
         return tile_start, entry_cand
 
@@ -150,14 +166,18 @@ class Binning:
         return torch.stack(self.needed).max()
 
 
-def _tiles(width, height):
-    return -(-width // TILE), -(-height // TILE)
+def _tiles(width, height, row0=0):
+    """Tile columns, and the 16-row bands rows ``row0`` .. ``row0 +
+    height - 1`` touch."""
+    return -(-width // TILE), (row0 + height - 1) // TILE - row0 // TILE + 1
 
 
 def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
-                 keyed=False, attr_bits=32):
+                 keyed=False, attr_bits=32, row0=0):
     """Resolve every pixel → (VisibilityBuffer, attrs (H, W, 40)), or
-    (VisibilityBuffer, None) vis-only when ``attr_table`` is None.
+    (VisibilityBuffer, None) vis-only when ``attr_table`` is None; the
+    rows ``row0`` .. ``row0 + height - 1`` of the image, from lists of
+    the bands they touch (``bin_candidates``).
     ``keyed`` (vis-only) takes the v2 / v3 winner rule; ``attr_bits``
     16 gives the attributes as bf16, each the f32 value rounded to
     nearest (K1's bf16 mode, counted as ``raster_tiles_bf16``).
@@ -179,16 +199,17 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
     if rec.device.type == "cpu":
         if keyed:
             return raster_vis_plain(rec, tile_start, entry_cand, width,
-                                    height), None
+                                    height, row0=row0), None
         if bf16:
             return raster_tiles_bf16_plain(rec, tile_start, entry_cand,
-                                           attr_table, width, height)
+                                           attr_table, width, height,
+                                           row0=row0)
         return raster_tiles_plain(rec, tile_start, entry_cand, attr_table,
-                                  width, height)
+                                  width, height, row0=row0)
     if rec.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {rec.device}")
     dev = rec.device
-    ntx, nty = _tiles(width, height)
+    ntx, nty = _tiles(width, height, row0)
     native.check(rec, "rec", torch.float32, (None, REC), dev)
     native.check(tile_start, "tile_start", torch.int32, (ntx * nty + 1,),
                  dev)
@@ -211,7 +232,8 @@ def raster_tiles(rec, tile_start, entry_cand, attr_table, width, height,
         "hr_raster_tiles", native.ptr(rec), native.ptr(tile_start),
         native.ptr(entry_cand),
         None if attrs is None else native.ptr(attr_table), int(keyed),
-        int(bf16), width, height, ntx, native.ptr(depth), native.ptr(tri),
+        int(bf16), width, height, row0, ntx, nty, native.ptr(depth),
+        native.ptr(tri),
         native.ptr(bary), None if attrs is None else native.ptr(attrs))
     vis = VisibilityBuffer(tri_id=tri, bary1=bary[..., 0], bary2=bary[..., 1],
                            depth=depth)
@@ -227,21 +249,23 @@ def _edges(r, px, py):
 
 def _edges_depth(r, x, y):
     """Edge functions and K1's depth of records ``r`` at the centres of
-    integer pixels (x, y)."""
+    integer image pixels (x, y)."""
     e = _edges(r, x.to(torch.float32) + 0.5, y.to(torch.float32) + 0.5)
     inv_area = r[..., 10]
     return e, (e[0] * inv_area) * r[..., 11] + (e[1] * inv_area) * r[..., 12] \
         + (e[2] * inv_area) * r[..., 13]
 
 
-def _entry_pixels(rec, tile_start, entry_cand, width, chunk_entries):
+def _entry_pixels(rec, tile_start, entry_cand, width, chunk_entries,
+                  row0=0):
     """Every (tile entry, pixel of its tile) pair, ``chunk_entries``
     entries at a time → (first entry, candidates (E,), pixel index into
-    the padded image (E, 256), covered (E, 256), depth (E, 256)) with
-    K1's arithmetic."""
+    the padded bands (E, 256), covered (E, 256), depth (E, 256)) with
+    K1's arithmetic; the first band is the one of image row ``row0``."""
     dev = rec.device
     ntx = -(-width // TILE)
     Wp = ntx * TILE
+    y0 = row0 // TILE * TILE
     counts = tile_start[1:].long() - tile_start[:-1].long()
     tile_of = torch.repeat_interleave(torch.arange(counts.shape[0],
                                                    device=dev), counts)
@@ -252,17 +276,19 @@ def _entry_pixels(rec, tile_start, entry_cand, width, chunk_entries):
         t = tile_of[e0:e0 + chunk_entries]
         x = (t % ntx).unsqueeze(1) * TILE + lx
         y = torch.div(t, ntx, rounding_mode="floor").unsqueeze(1) * TILE + ly
-        e, z = _edges_depth(rec[cand].unsqueeze(1), x, y)   # (E, 256)
+        e, z = _edges_depth(rec[cand].unsqueeze(1), x, y0 + y)  # (E, 256)
         cover = (e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0) & (z >= 0) & (z <= 1)
         yield e0, cand, y * Wp + x, cover, z
 
 
-def _winner_outputs(rec, attr_table, hit, win, width, height):
+def _winner_outputs(rec, attr_table, hit, win, width, height, row0=0):
     """The winner's outputs, with the kernels' arithmetic in their
-    order: hit, win (H, W) → (VisibilityBuffer, attrs or None)."""
+    order: hit, win (H, W) of image rows ``row0`` on → (VisibilityBuffer,
+    attrs or None)."""
     dev = rec.device
     px = (torch.arange(width, device=dev, dtype=torch.float32) + 0.5)[None, :]
-    py = (torch.arange(height, device=dev, dtype=torch.float32) + 0.5)[:, None]
+    py = (torch.arange(row0, row0 + height, device=dev,
+                       dtype=torch.float32) + 0.5)[:, None]
     r = rec[win]                                             # (H, W, 24)
     inv_area = r[..., 10]
     l0, l1, l2 = (e * inv_area for e in _edges(r, px, py))
@@ -290,21 +316,23 @@ def _winner_outputs(rec, attr_table, hit, win, width, height):
     return vis, attrs
 
 
-def _padded_size(width, height):
-    ntx, nty = _tiles(width, height)
+def _padded_size(width, height, row0=0):
+    ntx, nty = _tiles(width, height, row0)
     return nty * TILE * ntx * TILE
 
 
-def _crop(best, width, height):
-    ntx, nty = _tiles(width, height)
-    return best.view(nty * TILE, ntx * TILE)[:height, :width]
+def _crop(best, width, height, row0=0):
+    """The padded bands → the window's rows."""
+    ntx, nty = _tiles(width, height, row0)
+    first = row0 % TILE
+    return best.view(nty * TILE, ntx * TILE)[first:first + height, :width]
 
 
 MASK32 = 0xFFFFFFFF
 
 
 def raster_tiles_plain(rec, tile_start, entry_cand, attr_table, width,
-                       height, chunk_entries=4096):
+                       height, chunk_entries=4096, row0=0):
     """Plain PyTorch version of kernel K1: every (tile entry, pixel) pair
     evaluated as tensors, the winner picked by a per-pixel scatter-max of
     (depth bits, ~candidate), then the winner's outputs evaluated with
@@ -312,39 +340,39 @@ def raster_tiles_plain(rec, tile_start, entry_cand, attr_table, width,
     (a ``Binning`` capacity) are read up to their last tile's end."""
     KERNEL.note_plain(rec)
     return _raster_f32_plain(rec, tile_start, entry_cand, attr_table, width,
-                             height, chunk_entries)
+                             height, chunk_entries, row0)
 
 
 def _raster_f32_plain(rec, tile_start, entry_cand, attr_table, width,
-                      height, chunk_entries):
+                      height, chunk_entries, row0=0):
     entry_cand = entry_cand[:int(tile_start[-1])]
-    best = torch.full((_padded_size(width, height),), -1, dtype=torch.int64,
-                      device=rec.device)
+    best = torch.full((_padded_size(width, height, row0),), -1,
+                      dtype=torch.int64, device=rec.device)
     for _, cand, pix, cover, z in _entry_pixels(rec, tile_start, entry_cand,
-                                                width, chunk_entries):
+                                                width, chunk_entries, row0):
         # depth must beat 0, the cleared far plane
         cover = cover & (z > 0)
         key = (z.view(torch.int32).long() << 32) | \
             (MASK32 - cand).unsqueeze(1)
         best.scatter_reduce_(0, pix[cover], key[cover], "amax")
-    best = _crop(best, width, height)
+    best = _crop(best, width, height, row0)
     hit = best >= 0
     win = torch.where(hit, MASK32 - (best & MASK32), 0)
-    return _winner_outputs(rec, attr_table, hit, win, width, height)
+    return _winner_outputs(rec, attr_table, hit, win, width, height, row0)
 
 
 def raster_tiles_bf16_plain(rec, tile_start, entry_cand, attr_table, width,
-                            height, chunk_entries=4096):
+                            height, chunk_entries=4096, row0=0):
     """Plain PyTorch version of K1's bf16 mode: the f32 raster, its
     attributes rounded to the nearest bf16."""
     KERNEL_BF16.note_plain(rec)
     vis, attrs = _raster_f32_plain(rec, tile_start, entry_cand, attr_table,
-                                   width, height, chunk_entries)
+                                   width, height, chunk_entries, row0)
     return vis, attrs.to(torch.bfloat16)
 
 
 def raster_vis_plain(rec, tile_start, entry_cand, width, height,
-                     chunk_entries=4096):
+                     chunk_entries=4096, row0=0):
     """Plain PyTorch version of kernel K1v, in two scatter-max rounds:
     each (group of 128 entries, pixel) keeps its largest integer key;
     then each pixel keeps the group winner of largest exact depth, the
@@ -366,7 +394,7 @@ def raster_vis_plain(rec, tile_start, entry_cand, width, height,
     group_key = torch.full((int(groups.sum()) * n_pix,), -1,
                            dtype=torch.int64, device=dev)
     for e0, _, _, cover, z in _entry_pixels(rec, tile_start, entry_cand,
-                                            width, chunk_entries):
+                                            width, chunk_entries, row0):
         sl = slice(e0, e0 + cover.shape[0])
         q = torch.clamp(z * KEY_SCALE, 0.0, KEY_SCALE).to(torch.int32).long()
         key = (q << 7) | (pos[sl] % GROUP).unsqueeze(1)
@@ -380,45 +408,46 @@ def raster_vis_plain(rec, tile_start, entry_cand, width, height,
         torch.arange(counts.shape[0], device=dev), groups)[g]
     entry = starts[tile_of_group] + (g - first_group[tile_of_group]) * GROUP \
         + (group_key[flat] & (GROUP - 1))
-    ntx = _tiles(width, height)[0]
+    ntx = _tiles(width, height, row0)[0]
     x = (tile_of_group % ntx) * TILE + lp % TILE
     y = torch.div(tile_of_group, ntx, rounding_mode="floor") * TILE \
         + torch.div(lp, TILE, rounding_mode="floor")
     cand = entry_cand[entry].long()
-    _, z = _edges_depth(rec[cand], x, y)
+    _, z = _edges_depth(rec[cand], x, row0 // TILE * TILE + y)
     ok = z > 0
     # strictly larger depth replaces: the earliest group wins a tie
     local_group = g - first_group[tile_of_group]
     key = (z.view(torch.int32).long() << 32) | (MASK32 - local_group)
-    best = torch.full((_padded_size(width, height),), -1, dtype=torch.int64,
-                      device=dev)
+    best = torch.full((_padded_size(width, height, row0),), -1,
+                      dtype=torch.int64, device=dev)
     best.scatter_reduce_(0, (y * ntx * TILE + x)[ok], key[ok], "amax")
     # the winning group → its winner's candidate, per pixel
     won = torch.full_like(best, -1)
     pick = ok & (best[y * ntx * TILE + x] == key)
     won[(y * ntx * TILE + x)[pick]] = cand[pick]
-    won = _crop(won, width, height)
+    won = _crop(won, width, height, row0)
     hit = won >= 0
     vis, _ = _winner_outputs(rec, None, hit, torch.where(hit, won, 0), width,
-                             height)
+                             height, row0)
     return vis
 
 
 def rasterize_binned(tris, width, height, attr_table, vis_eval=None,
-                     binning=None, attr_bits=32):
+                     binning=None, attr_bits=32, row0=0, full_height=None):
     """pack → bin → raster: ClippedTriangles → (VisibilityBuffer, attrs).
     ``attr_table`` None resolves vis-only (attrs None), through K1v when
     ``vis_eval`` is "v2" or "v3", else through K1. ``binning``, a
     ``Binning``, says how to bin (default: exact lists). With
     ``attr_bits`` 16 the attributes are stored as bf16 and returned
-    upcast to f32."""
+    upcast to f32. The outputs are ``height`` rows from image row
+    ``row0`` of an image ``full_height`` rows tall (default: all)."""
     rec, bbox, valid = pack_candidates(tris)
-    tile_start, entry_cand = (binning or Binning()).bin(bbox, valid, width,
-                                                        height)
+    tile_start, entry_cand = (binning or Binning()).bin(
+        bbox, valid, width, height, row0, full_height)
     if attr_table is not None:
         attr_table = attr_table.contiguous()
     vis, attrs = raster_tiles(rec, tile_start, entry_cand, attr_table, width,
                               height, keyed=attr_table is None
                               and vis_eval in ("v2", "v3"),
-                              attr_bits=attr_bits)
+                              attr_bits=attr_bits, row0=row0)
     return vis, None if attrs is None else attrs.to(torch.float32)

@@ -82,36 +82,53 @@ def cos_hemisphere_sample(seed, normal):
     return _cosine_dir(r1, r2, normal), seed
 
 
+def pixel_index(H: int, W: int, device, row0: int = 0):
+    """(H, W) int64 flat index ``y * W + x`` of each pixel of rows
+    ``row0`` .. ``row0 + H - 1`` of a W-wide image."""
+    return (torch.arange(row0 * W, (row0 + H) * W, dtype=torch.int64,
+                         device=device).reshape(H, W))
+
+
 def interleaved_cos_hemisphere(frame_index, normal, block: int = 8,
-                               grid: int = 4, salt: int = 0x51AB7000):
+                               grid: int = 4, salt: int = 0x51AB7000,
+                               row0: int = 0):
     """One cosine direction per (block x block) pixel pattern per frame,
     aligned to each pixel's own normal frame (the TPU-coherent AO
-    sampler of the reference, kept for its image)."""
+    sampler of the reference, kept for its image). The pattern repeats
+    every ``grid * block`` pixels; ``normal`` holds image rows ``row0``
+    on."""
     H, W = normal.shape[:2]
     P = grid * grid
-    pat = torch.arange(P, dtype=torch.int64, device=normal.device)
+    dev = normal.device
+    pat = torch.arange(P, dtype=torch.int64, device=dev)
     seed = init_random_seed(pat + salt, frame_index)
     r1, seed = random_float(seed)
     r2, seed = random_float(seed)
+    # pattern (y // block mod grid, x // block mod grid) at each pixel
+    ys = torch.div(torch.arange(row0, row0 + H, device=dev), block,
+                   rounding_mode="floor") % grid
+    xs = torch.div(torch.arange(W, device=dev), block,
+                   rounding_mode="floor") % grid
+    pix = (ys[:, None] * grid + xs[None, :]).reshape(-1)
 
     def expand(v):
-        tile = v.reshape(grid, grid).repeat_interleave(block, 0) \
-            .repeat_interleave(block, 1)
-        reps = (-(-H // (grid * block)), -(-W // (grid * block)))
-        return tile.repeat(*reps)[:H, :W]
+        return v[pix].reshape(H, W)
 
     return _cosine_dir(expand(r1), expand(r2), normal)
 
 
-def blue_noise_uniforms(blue_noise, frame_index, H: int, W: int):
+def blue_noise_uniforms(blue_noise, frame_index, H: int, W: int,
+                        row0: int = 0):
     """Per-pixel vec4 uniforms from the tiled blue-noise texture at
-    ``pixel + frame * (123, 456)``; ``frame_index`` an int or an integer
-    tensor on the device (no host sync)."""
+    ``pixel + frame * (123, 456)`` for image rows ``row0`` .. ``row0 + H
+    - 1``; ``frame_index`` an int or an integer tensor on the device (no
+    host sync)."""
     Hn, Wn = blue_noise.shape[:2]
     fi = frame_index if isinstance(frame_index, torch.Tensor) \
         else int(frame_index)
     dev = blue_noise.device
-    ys = (torch.arange(H, device=dev)[:, None] + fi * 456) % Hn
+    ys = (torch.arange(row0, row0 + H, device=dev)[:, None]
+          + fi * 456) % Hn
     xs = (torch.arange(W, device=dev)[None, :] + fi * 123) % Wn
     return blue_noise[ys, xs]
 

@@ -48,9 +48,10 @@ class SVGFConfig:
 
 def temporal(cur, albedo, motion_plane, normal, object_id, history,
              prev_normal, prev_lin_depth, prev_object_id,
-             use_albedo_demod: bool, history_valid: bool):
+             use_albedo_demod: bool, history_valid: bool, row0: int = 0):
     """temporal.comp for one signal → (accumulated (H, W, 4),
-    moments (H, W, 4))."""
+    moments (H, W, 4)). The current planes hold image rows ``row0`` on,
+    the history and previous-frame planes the whole image."""
     if use_albedo_demod:
         cur = torch.cat([cur[..., :3] / torch.clamp(albedo, min=0.01),
                          cur[..., 3:]], dim=-1)
@@ -65,7 +66,7 @@ def temporal(cur, albedo, motion_plane, normal, object_id, history,
         history.signal.contiguous(), history.moments.contiguous(),
         prev_normal.contiguous(), prev_lin_depth.contiguous(),
         prev_object_id.contiguous(), motion_plane.contiguous(),
-        normal.contiguous(), object_id.contiguous())
+        normal.contiguous(), object_id.contiguous(), row0)
     weight_sum = f[..., 7]
     valid = weight_sum > 0.01
     ws = torch.clamp(weight_sum, min=1e-6)
@@ -98,33 +99,59 @@ def combine(filtered, albedo, use_albedo_remod: bool):
 
 def denoise_multi(cur_signals, albedo, gb_motion_plane, normal, object_id,
                   histories, prev_normal, prev_lin_depth, prev_object_id,
-                  configs, svgf_phi, history_valid: bool):
+                  configs, svgf_phi, history_valid: bool, window=None):
     """SVGF chains for K signals over one frame's geometry →
-    [(denoised (H, W, 4), new SVGFSignalHistory, variance (H, W))] x K."""
+    [(denoised (H, W, 4), new SVGFSignalHistory, variance (H, W))] x K.
+
+    ``window`` (graph/passes.FrameContext, or None for the whole image)
+    says which image rows the planes hold: then the histories and
+    previous-frame planes are its rows too, gathered whole for the
+    reprojection, and each stencil runs on the rows with its radius of
+    halo rows (filter_moments 3, an à-trous step 2 step)."""
     phi_l_moments, phi_l_atrous, phi_n = svgf_phi[0], svgf_phi[1], \
         svgf_phi[2]
     mp = gb_motion_plane.contiguous()
     normal = normal.contiguous()
+    row0 = 0 if window is None else window.row0
+
+    def windowed(r, fn, *images):
+        if window is None:
+            return fn(*images)
+        return window.windowed(r, lambda _, *x: fn(*x), *images)
+
+    if window is not None and history_valid and any(
+            c.temporal_enabled for c in configs):
+        prev_normal, prev_lin_depth, prev_object_id = window.gather(
+            prev_normal, prev_lin_depth, prev_object_id)
     results = []
     for cur, hist, config in zip(cur_signals, histories, configs):
         signal, new_hist_signal, new_hist_moments = cur, hist.signal, \
             hist.moments
         if config.temporal_enabled:
+            whole = hist
+            if window is not None and history_valid:
+                whole = SVGFSignalHistory(*window.gather(hist.signal,
+                                                         hist.moments))
             signal, new_hist_moments = temporal(
-                cur, albedo, mp, normal, object_id, hist, prev_normal,
+                cur, albedo, mp, normal, object_id, whole, prev_normal,
                 prev_lin_depth, prev_object_id, config.use_albedo_demod,
-                history_valid)
+                history_valid, row0)
             # the reference then blurs the filtered moments' variance
             # (variance_blur) and feeds the result to nothing: à-trous
             # reads the variance from signal .a, and under jit the blur is
             # dead code, so the port does not run it
-            signal, _ = stencil_cuda.filter_moments(
-                signal.contiguous(), new_hist_moments.contiguous(), normal,
-                mp, phi_l_moments, phi_n)
+            signal, _ = windowed(
+                3, lambda s, m, n, p: stencil_cuda.filter_moments(
+                    s.contiguous(), m.contiguous(), n.contiguous(),
+                    p.contiguous(), phi_l_moments, phi_n),
+                signal, new_hist_moments, normal, mp)
         if config.spatial_enabled:
             for i in range(config.atrous_iterations):
-                signal = stencil_cuda.atrous(signal.contiguous(), normal, mp,
-                                             1 << i, phi_l_atrous, phi_n)
+                signal = windowed(
+                    2 << i, lambda s, n, p, step=1 << i: stencil_cuda.atrous(
+                        s.contiguous(), n.contiguous(), p.contiguous(), step,
+                        phi_l_atrous, phi_n),
+                    signal, normal, mp)
                 if i == 0:
                     new_hist_signal = signal
         store = torch.bfloat16 if config.bits == 16 else torch.float32

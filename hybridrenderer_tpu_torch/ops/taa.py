@@ -52,15 +52,18 @@ def _clip_history(history, box_min, box_max):
 
 
 def resolve(cur_color, history_color, motion, depth, jitter, prev_jitter,
-            history_valid: bool, enabled: bool = True):
-    """TAA resolve of (H, W, 3) colour against (H, W, 3) history.
-    ``motion`` is the G-buffer's (H, W, 2) uv motion, ``depth``
-    reversed-Z, jitters in NDC units (x 0.5 → uv)."""
+            history_valid: bool, enabled: bool = True, row0: int = 0):
+    """TAA resolve of (H, W, 3) colour against the (FH, W, 3) history of
+    the whole image. ``motion`` is the G-buffer's (H, W, 2) uv motion,
+    ``depth`` reversed-Z, jitters in NDC units (x 0.5 → uv). The current
+    planes hold image rows ``row0`` on (default: the whole image); the
+    3x3 neighbourhoods clamp at their edges."""
     if not enabled:
         return cur_color
     H, W = depth.shape
+    FH = history_color.shape[0]
     dev = depth.device
-    uv = img_ops.pixel_uv_grid(H, W, dev)
+    uv = img_ops.pixel_uv_grid(H, W, dev, row0, FH)
 
     # 1. velocity dilation: the motion of the 3x3-closest pixel
     best_d = best_motion = None
@@ -103,7 +106,7 @@ def resolve(cur_color, history_color, motion, depth, jitter, prev_jitter,
                                box_max)
 
     # 5. motion-adaptive blend
-    size = maths.constant((float(W), float(H)), uv.device)
+    size = maths.constant((float(W), float(FH)), uv.device)
     motion_len = torch.linalg.vector_norm(best_motion * size, dim=-1)
     alpha = torch.clamp(0.1 + motion_len * 0.1, 0.1, 0.9).unsqueeze(-1)
     alpha = torch.where(off, torch.ones_like(alpha), alpha)

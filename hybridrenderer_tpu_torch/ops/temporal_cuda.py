@@ -23,11 +23,13 @@ KERNEL_SAMPLE = native.KERNELS["window_sample"]
 
 
 def temporal_fetch(hist_signal, hist_moments, prev_normal, prev_depth,
-                   prev_oid, motion_plane, normal, oid):
-    """History (H, W, 4) signal and moments (bf16 or f32, the storage
-    type); previous-frame normal (H, W, 3), linear depth (H, W) and
-    object id (H, W) i32; current motion plane (H, W, 4), normal and
-    object id → (H, W, 8) f32.
+                   prev_oid, motion_plane, normal, oid, row0: int = 0):
+    """History (FH, W, 4) signal and moments (bf16 or f32, the storage
+    type); previous-frame normal (FH, W, 3), linear depth (FH, W) and
+    object id (FH, W) i32, all of the whole image; current motion plane
+    (H, W, 4), normal and object id of image rows ``row0`` ..
+    ``row0 + H - 1`` (by default H = FH and row0 0: the whole image) →
+    (H, W, 8) f32.
 
     CUDA tensors launch kernel K3, which replaces the TPU kernel
     temporal_pallas._kernel; CPU tensors take the plain version. On the
@@ -35,21 +37,25 @@ def temporal_fetch(hist_signal, hist_moments, prev_normal, prev_depth,
     if normal.device.type == "cpu":
         return temporal_fetch_plain(hist_signal, hist_moments, prev_normal,
                                     prev_depth, prev_oid, motion_plane,
-                                    normal, oid)
+                                    normal, oid, row0)
     if normal.device.type != "cuda":
         raise ValueError(f"temporal_fetch: unsupported device {normal.device}")
     dev = normal.device
     H, W = oid.shape
-    if H < 2 or W < 2:
+    FH = hist_signal.shape[0]
+    if FH < 2 or W < 2:
         raise ValueError("temporal_fetch needs at least 2x2 pixels")
+    if not 0 <= row0 <= FH - H:
+        raise ValueError(f"temporal_fetch: rows {row0}..{row0 + H - 1} lie "
+                         f"outside the {FH}-row history")
     hdt = hist_signal.dtype
     if hdt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"history dtype {hdt} is neither f32 nor bf16")
-    native.check(hist_signal, "hist_signal", hdt, (H, W, 4), dev)
-    native.check(hist_moments, "hist_moments", hdt, (H, W, 4), dev)
-    native.check(prev_normal, "prev_normal", torch.float32, (H, W, 3), dev)
-    native.check(prev_depth, "prev_depth", torch.float32, (H, W), dev)
-    native.check(prev_oid, "prev_oid", torch.int32, (H, W), dev)
+    native.check(hist_signal, "hist_signal", hdt, (FH, W, 4), dev)
+    native.check(hist_moments, "hist_moments", hdt, (FH, W, 4), dev)
+    native.check(prev_normal, "prev_normal", torch.float32, (FH, W, 3), dev)
+    native.check(prev_depth, "prev_depth", torch.float32, (FH, W), dev)
+    native.check(prev_oid, "prev_oid", torch.int32, (FH, W), dev)
     native.check(motion_plane, "motion_plane", torch.float32, (H, W, 4), dev)
     native.check(normal, "normal", torch.float32, (H, W, 3), dev)
     native.check(oid, "oid", torch.int32, (H, W), dev)
@@ -58,33 +64,34 @@ def temporal_fetch(hist_signal, hist_moments, prev_normal, prev_depth,
                   native.ptr(hist_moments), int(hdt == torch.bfloat16),
                   native.ptr(prev_normal), native.ptr(prev_depth),
                   native.ptr(prev_oid), native.ptr(motion_plane),
-                  native.ptr(normal), native.ptr(oid), H, W,
+                  native.ptr(normal), native.ptr(oid), H, W, row0, FH,
                   native.ptr(out))
     return out
 
 
 def temporal_fetch_plain(hist_signal, hist_moments, prev_normal, prev_depth,
-                         prev_oid, motion_plane, normal, oid):
+                         prev_oid, motion_plane, normal, oid, row0: int = 0):
     """Plain PyTorch version of kernel K3 (exact per-pixel footprint)."""
     KERNEL.note_plain(normal)
     H, W = oid.shape
+    FH = hist_signal.shape[0]
     dev = normal.device
-    uv = img_ops.pixel_uv_grid(H, W, dev)
-    prev_pix = (uv - motion_plane[..., :2]) * uv.new_tensor([W, H]) - 0.5
+    uv = img_ops.pixel_uv_grid(H, W, dev, row0, FH)
+    prev_pix = (uv - motion_plane[..., :2]) * uv.new_tensor([W, FH]) - 0.5
     z = motion_plane[..., 2]
     base = torch.minimum(torch.clamp(torch.floor(prev_pix), min=0.0),
-                         uv.new_tensor([W - 2, H - 2]))
+                         uv.new_tensor([W - 2, FH - 2]))
     f = prev_pix - base
     fx, fy = f[..., 0], f[..., 1]
     bx, by = base[..., 0].long(), base[..., 1].long()
     footprint_ok = (prev_pix[..., 0] >= 0) & (prev_pix[..., 0] <= W - 1) & \
-        (prev_pix[..., 1] >= 0) & (prev_pix[..., 1] <= H - 1)
+        (prev_pix[..., 1] >= 0) & (prev_pix[..., 1] <= FH - 1)
     oid_c = oid.to(torch.float32)
     weights = ((1.0 - fx) * (1.0 - fy), fx * (1.0 - fy),
                (1.0 - fx) * fy, fx * fy)
-    sig = hist_signal.to(torch.float32).reshape(H * W, 4)
-    mom = hist_moments.to(torch.float32).reshape(H * W, 4)
-    pn = prev_normal.reshape(H * W, 3)
+    sig = hist_signal.to(torch.float32).reshape(FH * W, 4)
+    mom = hist_moments.to(torch.float32).reshape(FH * W, 4)
+    pn = prev_normal.reshape(FH * W, 3)
     acc = [torch.zeros((H, W), device=dev) for _ in range(8)]
     for tap, w in enumerate(weights):
         q = (by + (tap >> 1)) * W + bx + (tap & 1)

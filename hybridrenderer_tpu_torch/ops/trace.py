@@ -12,13 +12,19 @@ K2b instead; with ``trace_backend="pallas-wide"`` and ``wide_kernel``
 
 Large scenes take the reference's decisions on its numbers. Hit
 shading reads the quantized rows of scene/schema.py above 98,304
-triangles (``schema.shade_table_kind``). Under "pallas-wide" the 8-wide
-records are measured against the reference's 96 MiB budget
-(``plan_wide``): above it the traced triangles are its bf16 ones, K2w
-gives way to K2 / K2c once its meta table exceeds 900 KiB or leaf
-records stream, K2m whenever the records are bf16, and beyond even
-bf16 node records the exact f32 traversal runs. "auto", "jnp" and
-"pallas" trace the exact triangles at every size.
+triangles (``schema.shade_table_kind``). Under "pallas-wide" the wide
+records (``bvh_width`` children a node, ``bvh_leaf_tris`` triangles a
+cluster; 8 and 4 by default) are measured against the reference's
+96 MiB budget (``plan_wide``): above it the traced triangles are its
+bf16 ones, K2w gives way to K2 / K2c once its meta table exceeds
+900 KiB, leaf records stream or the tree is 16 wide, K2m whenever the
+records are bf16 or the tree is not 8 wide with 4-triangle clusters,
+and beyond even bf16 node records the exact f32 traversal runs. "auto",
+"jnp" and "pallas" trace the exact triangles at every size.
+
+``shadow_query_pair`` traces two any-hit queries from the same surface
+points in one launch of 2R rays (RTShadowPass under
+``fuse_shadow_ao``).
 
 The reference relayouts rays tile- or pattern-major for its TPU packets;
 a relayout changes no per-ray result, so the per-ray kernels trace in
@@ -122,32 +128,50 @@ def builder_of(settings) -> str:
     return "sah" if builder == "auto" else builder
 
 
+def wide_shape_of(settings) -> tuple:
+    """The wide tree ``settings`` ask for → (children a node, triangles
+    a leaf cluster), the reference's defaults 8 and 4 for None."""
+    width = None if settings is None else settings.bvh_width
+    leaf_tris = None if settings is None else settings.bvh_leaf_tris
+    return (8 if width is None else width,
+            4 if leaf_tris is None else leaf_tris)
+
+
 def request_of(settings, num_triangles: int) -> tuple:
     """What a tracer built for ``settings`` over ``num_triangles``
     triangles depends on: the packet kernel or not, the wide kernel asked
-    for, the BVH builder, and whether "pallas-wide" may trace bf16
-    triangles there. Its 8-wide records take at most a wide node and a
-    leaf cluster of 48 f32 a triangle, in tiles of 128: below
-    VMEM_SCENE_BUDGET "auto", "jnp" and "pallas-wide" build the same
-    tracer."""
+    for, the BVH builder, and under "pallas-wide" whether it may trace
+    bf16 triangles there and, where a wide kernel is asked for or it
+    may, the wide tree's shape. Its records take at
+    most a wide node (6 f32 a child) and a leaf cluster (12 f32 a
+    triangle slot) a triangle, in tiles of 128: below VMEM_SCENE_BUDGET
+    "auto", "jnp" and "pallas-wide" build the same tracer."""
     backend = "auto" if settings is None else settings.trace_backend
-    may_quantize = backend == "pallas-wide" and \
-        4 * 48 * (2 * num_triangles + 256) > VMEM_SCENE_BUDGET
-    return (backend == "pallas", wide_kernel_of(settings),
-            builder_of(settings), may_quantize)
+    kernel = wide_kernel_of(settings)
+    width, leaf_tris = wide_shape_of(settings)
+    may_quantize = backend == "pallas-wide" and 4 * (num_triangles + 128) \
+        * (6 * width + 12 * leaf_tris) > VMEM_SCENE_BUDGET
+    # the shape changes nothing where no wide kernel is asked for and the
+    # triangles stay f32
+    shaped = backend == "pallas-wide" and (kernel is not None
+                                           or may_quantize)
+    return (backend == "pallas", kernel, builder_of(settings),
+            (width, leaf_tris) if shaped else None, may_quantize)
 
 
 def plan_wide(wide, kernel):
-    """The reference's choice over its 8-wide records
+    """The reference's choice over its wide records
     (ops/trace.py:284-327) for the wide kernel asked for → (the wide
     kernel that runs, None for K2 / K2c; whether the traced triangles are
     bf16; why the kernel asked for does not run, or None). Above
     VMEM_SCENE_BUDGET the records are quantized; where the bf16 records
     still exceed it but their node records do not, the reference streams
     the leaf records, and beyond that it traces the exact f32 triangles
-    (its jnp fallback, the port's K2 / K2c). K2w runs only while neither
-    streaming nor its meta table exceeds META_SMEM_LIMIT; K2m only over
-    f32 records."""
+    (its jnp fallback, the port's K2 / K2c). K2w runs only over an 8-wide
+    tree while neither streaming nor its meta table exceeds
+    META_SMEM_LIMIT; K2m only over f32 records of an 8-wide tree with
+    4-triangle clusters (the reference packs its p8 layout for those
+    alone)."""
     quantized = wide.vmem_bytes > VMEM_SCENE_BUDGET
     stream = False
     if quantized:
@@ -160,12 +184,17 @@ def plan_wide(wide, kernel):
             stream = True
     why = None
     if kernel == "compressed" and (
-            stream or 4 * wide.meta.numel() > META_SMEM_LIMIT):
+            stream or wide.width != 8
+            or 4 * wide.meta.numel() > META_SMEM_LIMIT):
         why = "leaf records streamed" if stream else \
+            f"a {wide.width}-wide tree" if wide.width != 8 else \
             f"meta table of {4 * wide.meta.numel()} bytes above " \
             f"{META_SMEM_LIMIT}"
-    elif kernel == "mimt" and (stream or quantized):
-        why = "leaf records streamed" if stream else "bf16 records"
+    elif kernel == "mimt" and (stream or quantized or wide.width != 8
+                               or wide.leaf_tris != 4):
+        why = "leaf records streamed" if stream else "bf16 records" \
+            if quantized else f"{wide.width}-wide nodes with " \
+            f"{wide.leaf_tris}-triangle clusters"
     if why is not None:
         return None, quantized, f"{kernel} runs as K2 / K2c: {why}"
     return kernel, quantized, None
@@ -223,7 +252,9 @@ class SceneTracer:
         packed = wide = levels = edges = None
         quantized, demotion, wide_bytes = False, None, 0
         if backend == "pallas-wide":
-            wide = build_wide(bvh, v0, v1, v2)
+            width, leaf_tris = wide_shape_of(settings)
+            wide = build_wide(bvh, v0, v1, v2, leaf_tris=leaf_tris,
+                              width=width)
             wide_bytes = wide.vmem_bytes
             kernel, quantized, demotion = plan_wide(wide, kernel)
             if demotion is not None and demotion.startswith("exact"):
@@ -351,6 +382,32 @@ class SceneTracer:
             occ = self._any(o, d, TMIN, t, act, lead[1]) >= 0
         return _pixel_order(pos, torch.where(occ, 0.0, 1.0), lead)
 
+    def shadow_query_pair(self, world_pos, normal, dir_a, tmax_a, dir_b,
+                          tmax_b, active=None):
+        """Two ``shadow_query`` calls from the same surface points (the
+        sun or light shadow and AO) in one any-hit launch of 2R rays with
+        per-ray tmax → (vis_a, vis_b), equal to the two calls' (any-hit
+        visibility does not depend on the launch). Each query's tmax is a
+        number, capped at 10000 over its half, as the reference's."""
+        o, da, ta, act = self.shadow_rays(world_pos, normal, dir_a, tmax_a,
+                                          active)
+        _, db, tb, _ = self.shadow_rays(world_pos, normal, dir_b, tmax_b,
+                                        active)
+        lead = world_pos.shape[:2]
+        _, pos, (o, da, db, ta, tb, act) = self._packet_order(
+            lead, o, da, db, ta, tb, act)
+        R = o.shape[0]
+        # two images one above the other: still ``lead[1]`` columns
+        o2, d2 = torch.cat([o, o]), torch.cat([da, db])
+        t2, a2 = torch.cat([ta, tb]), torch.cat([act, act])
+        if self.cutout is not None:
+            occ = self._occluded_alpha(o2, d2, TMIN, t2, a2, lead[1])
+        else:
+            occ = self._any(o2, d2, TMIN, t2, a2, lead[1]) >= 0
+        vis = torch.where(occ, 0.0, 1.0)
+        return (_pixel_order(pos, vis[:R], lead),
+                _pixel_order(pos, vis[R:], lead))
+
     def occluded(self, origin, direction, tmax: float, active, width=0):
         """Flat any-hit query, tmin 1e-3: (R, 3) rays → visibility (R,),
         1.0 unoccluded, 0.0 occluded or inactive. ``width`` > 0: the rays
@@ -421,12 +478,14 @@ class SceneTracer:
         return o, d, t, act
 
     def trace_radiance(self, scene, origin, direction, ctx, depth: int = 0,
-                       active=None):
+                       active=None, row0: int = 0):
         """Trace and shade closest hits. origin / direction (..., 3) →
         (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
         rays trace nothing and take the miss value. The NEE seed of a ray
         is its flat index, the reference's original pixel index, also
-        where the wide kernels trace (H, W) rays in tile order."""
+        where the wide kernels trace (H, W) rays in tile order; (H, W)
+        rays that are rows ``row0`` on of an image take that image's
+        index (the reference's ``pix_offset``)."""
         lead = origin.shape[:-1]
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
         fwd, pos, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax,
@@ -455,8 +514,14 @@ class SceneTracer:
                 v = torch.where(transparent, v2, v)
                 hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
             t = t + t_off
-        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit, fwd,
-                                  width)
+        ray_idx = fwd
+        if row0:
+            if fwd is None:
+                fwd = torch.arange(o.shape[0], dtype=torch.int64,
+                                   device=o.device)
+            ray_idx = fwd + row0 * lead[1]
+        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit,
+                                  ray_idx, width)
         rgb_miss = sky.sample_environment(
             d, scene.sky_texture, scene.textures,
             bool(ctx.settings.flags & RenderFlags.IBL),

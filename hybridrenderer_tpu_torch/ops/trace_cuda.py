@@ -24,7 +24,8 @@ equal-t hits, is the packet's, not a ray's.
 
 ``intersect_wide`` (K2w, trace_pallas.py _wide_traverse_kernel) and
 ``intersect_mimt`` (K2m, _mimt_traverse_kernel) walk the 8-wide tree of
-ops/bvh_wide.py in packets of 1024 consecutive rays, with the
+ops/bvh_wide.py (K2w with 4, 8 or 16 triangles a leaf cluster, K2m with
+4) in packets of 1024 consecutive rays, with the
 reference's contract: (t, tri, u, v) with t = +inf and tri = -1 on a
 miss, and tri = INACTIVE_TRI, t = -1 for an inactive ray. Both follow
 the reference's visiting order step for step, its termination rule
@@ -556,31 +557,41 @@ def check_wide_stacks(wide, mimt: bool):
                          f"{need} stack entries; the kernel has {WIDE_STACK}")
 
 
+# the leaf clusters K2w is built for (csrc/trace.cu, one instantiation
+# each); K2m takes the default 4 alone, as the reference's p8 layout
+WIDE_LEAF_TRIS = (4, 8, 16)
+
+
 def _check_wide(wide, o, d, tmax, active, mimt):
     dev = o.device
     R = o.shape[0]
     check_wide_stacks(wide, mimt)
+    leaf_tris = wide.leaves_flat.shape[1] // 12
+    if leaf_tris not in ((4,) if mimt else WIDE_LEAF_TRIS):
+        raise ValueError(f"{'K2m' if mimt else 'K2w'}: no build for "
+                         f"{leaf_tris}-triangle leaf clusters")
     native.check(wide.nodes_flat, "nodes_flat", torch.float32, (None, 48),
                  dev)
-    native.check(wide.leaves_flat, "leaves_flat", torch.float32, (None, 48),
-                 dev)
+    native.check(wide.leaves_flat, "leaves_flat", torch.float32,
+                 (None, 12 * leaf_tris), dev)
     native.check(wide.meta, "meta", torch.int32, (None, 2), dev)
     native.check(wide.deep_pushes, "deep_pushes", torch.int32, (1,), dev)
     native.check(o, "o", torch.float32, (R, 3), dev)
     native.check(d, "d", torch.float32, (R, 3), dev)
     native.check(tmax, "tmax", torch.float32, (R,), dev)
     native.check(active, "active", torch.bool, (R,), dev)
-    return R
+    return R, leaf_tris
 
 
 def _launch_wide(kernel, entry, wide, o, d, tmin, tmax, active, any_hit):
-    R = _check_wide(wide, o, d, tmax, active, entry == "hr_trace_mimt")
+    R, leaf_tris = _check_wide(wide, o, d, tmax, active,
+                               entry == "hr_trace_mimt")
     t, u, v = (torch.empty((R,), dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty((R,), dtype=torch.int32, device=o.device)
-    # the kernels read the records as float4 (48-float rows)
+    # the kernels read the records as float4 (48- and 12 L-float rows)
     kernel.launch(entry, native.ptr(native.aligned(wide.nodes_flat)),
-                  native.ptr(native.aligned(wide.leaves_flat)),
+                  native.ptr(native.aligned(wide.leaves_flat)), leaf_tris,
                   native.ptr(wide.meta),
                   wide.nodes_flat.shape[0], wide.leaves_flat.shape[0],
                   wide.meta.shape[0], native.ptr(o), native.ptr(d),
@@ -627,11 +638,14 @@ def intersect_mimt(wide, o, d, tmin: float, tmax, active, any_hit: bool):
                         active, any_hit)
 
 
-def wide_kernel_info(mimt: bool) -> dict:
-    """K2w's (or K2m's) build as the card runs it: registers a thread,
-    local memory bytes a thread (stack frame and spills), static shared
-    memory bytes, threads a block and the blocks an SM holds."""
-    return _kernel_info(int(mimt))
+def wide_kernel_info(mimt: bool, leaf_tris: int = 4) -> dict:
+    """K2w's (for ``leaf_tris``-triangle clusters) or K2m's build as the
+    card runs it: registers a thread, local memory bytes a thread (stack
+    frame and spills), static shared memory bytes, threads a block and
+    the blocks an SM holds."""
+    if mimt:
+        return _kernel_info(1)
+    return _kernel_info({4: 0, 8: 3, 16: 4}[leaf_tris])
 
 
 def packet_kernel_info() -> dict:
@@ -673,12 +687,12 @@ def _wide_packets(o, d, tmax, active):
 
 
 def _leaf_visit(rec, ray, tmin, st):
-    """The 4 Moller-Trumbore tests of one leaf cluster per packet (or row):
-    ``rec`` (..., 48) record rows broadcast over the rays (..., n); the
-    state's "t", "tri", "u", "v" are replaced where a hit has t <= the
-    best so far (in triangle order)."""
+    """The L Moller-Trumbore tests of one leaf cluster per packet (or
+    row): ``rec`` (..., 12 L) record rows broadcast over the rays
+    (..., n); the state's "t", "tri", "u", "v" are replaced where a hit
+    has t <= the best so far (in triangle order)."""
     ox, oy, oz, dx, dy, dz = ray[:6]
-    for k in range(4):
+    for k in range(rec.shape[-1] // 12):
         f = lambda j: rec[..., 12 * k + j].unsqueeze(-1)
         p0x, p0y, p0z = f(0), f(1), f(2)
         a1x, a1y, a1z = f(3), f(4), f(5)
@@ -750,6 +764,12 @@ def _wide_traverse_plain(wide, o, d, tmin, tmax, active, any_hit, mimt,
     runs while either packet has stack entries and, any-hit, a ray
     without a hit, so a finished packet keeps popping beside its live
     sibling, as in the reference."""
+    if wide.width != 8:
+        raise ValueError(f"K2w / K2m walk 8-wide trees, not {wide.width}-"
+                         f"wide")
+    if mimt and wide.leaf_tris != 4:
+        raise ValueError(f"K2m: no build for {wide.leaf_tris}-triangle leaf "
+                         f"clusters")
     dev = o.device
     P, org, dirs, tm = _wide_packets(o, d, tmax, active)
     ray = _ray_planes(org, dirs)

@@ -119,20 +119,12 @@ class Renderer:
                  binning=None):
         """The FrameContext of a frame over a (ROW_SIZE,) row → (ctx,
         the carried FrameState)."""
-        shadow_query = trace_radiance = None
-        if tracer is not None:
-            shadow_query = tracer.shadow_query
-
-            def trace_radiance(o, d, ctx, depth, active=None):
-                return tracer.trace_radiance(scene, o, d, ctx, depth,
-                                             active=active)
         state = FrameState(history=history)
         ctx = FrameContext(
             scene=scene, cam=CameraState.unpack(row),
             params=FrameParams.from_row(scene, row), settings=self.settings,
-            state=state, history_valid=history_valid,
-            shadow_query=shadow_query, trace_radiance=trace_radiance,
-            binning=binning)
+            state=state, history_valid=history_valid, binning=binning,
+            **trace_hooks(scene, tracer))
         return ctx, state
 
     def _frame(self, row, scene, tracer, history, history_valid, binning):
@@ -542,6 +534,24 @@ def _tree_pairs(static, new, pairs, undo):
         else:
             raise RuntimeError(f"{type(static).__name__}.{f.name} changed "
                                f"under a capture")
+
+
+def trace_hooks(scene, tracer) -> dict:
+    """The FrameContext's ray-query hooks over ``tracer`` (none without
+    one): shadow_query, shadow_query_pair and trace_radiance."""
+    if tracer is None:
+        return {}
+
+    def trace_radiance(o, d, ctx, depth, active=None, row0=0):
+        # row0 only where it is not the default, so that a wrapper of the
+        # tracer's method with the reference's signature still serves
+        kw = {"row0": row0} if row0 else {}
+        return tracer.trace_radiance(scene, o, d, ctx, depth, active=active,
+                                     **kw)
+
+    return dict(shadow_query=tracer.shadow_query,
+                shadow_query_pair=tracer.shadow_query_pair,
+                trace_radiance=trace_radiance)
 
 
 def _build_tracer(scene_data, settings):

@@ -1097,3 +1097,173 @@ def test_captured_quantized_full_graph_equals_eager(dev):
     for a, b in zip(*imgs):
         assert torch.equal(a, b)
     assert counts[0] == counts[1]
+
+
+def _stress_candidates(dev, W, H):
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    cam = OrbitCamera(width=W, height=H, **CAM).step().to(dev)
+    vp = cam.proj @ cam.view
+    corners = torch.stack([raster.transform_to_clip(v, vp)
+                           for v in (data.triangles.v0, data.triangles.v1,
+                                     data.triangles.v2)], dim=1)
+    return data, raster_cuda.pack_candidates(raster.clip_triangles(corners,
+                                                                   W, H))
+
+
+def test_raster_window_kernels_match_plain(dev):
+    """K1 (f32 attributes), K1 vis-only and K1v over 30-row windows of a
+    200x120 image, which cut its 16-row bands: each exactly its plain
+    version, and the whole image's rows."""
+    W, H, h = 200, 120, 30
+    data, (rec, bbox, valid) = _stress_candidates(dev, W, H)
+    ts, ec = raster_cuda.bin_candidates(bbox, valid, W, H)
+    for attr, keyed in ((data.raster_rows, False), (None, False),
+                        (None, True)):
+        whole, _ = raster_cuda.raster_tiles(rec, ts, ec, attr, W, H,
+                                            keyed=keyed)
+        wa = None if attr is None else raster_cuda.raster_tiles(
+            rec, ts, ec, attr, W, H)[1]
+        for row0 in range(0, H, h):
+            tw, ew = raster_cuda.bin_candidates(bbox, valid, W, h, row0, H)
+            vk, ak = raster_cuda.raster_tiles(rec, tw, ew, attr, W, h,
+                                              keyed=keyed, row0=row0)
+            if keyed:
+                vp_, ap = raster_cuda.raster_vis_plain(
+                    rec, tw, ew, W, h, row0=row0), None
+            else:
+                vp_, ap = raster_cuda.raster_tiles_plain(
+                    rec, tw, ew, attr, W, h, row0=row0)
+            rows = slice(row0, row0 + h)
+            for f in ("tri_id", "depth", "bary1", "bary2"):
+                a = getattr(vk, f)
+                assert torch.equal(a, getattr(vp_, f)), (f, row0, keyed)
+                assert torch.equal(a, getattr(whole, f)[rows]), (f, row0)
+            if attr is not None:
+                assert torch.equal(ak, ap) and torch.equal(ak, wa[rows])
+
+
+def test_temporal_window_kernel_matches_plain(dev):
+    """K3 over rows 15..29 of a 45x70 frame, reading the whole history:
+    exactly its plain version and the whole image's rows."""
+    g = np.random.default_rng(2)
+    H, W = 45, 70
+    mp = np.zeros((H, W, 4), np.float32)
+    mp[..., 0] = 0.01 * g.standard_normal((H, W))
+    mp[..., 1] = 0.05 * g.standard_normal((H, W))
+    mp[..., 2] = 5.0 + g.random((H, W))
+    nrm = g.standard_normal((H, W, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    oid = g.integers(0, 2, (H, W)).astype(np.int32)
+    hist = (_t(g.random((H, W, 4)).astype(np.float32), dev),
+            _t(g.random((H, W, 4)).astype(np.float32), dev), _t(nrm, dev),
+            _t(mp[..., 2] * 1.02, dev), _t(oid, dev))
+    cur = (_t(mp, dev), _t(nrm, dev), _t(oid, dev))
+    whole = temporal_cuda.temporal_fetch(*hist, *cur)
+    rows = slice(15, 30)
+    win = tuple(x[rows].contiguous() for x in cur)
+    k = temporal_cuda.temporal_fetch(*hist, *win, 15)
+    torch.testing.assert_close(
+        k, temporal_cuda.temporal_fetch_plain(*hist, *win, 15), rtol=0,
+        atol=0)
+    assert torch.equal(k, whole[rows])
+
+
+@pytest.mark.parametrize("leaf_tris", [8, 16])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_wide_leaf_clusters_match_plain(dev, leaf_tris, any_hit):
+    """K2w over 8- and 16-triangle clusters (bvh_leaf_tris) exactly
+    against its plain version (t, tri, u, v) on random rays, and against
+    the per-ray K2 / K2c: visibility, closest t."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    tracer = SceneTracer.build(data, RenderSettings(
+        trace_backend="pallas-wide", wide_kernel="compressed",
+        bvh_leaf_tris=leaf_tris))
+    assert tracer.wide_kernel == "compressed"
+    assert tracer.wide.leaf_tris == leaf_tris
+    packed = SceneTracer.build(data).packed
+    g = np.random.default_rng(3)
+    R = 5000
+    o = _t(g.uniform([-20, 0.05, -10], [20, 6, 10], (R, 3)).astype(
+        np.float32), dev)
+    d = g.standard_normal((R, 3)).astype(np.float32)
+    d = _t(d / np.linalg.norm(d, axis=-1, keepdims=True), dev)
+    args = (o, d, 0.01, _t(g.choice([10.0, 1e6], R).astype(np.float32), dev),
+            _t(g.random(R) < 0.9, dev))
+    before = native.KERNELS["trace_wide"].launches
+    k = trace_cuda.intersect_wide(tracer.wide, *args, any_hit)
+    assert native.KERNELS["trace_wide"].launches == before + 1
+    p = trace_cuda.intersect_wide_plain(tracer.wide, *args, any_hit)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    act = args[4]
+    if any_hit:
+        ref = trace_cuda.intersect_any(packed, *args)
+        assert torch.equal(ref >= 0, (k[1] >= 0) & act)
+    else:
+        ref = trace_cuda.intersect_closest(packed, *args)
+        torch.testing.assert_close(ref[0][act], k[0][act], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["hybrid", "raytraced", "full_graph"])
+def test_sharded_frame_on_one_card(dev, case, capsys):
+    """4 shards of 16 rows on the one card against the single-device
+    eager frame, 2 frames, within the reference's 2e-4 (reading printed;
+    -s shows it); every shard launches its kernels and no plain version
+    runs on the card."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import (RenderFlags,
+                                                     RenderPathType)
+    from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+    from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    flags = {"hybrid": RenderFlags.default_hybrid(),
+             "raytraced": RenderFlags.LIGHT | RenderFlags.IBL
+             | RenderFlags.EMISSIVE | RenderFlags.TAA,
+             "full_graph": RenderFlags.default_hybrid()
+             | RenderFlags.REFLECTION | RenderFlags.GI}[case]
+    path = RenderPathType.RAYTRACED if case == "raytraced" \
+        else RenderPathType.HYBRID
+    s = RenderSettings(width=64, height=64, path=path, flags=flags)
+    data = scenes.cornell_scene().build(dev)
+    cam_kw = dict(distance=7.0, pitch=0.3)
+    single = Renderer.for_scene(s, data, capture=False)
+    sharded = ShardedRenderer.for_scene(s, data, make_mesh(devices=[dev] * 4))
+    frames = []
+    for r in (single, sharded):
+        cam = OrbitCamera(width=64, height=64, **cam_kw)
+        native.reset_counts()
+        frames.append([r.render(cam.step(True)) for _ in range(2)])
+    counts = native.counts()
+    assert not any(plain for _, plain in counts.values())
+    assert counts["raster_tiles"][0] == 4 * 2
+    diffs = [(a - b).abs().max().item() for a, b in zip(*frames)]
+    with capsys.disabled():
+        print(f"\n[sharded {case}] 4 shards on one card vs one device: "
+              f"max abs diff {diffs}")
+    assert max(diffs) <= 2e-4
+
+
+def test_fused_shadow_frame_on_card(dev):
+    """fuse_shadow_ao: two hybrid frames equal the unfused ones bit for
+    bit, with one K2 launch a frame instead of two."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import (RenderFlags,
+                                                     RenderPathType)
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    data = scenes.stress_scene(num_objects=12).build(dev)
+    out, launches = {}, {}
+    for fuse in (False, True):
+        r = Renderer.for_scene(RenderSettings(
+            width=96, height=64, path=RenderPathType.HYBRID,
+            flags=RenderFlags.default_hybrid(), fuse_shadow_ao=fuse), data,
+            capture=False)
+        cam = OrbitCamera(width=96, height=64, **CAM)
+        native.reset_counts()
+        out[fuse] = [r.render(cam.step(True)) for _ in range(2)]
+        launches[fuse] = native.KERNELS["trace_any"].launches
+    assert all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
+    assert (launches[False], launches[True]) == (4, 2)

@@ -205,16 +205,21 @@ def test_leaf_stack_stall_keeps_every_hit(monkeypatch, kernel):
 
 def test_wide_settings_validation():
     """wide_kernel takes None, "direct", "compressed" or "mimt", and only
-    with trace_backend "pallas-wide"; the reference's wide-tree shape
-    fields are not ported."""
+    with trace_backend "pallas-wide"; the wide tree's shape fields take
+    the reference's values (bvh_width 8 or 16, bvh_leaf_tris 4, 8 or 16,
+    None for the defaults) and refuse others, naming them."""
     RenderSettings(trace_backend="pallas-wide", wide_kernel="mimt")
     for kw in (dict(wide_kernel="compressed"),
                dict(trace_backend="pallas", wide_kernel="mimt"),
                dict(trace_backend="pallas-wide", wide_kernel="packet")):
         with pytest.raises(ValueError):
             RenderSettings(**kw)
-    for kw in (dict(bvh_leaf_tris=8), dict(bvh_width=16)):
-        with pytest.raises(TypeError):
+    for kw in (dict(bvh_leaf_tris=8), dict(bvh_width=16),
+               dict(bvh_width=8, bvh_leaf_tris=16), dict(bvh_width=None)):
+        RenderSettings(trace_backend="pallas-wide", **kw)
+    for kw, names in ((dict(bvh_leaf_tris=6), "4, 8, 16"),
+                      (dict(bvh_width=4), "8, 16")):
+        with pytest.raises(ValueError, match=names):
             RenderSettings(trace_backend="pallas-wide", **kw)
     data = port_scenes.cube_scene().build("cpu")
     for k in (None, "direct"):
