@@ -101,11 +101,18 @@ non-zero without printing a result):
    1920x1080, a process of its own) and the HTTP viewer (/frame.png and
    /input on localhost) on the card;
 7. the row-sharded frame (parallel/): H, F, T and R at 1920x1080
-   sharded SHARDS ways on the one card, frames 1-3 eager, against the
-   single-device eager frames within 2e-4 (the reference's tolerance),
-   each frame's max abs difference, ms/frame and peak MiB printed, with
-   the counts set to 0 just before the sharded frames and every kernel
-   of the path launched.
+   sharded SHARDS ways on cuda:0, 8 frames each through the
+   single-device captured renderer, the eager sharded renderer
+   (capture=False) and the captured sharded renderer (frames 1-2 eager
+   and captured, 3-8 replayed): the captured sharded frames equal the
+   eager sharded frames bit for bit and the single-device frames within
+   2e-4 (the reference's tolerance), with the same kernel launches as
+   the eager sharded frames; ms/frame, capture ms a key, device ms and
+   busy share of one more replayed frame under the profiler, and peak
+   MiB printed for each, with the counts set to 0 just before the
+   captured sharded frames and every kernel of the path launched. Where
+   more than one card is visible, H and R also render over make_mesh()
+   (one shard a card) against the single-device frames.
 
 The last three lines of standard output are the kernels' JSON record,
 the card's ``nvidia-smi`` name and power limit, and
@@ -116,6 +123,7 @@ system temporary directory).
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -1781,19 +1789,26 @@ def frame_breakdown(name, r, cam, next_frame):
     """Per-pass ms of one eager frame (runtime/profiling.profile_frame:
     CUDA events around each pass, after the renderer's history, which it
     leaves as it was), then one more frame of the path, a replay, under
-    torch.profiler (device time by kernel, device operations, busy share
-    of the frame's wall time). ``next_frame(camera state)`` renders a
-    frame as the path does."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (profiled_frame). ``next_frame(camera state)`` renders
+    a frame as the path does."""
     from hybridrenderer_tpu_torch.runtime import profiling
 
     spent = profiling.profile_frame(r, cam.step(taa_enabled=True), iters=3)
     log(f"[{name}] per pass ms (eager, CUDA events around each pass): "
         + ", ".join(f"{k} {v:.3f}" for k, v in spent.items())
         + f"; sum {sum(spent.values()):.3f}")
+    return profiled_frame(name, cam, next_frame)
+
+
+def profiled_frame(name, cam, next_frame):
+    """One more frame (a replay) under torch.profiler → (device ms, device
+    operations, wall ms), or None where the profiler recorded no device
+    time: device time by kernel, device operations, busy share of the
+    frame's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1816,7 +1831,7 @@ def frame_breakdown(name, r, cam, next_frame):
         f"{wall:.3f} ms wall (share {busy / wall:.3f}), {ops} device "
         f"operations; top: " + "; ".join(
             f"{e.key[:60]} {dev_ms(e):.3f} ms x{e.count}" for e in top))
-    return busy, ops
+    return busy, ops, wall
 
 
 def _key(key) -> str:
@@ -1956,23 +1971,76 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
 
 
 # phase 7: the row-sharded frame (parallel/sharded.py)
-SHARDED_FRAMES = 3
+SHARDED_FRAMES = 8
 # the reference's tolerance for its sharded frames with ray passes
 # (tests/test_parallel.py)
 SHARDED_TOL = 2e-4
 
 
-def phase_sharded(dev, out_dir):
-    """H, F, T and R at 1920x1080 sharded SHARDS ways on one card (every
-    shard on ``dev``), frames 1-3 eagerly, against the single-device eager
-    frames within SHARDED_TOL; the counts set to 0 just before the
-    sharded frames and read just after, every kernel of the path
-    launched and no plain version on the card. Prints each frame's max
-    abs difference, ms/frame and peak MiB of both. → {path: launches}."""
+def _sharded_run(name, make, settings, profiled):
+    """SHARDED_FRAMES frames at 1920x1080 through ``make()``'s renderer,
+    the camera seen from HEADLINE_CAM orbiting 0.01 rad a frame, with
+    the counts set to 0 just before and read just after, and with
+    ``profiled`` one more frame under the profiler → dict: frames (on
+    the host), ms per frame (host clock, every card synchronised), peak
+    MiB, launches, plain calls on the card, the renderer, the profiled
+    frame (profiled_frame) or None."""
     import torch
 
     from hybridrenderer_tpu_torch import native
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+
+    def sync():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+    W, H = settings.width, settings.height
+    gc.collect()            # an earlier run's renderer and its graphs
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = make()
+    cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
+    native.reset_counts()
+    frames, ms = [], []
+    for _ in range(SHARDED_FRAMES):
+        sync()
+        t = time.perf_counter()
+        img = r.render(cam.step(taa_enabled=True))
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t))
+        frames.append(img.cpu().numpy())
+        cam.orbit(0.01, 0.0)
+    run = dict(
+        frames=frames, ms=ms, renderer=r,
+        launches={k.name: k.launches for k in native.KERNELS.values()
+                  if k.launches},
+        plain={k.name: k.plain_cuda_calls for k in native.KERNELS.values()
+               if k.plain_cuda_calls},
+        peak=torch.cuda.max_memory_allocated() / 2**20)
+    run["prof"] = profiled_frame(name, cam, r.render) if profiled else None
+    return run
+
+
+def _max_diff(a, b):
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def phase_sharded(dev, out_dir):
+    """H, F, T and R at 1920x1080 sharded SHARDS ways on one card (every
+    shard on ``dev``), SHARDED_FRAMES frames each through the
+    single-device captured renderer, the eager sharded renderer and the
+    captured sharded renderer (frames 1-2 eager and captured, later ones
+    replayed): the captured sharded frames must equal the eager sharded
+    frames bit for bit, with the same kernel launches, and the
+    single-device frames within SHARDED_TOL, every kernel of the path
+    launched and no plain version on the card. Prints ms/frame, capture
+    ms, device ms and busy share of a profiled replay, and peak MiB of
+    each. With more than one card visible, H and R also render over
+    make_mesh(). → ({path: the captured sharded run's launches},
+    failures)."""
+    import torch
+
     from hybridrenderer_tpu_torch.core.types import RenderFlags
     from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
     from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
@@ -1992,52 +2060,126 @@ def phase_sharded(dev, out_dir):
         ("T", _forward_settings(W, H), ["raster_tiles", "window_sample"]),
         ("R", _raytraced_settings(W, H),
          ["raster_tiles", "trace_closest", "trace_any", "window_sample"]))
-    out, failures = {}, []
+    smi = nvidia_smi_line()
+    out, failures, singles = {}, [], {}
     for name, settings, kernels in paths:
-        frames, ms, peak = {}, {}, {}
-        for kind in ("single", "sharded"):
-            if kind == "single":
-                r = Renderer.for_scene(settings, data, capture=False)
-            else:
-                r = ShardedRenderer.for_scene(settings, data, mesh)
-            cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            native.reset_counts()
-            frames[kind], ms[kind] = [], []
-            for _ in range(SHARDED_FRAMES):
-                t = time.perf_counter()
-                img = r.render(cam.step(taa_enabled=True))
-                torch.cuda.synchronize()
-                ms[kind].append(1e3 * (time.perf_counter() - t))
-                frames[kind].append(img)
-                cam.orbit(0.01, 0.0)
-            peak[kind] = torch.cuda.max_memory_allocated() / 2**20
-        launches = {k.name: k.launches for k in native.KERNELS.values()
-                    if k.launches}
-        plain = {k.name: k.plain_cuda_calls for k in native.KERNELS.values()
-                 if k.plain_cuda_calls}
-        diffs = [(a - b).abs().max().item()
-                 for a, b in zip(frames["single"], frames["sharded"])]
-        img = frames["sharded"][-1].cpu().numpy()
+        tag = f"sharded {name}"
+        # each run's peak memory is its own: the renderer before it is
+        # dropped first
+        single = _sharded_run(f"{tag} single", lambda: Renderer.for_scene(
+            settings, data), settings, True)
+        del single["renderer"]
+        singles[name] = single["frames"]
+        eager = _sharded_run(f"{tag} eager", lambda: ShardedRenderer.for_scene(
+            settings, data, mesh, capture=False), settings, False)
+        del eager["renderer"]
+        cap = _sharded_run(f"{tag} captured", lambda: ShardedRenderer
+                           .for_scene(settings, data, mesh), settings, True)
+        r = cap.pop("renderer")
+        keys = sorted(r._graphs)
+        img = cap["frames"][-1]
         write_png(os.path.join(out_dir, f"chip_smoke_sharded_{name}.png"),
                   np.clip(img, 0.0, 1.0))
-        missing = [k for k in kernels if not launches.get(k)]
-        ok = (not missing and not plain and max(diffs) <= SHARDED_TOL
-              and img.shape == (H, W, 3) and np.isfinite(img).all())
-        log(f"[sharded {name}] {SHARDS} shards of {W}x{H // SHARDS} on "
-            f"{dev}, frames 1-{SHARDED_FRAMES} eager: max abs diff against "
-            f"the single-device frames {diffs} (tol {SHARDED_TOL}); ms/frame "
-            f"sharded {[round(t, 2) for t in ms['sharded']]} vs single "
-            f"{[round(t, 2) for t in ms['single']]}; peak MiB sharded "
-            f"{peak['sharded']:.1f} vs single {peak['single']:.1f}; sharded "
-            f"launches {launches}; plain on the card {plain}; frame stats "
-            f"{r.frame_stats()}; on {nvidia_smi_line()}: "
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(cap["frames"], eager["frames"]))
+        d_cap = [float(np.abs(a - b).max())
+                 for a, b in zip(cap["frames"], single["frames"])]
+        d_eager = _max_diff(eager["frames"], single["frames"])
+        missing = [k for k in kernels if not cap["launches"].get(k)]
+        ok = (same and not missing and not cap["plain"]
+              and cap["launches"] == eager["launches"]
+              and max(d_cap) <= SHARDED_TOL and d_eager <= SHARDED_TOL
+              and len(keys) == 2 and img.shape == (H, W, 3)
+              and np.isfinite(img).all())
+        med = {k: float(np.median(run["ms"][2:]))
+               for k, run in (("single", single), ("captured", cap))}
+        prof = {k: run["prof"] for k, run in (("single", single),
+                                              ("captured", cap))}
+        busy = {k: "not measured" if p is None else
+                f"{p[0]:.3f} device ms ({p[1]} operations), busy share "
+                f"{p[0] / p[2]:.3f}, device / frame {p[0] / med[k]:.3f}"
+                for k, p in prof.items()}
+        log(f"[{tag}] {SHARDS} shards of {W}x{H // SHARDS} on {dev}, "
+            f"{SHARDED_FRAMES} frames: captured frames against the eager "
+            f"sharded frames bit for bit {same}, max abs diff against the "
+            f"single-device frames {d_cap} (eager sharded {d_eager}; tol "
+            f"{SHARDED_TOL}); launches captured {cap['launches']}, eager "
+            f"sharded {eager['launches']}; plain on the card "
+            f"{cap['plain']}; keys {keys}; frame stats {r.frame_stats()}")
+        capacity = {_key(k): g.capacity for k, g in r._graphs.items()}
+        log(f"[{tag}] captured ms/frame (1-2 eager + capture, "
+            f"3-{SHARDED_FRAMES} replayed) "
+            f"{[round(t, 2) for t in cap['ms']]}, "
+            f"median {med['captured']:.2f}; capture ms "
+            f"{ {k: round(v, 1) for k, v in r.capture_ms.items()} }; "
+            f"{busy['captured']}; peak MiB {cap['peak']:.1f}; binning "
+            f"capacity {capacity}")
+        log(f"[{tag}] single-device captured ms/frame "
+            f"{[round(t, 2) for t in single['ms']]}, median "
+            f"{med['single']:.2f}; {busy['single']}; peak MiB "
+            f"{single['peak']:.1f}; eager sharded ms/frame "
+            f"{[round(t, 2) for t in eager['ms']]}; peak MiB "
+            f"{eager['peak']:.1f}; on {smi}: "
             + ("ok" if ok else f"FAILED (never launched: {missing})"))
         if not ok:
-            failures.append(f"sharded {name}")
-        out[f"sharded_{name}"] = launches
-    return out, failures
+            failures.append(tag)
+        out[f"sharded_{name}"] = cap["launches"]
+        del r, cap, eager, single
+    return out, failures + phase_sharded_cards(dev, data, singles)
+
+
+def phase_sharded_cards(dev, data=None, singles=None):
+    """With more than one card visible: H and R at 1920x1080 over
+    make_mesh() (one shard a card, as many cards as divide the rows),
+    SHARDED_FRAMES frames through the captured sharded renderer against
+    the single-device frames ``singles`` ({path: frames}; rendered here
+    where not given) within SHARDED_TOL; prints the cards used and the
+    ms/frame. Otherwise prints that the multi-card case did not run. →
+    failures."""
+    import torch
+
+    from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+    from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[sharded cards] the multi-card case did not run: {cards} "
+            f"CUDA device visible")
+        return []
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    if data is None:
+        data = _headline_scene(dev, HEADLINE["objects"])
+    n = max(k for k in range(2, cards + 1) if H % k == 0)
+    mesh = make_mesh(n)
+    failures = []
+    for name, settings in (("H", _hybrid_settings(W, H)),
+                           ("R", _raytraced_settings(W, H))):
+        tag = f"sharded {name} cards"
+        single = (singles or {}).get(name)
+        if single is None:
+            single = _sharded_run(f"{tag} single", lambda: Renderer
+                                  .for_scene(settings, data), settings,
+                                  False)["frames"]
+        run = _sharded_run(tag, lambda: ShardedRenderer.for_scene(
+            settings, data, mesh), settings, False)
+        r = run.pop("renderer")
+        diff = _max_diff(run["frames"], single)
+        ok = diff <= SHARDED_TOL and len(r._graphs) == 2
+        log(f"[{tag}] {n} shards of {W}x{H // n} over {n} cards ({cards} "
+            f"visible: {[torch.cuda.get_device_name(i) for i in range(n)]})"
+            f", {SHARDED_FRAMES} frames: max abs diff against the "
+            f"single-device frames {diff} (tol {SHARDED_TOL}); ms/frame "
+            f"(1-2 eager + capture, 3-{SHARDED_FRAMES} replayed) "
+            f"{[round(t, 2) for t in run['ms']]}, median "
+            f"{float(np.median(run['ms'][2:])):.2f}; capture ms "
+            f"{ {k: round(v, 1) for k, v in r.capture_ms.items()} }"
+            f"; peak MiB on {dev} {run['peak']:.1f}; on {nvidia_smi_line()}"
+            f": " + ("ok" if ok else "FAILED"))
+        if not ok:
+            failures.append(tag)
+        del r, run
+    return failures
 
 
 def _wide_rungs(dev, out_dir, runs):

@@ -53,6 +53,11 @@
 // version to the last ulp of exp and pow. variance_blur keeps the direct
 // design (a thread per pixel, 9 cached taps): it reaches 60% of its
 // bound and no render path launches it.
+#include <cstdint>
+#include <mutex>
+#include <set>
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
@@ -207,18 +212,29 @@ struct NormalWeights {
   }
 };
 
-// dynamic shared memory above the default 48 KB needs the attribute; it
-// is set at a kernel's first launch only, which runs eagerly (a frame's
-// first use), never inside a CUDA graph capture
+// dynamic shared memory above the default 48 KB needs the attribute,
+// which each device holds for each kernel; it is set at a kernel's first
+// launch on a device, which runs eagerly (a frame's first use there),
+// never inside a CUDA graph capture
 template <typename... P, typename... A>
 int launch(void (*kernel)(P...), dim3 grid, dim3 block, int smem,
            void* stream, A... args) {
-  static void (*configured)(P...) = nullptr;
-  if (smem > 48 * 1024 && configured != kernel) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 48 * 1024) {
+    static std::mutex lock;
+    static std::set<std::pair<std::uintptr_t, int>> configured;
+    int device = 0;
+    cudaError_t e = cudaGetDevice(&device);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = kernel;
+    const std::pair<std::uintptr_t, int> key(
+        reinterpret_cast<std::uintptr_t>(kernel), device);
+    const std::lock_guard<std::mutex> hold(lock);
+    if (!configured.count(key)) {
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      configured.insert(key);
+    }
   }
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   HR_RETURN_LAUNCH_STATUS();

@@ -64,8 +64,9 @@ BIN_SLACK = 1 << 16
 @dataclasses.dataclass
 class _Result:
     """What a frame function returns: the image, the frame stats, the
-    most tile entries a raster needed (None without a frame), and
-    (renderer buffer, new value) trees to commit."""
+    most tile entries a raster needed, one for each binning (a shard's;
+    None without a frame), and (renderer buffer, new value) trees to
+    commit."""
     out: Any
     stats: Any
     needed: Any
@@ -74,11 +75,13 @@ class _Result:
 
 @dataclasses.dataclass
 class _Graph:
-    frame: Any           # torch.cuda.CUDAGraph of the frame function
-    commit: Any          # its copy-back graph
-    result: _Result      # the frame graph's outputs, in its pool
-    launches: dict       # kernel counts one replay adds (native.counts)
-    capacity: Any        # the tile entries each raster may use
+    """A key's captured frame: ``replay()`` replays its frame graphs,
+    ``commit()`` its copy-back graphs."""
+    replay: Any
+    commit: Any
+    result: _Result      # the frame graphs' outputs, in their pools
+    capacity: Any        # the tile entries each binning may use (a tuple)
+    launches: dict = dataclasses.field(default_factory=dict)  # one replay's
     keep: tuple = ()     # inputs the graph reads that the key names by id
 
 
@@ -181,96 +184,33 @@ class Renderer:
 
     # --- graphs ----------------------------------------------------------
     def _run(self, key, body, keep=()):
-        """``body(binning)`` → _Result through key's graphs: eagerly (and
-        then captured) at the key's first use, replayed after it. Returns
-        the result's image (a new tensor)."""
-        graph = self._graphs.get(key)
-        if graph is not None and graph.capacity is not None \
-                and self.bin_capacity not in (None, graph.capacity):
-            del self._graphs[key]             # bin_capacity was changed
-            graph = None
-        if graph is not None:
-            return self._replay(key, body, graph)
-        res = body(Binning())
-        undo = []
-        pairs = _pairs(res.commits, undo)
-        if self.capture:
-            capacity = self.bin_capacity
-            if capacity is None and res.needed is not None:
-                capacity = _capacity_for(int(res.needed))
-            try:
-                self._capture(key, body, capacity, keep)
-            except BaseException:
-                # nothing committed: the renderer is left as it was
-                for fn in reversed(undo):
-                    fn()
-                raise
-        for dst, src in pairs:
-            dst.copy_(src)
+        """``body(binning)`` → _Result through key's graphs (run_key).
+        Returns the result's image (a new tensor)."""
+        def eager(undo):
+            res = body(Binning())
+            return res, _pairs(res.commits, undo)
+
+        res, replayed = run_key(self, key, eager,
+                                lambda capacity: self._capture(body,
+                                                               capacity),
+                                keep)
         if res.stats is not None:
             self._stats = res.stats
-        return res.out
+        return res.out.clone() if replayed and res.out is not None \
+            else res.out
 
-    def _capture(self, key, body, capacity, keep):
-        """Captures the key's frame and commit graphs into
-        ``self._graphs[key]``; the capture's launch counts are taken back,
-        and each replay adds them again."""
-        t0 = time.perf_counter()
-        before = native.counts()
+    def _capture(self, body, capacity):
+        """The frame graph of ``body`` and the graph that commits its
+        results."""
         frame = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(frame):
-                res = body(Binning(capacity))
-                pairs = _pairs(res.commits)
-        except Exception as e:
-            raise RuntimeError(f"{_key_name(key)}: the frame cannot be "
-                               f"captured into a CUDA graph: {e}") from e
-        finally:
-            after = native.counts()
-            native.set_counts(before)
+        with torch.cuda.graph(frame):
+            res = body(Binning(None if capacity is None else capacity[0]))
+            pairs = _pairs(res.commits)
         commit = torch.cuda.CUDAGraph()
         with torch.cuda.graph(commit):
             for dst, src in pairs:
                 dst.copy_(src)
-        launches = {n: (after[n][0] - before[n][0],
-                        after[n][1] - before[n][1]) for n in after}
-        self._graphs[key] = graph = _Graph(frame, commit, res, launches,
-                                           capacity, keep)
-        self.capture_ms[_key_name(key)] = ms = \
-            1e3 * (time.perf_counter() - t0)
-        _log().info("frame graph captured", key=_key_name(key),
-                    ms=round(ms, 1), bin_capacity=capacity)
-        return graph
-
-    def _replay(self, key, body, graph):
-        """Replays the key's frame; a frame whose tile lists overflowed
-        the capacity is captured again at one sized from what it needed
-        and replayed (with bin_capacity fixed, it raises), and only then
-        committed."""
-        needed = _replay_frame(graph)
-        if needed is not None and needed > graph.capacity:
-            if self.bin_capacity is not None:
-                raise RuntimeError(
-                    f"{_key_name(key)}: the frame's tile lists need "
-                    f"{needed} entries, above the fixed binning capacity "
-                    f"{graph.capacity}; nothing was committed. Set "
-                    f"Renderer.bin_capacity higher, or to None, and "
-                    f"render again.")
-            _log().warn("binning capacity overflowed; recapturing",
-                        key=_key_name(key), needed=needed,
-                        capacity=graph.capacity)
-            keep = graph.keep
-            del self._graphs[key], graph      # frees its pool
-            graph = self._capture(key, body, _capacity_for(needed), keep)
-            needed = _replay_frame(graph)
-            if needed > graph.capacity:
-                raise RuntimeError(f"{_key_name(key)}: the recaptured frame "
-                                   f"overflowed again ({needed} entries)")
-        graph.commit.replay()
-        res = graph.result
-        if res.stats is not None:
-            self._stats = res.stats
-        return None if res.out is None else res.out.clone()
+        return _Graph(frame.replay, commit.replay, res, capacity)
 
     # --- public API --------------------------------------------------------
     @property
@@ -314,7 +254,7 @@ class Renderer:
             out, history, stats = self._frame(
                 buf[0], self.scene, self.tracer, self._history_for(hv), hv,
                 binning)
-            return _Result(out, stats, binning.max_needed(self.device),
+            return _Result(out, stats, (binning.max_needed(self.device),),
                            [(self._history, history)])
 
         out = self._run(("frame", hv), body)
@@ -361,7 +301,7 @@ class Renderer:
                                           use_subset, update_lights)
             out, history, stats = self._frame(
                 buf[0], scene, tracer, self._history_for(hv), hv, binning)
-            return _Result(out, stats, binning.max_needed(self.device),
+            return _Result(out, stats, (binning.max_needed(self.device),),
                            [(self._history, history)]
                            + _scene_commits(self, scene, tracer))
 
@@ -461,13 +401,107 @@ def _capacity_for(needed: int) -> int:
     return BIN_HEADROOM * needed + BIN_SLACK
 
 
+def run_key(owner, key, eager, capture, keep=()):
+    """The captured-frame rule of ``Renderer`` and
+    ``parallel.sharded.ShardedRenderer`` (``owner``: its ``capture``,
+    ``bin_capacity``, ``_graphs`` and ``capture_ms``). At the key's first
+    use ``eager(undo)`` → (_Result, (destination, source) pairs) runs the
+    frame, filling ``undo``; with ``owner.capture`` the key is then
+    captured by ``capture(capacity)`` → _Graph, a capacity for each
+    binning (the result's ``needed``: one for each shard); on a failure
+    ``undo`` is taken back and the error raised. Only then are the pairs
+    copied. Later uses replay the graph (see _replay_key). → (the
+    result, whether it is the graph's)."""
+    graph = owner._graphs.get(key)
+    fixed = owner.bin_capacity
+    if graph is not None and graph.capacity is not None \
+            and fixed is not None and any(c != fixed for c in graph.capacity):
+        del owner._graphs[key]                # bin_capacity was changed
+        graph = None
+    if graph is not None:
+        return _replay_key(owner, key, graph, capture), True
+    undo = []
+    res, pairs = eager(undo)
+    if owner.capture:
+        capacity = None if res.needed is None else tuple(
+            _capacity_for(int(n)) if fixed is None else fixed
+            for n in res.needed)
+        try:
+            _capture_key(owner, key, capture, capacity, keep)
+        except BaseException:
+            # nothing committed: the owner is left as it was
+            for fn in reversed(undo):
+                fn()
+            raise
+    for dst, src in pairs:
+        dst.copy_(src)
+    return res, False
+
+
+def _capture_key(owner, key, capture, capacity, keep):
+    """``capture(capacity)`` into ``owner._graphs[key]``; the capture's
+    launch counts are taken back, and each replay adds them again."""
+    t0 = time.perf_counter()
+    before = native.counts()
+    try:
+        graph = capture(capacity)
+    except Exception as e:
+        raise RuntimeError(f"{_key_name(key)}: the frame cannot be "
+                           f"captured into a CUDA graph: {e}") from e
+    finally:
+        after = native.counts()
+        native.set_counts(before)
+    graph.launches = {n: (after[n][0] - before[n][0],
+                          after[n][1] - before[n][1]) for n in after}
+    graph.keep = keep
+    owner._graphs[key] = graph
+    owner.capture_ms[_key_name(key)] = ms = 1e3 * (time.perf_counter() - t0)
+    _log().info("frame graph captured", key=_key_name(key), ms=round(ms, 1),
+                bin_capacity=capacity)
+    return graph
+
+
+def _replay_key(owner, key, graph, capture):
+    """Replays the key's frame; a frame whose tile lists overflowed a
+    capacity is captured again, every binning at a capacity sized from
+    what it needed where it overflowed, and replayed (with bin_capacity
+    fixed, it raises), and only then committed."""
+    needed = _replay_frame(graph)
+    if needed is not None and _overflowed(needed, graph.capacity):
+        if owner.bin_capacity is not None:
+            raise RuntimeError(
+                f"{_key_name(key)}: the frame's tile lists need {needed} "
+                f"entries, above the fixed binning capacity "
+                f"{owner.bin_capacity}; nothing was committed. Set "
+                f"{type(owner).__name__}.bin_capacity higher, or to None, "
+                f"and render again.")
+        _log().warn("binning capacity overflowed; recapturing",
+                    key=_key_name(key), needed=needed,
+                    capacity=graph.capacity)
+        keep, capacity = graph.keep, tuple(
+            _capacity_for(n) if n > c else c
+            for n, c in zip(needed, graph.capacity))
+        del owner._graphs[key], graph         # frees its pools
+        graph = _capture_key(owner, key, capture, capacity, keep)
+        needed = _replay_frame(graph)
+        if _overflowed(needed, graph.capacity):
+            raise RuntimeError(f"{_key_name(key)}: the recaptured frame "
+                               f"overflowed again ({needed} entries)")
+    graph.commit()
+    return graph.result
+
+
+def _overflowed(needed, capacity) -> bool:
+    return any(n > c for n, c in zip(needed, capacity))
+
+
 def _replay_frame(graph):
-    """Replays a key's frame graph → the most tile entries a raster
+    """Replays a key's frame graphs → the most tile entries each binning
     needed (None for a key without a frame); waits for the frame."""
-    graph.frame.replay()
+    graph.replay()
     native.add_counts(graph.launches)
     needed = graph.result.needed
-    return None if needed is None else int(needed)
+    return None if needed is None else tuple(int(n) for n in needed)
 
 
 def _scene_commits(renderer, scene, tracer):

@@ -914,7 +914,7 @@ def test_binning_overflow_raises(dev):
     assert all(torch.equal(before[k], v) for k, v in r.state.history.items())
     r.bin_capacity = None
     assert torch.equal(r.render(states[2]), eager.render(states[2]))
-    assert r._graphs[("frame", True)].capacity > 16
+    assert r._graphs[("frame", True)].capacity[0] > 16
     for k, v in eager.state.history.items():
         assert torch.equal(r.state.history[k], v), k
 
@@ -939,7 +939,7 @@ def test_binning_overflow_recaptures(dev, monkeypatch):
         r = renderer_mod.Renderer.for_scene(s, data, capture=capture)
         imgs.append([r.render(cs) for cs in states])
         if capture:
-            assert r._graphs[("frame", True)].capacity == 2 * 48
+            assert r._graphs[("frame", True)].capacity == (2 * 48,)
     for i, (a, b) in enumerate(zip(*imgs)):
         assert torch.equal(a, b), i
 
@@ -1267,3 +1267,160 @@ def test_fused_shadow_frame_on_card(dev):
         launches[fuse] = native.KERNELS["trace_any"].launches
     assert all(torch.equal(a, b) for a, b in zip(out[False], out[True]))
     assert (launches[False], launches[True]) == (4, 2)
+
+
+# --- the captured sharded frame ----------------------------------------------
+
+def _sharded_frames(dev, case, make, frames=4, cams=None):
+    """``frames`` frames of a _capture_case case through ``make(settings,
+    data)``'s renderer (or the camera states ``cams``) → (images, launch
+    counts, the renderer)."""
+    s, scene, cam_kw, taa, _ = _capture_case(case)
+    r = make(s, scene().build(dev))
+    if cams is None:
+        cam = OrbitCamera(width=64, height=64, **cam_kw)
+        cams = []
+        for _ in range(frames):
+            cams.append(cam.step(taa_enabled=taa))
+            cam.orbit(0.02, 0.0)
+    native.reset_counts()
+    imgs = [r.render(cs) for cs in cams]
+    return imgs, native.counts(), r
+
+
+def _sharded(dev, n=4, **kw):
+    from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+    from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
+
+    mesh = make_mesh(devices=[dev] * n)
+    return lambda s, data: ShardedRenderer.for_scene(s, data, mesh, **kw)
+
+
+def _single(s, data):
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    return Renderer.for_scene(s, data)
+
+
+@pytest.mark.parametrize("case,shard_rays", [
+    ("hybrid", True), ("hybrid", False), ("full_graph", True),
+    ("full_graph", False), ("forward_taa", True), ("raytraced", True),
+    ("raytraced", False)])
+def test_captured_sharded_frame_equals_eager(dev, case, shard_rays):
+    """H, F, T and R at 64x64 on 4 shards of the one card, and with
+    shard_rays off: four frames through the captured sharded renderer
+    (frames 1 and 2 run eagerly and capture their keys' graphs, 3 and 4
+    replay) equal the eager sharded frames (capture=False) and the
+    single-device frames bit for bit, with the same kernel launches as
+    the eager sharded frames, counted over the replays."""
+    captured, counts_c, r = _sharded_frames(
+        dev, case, _sharded(dev, shard_rays=shard_rays))
+    eager, counts_e, _ = _sharded_frames(
+        dev, case, _sharded(dev, shard_rays=shard_rays, capture=False))
+    single, _, _ = _sharded_frames(dev, case, _single)
+    assert sorted(r._graphs) == [("frame", False), ("frame", True)]
+    for i, (a, b, c) in enumerate(zip(captured, eager, single)):
+        assert torch.equal(a, b), (case, i)
+        assert torch.equal(a, c), (case, i, (a - c).abs().max().item())
+    assert counts_c == counts_e
+    assert not any(plain for _, plain in counts_c.values())
+
+
+def test_sharded_binning_overflow_recaptures(dev, monkeypatch):
+    """The cube at 64x64 on 4 shards with the slack set to 1: frames 1-2
+    far, 3-4 near, so the shards the cube now covers need more tile
+    entries than their capacities: the key is captured again, each shard
+    that overflowed at a larger capacity and the others at theirs, and
+    every frame equals the eager sharded frame bit for bit."""
+    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+
+    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 1)
+    s, scene, cam_kw, _, _ = _capture_case("dynamic")
+    far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
+                      yaw=0.0, focal_point=(0, 2.5, 0))
+    near = OrbitCamera(width=64, height=64, **cam_kw)
+    cams = [far.step(), far.step(), near.step(), near.step()]
+    r = _sharded(dev)(s, scene().build(dev))
+    captured = [r.render(cs) for cs in cams[:2]]
+    before = r._graphs[("frame", True)].capacity
+    captured += [r.render(cs) for cs in cams[2:]]
+    after = r._graphs[("frame", True)].capacity
+    eager, _, _ = _sharded_frames(dev, "dynamic", _sharded(dev,
+                                                           capture=False),
+                                  cams=cams)
+    for i, (a, b) in enumerate(zip(captured, eager)):
+        assert torch.equal(a, b), i
+    assert any(x > y for x, y in zip(after, before)), (before, after)
+    assert all(x >= y for x, y in zip(after, before)), (before, after)
+
+
+def test_sharded_fixed_capacity_raises(dev):
+    """A fixed binning capacity too small for the sharded frame raises at
+    the first replay, before its commit: the frame count and every
+    shard's history as they were. With the capacity no longer fixed the
+    same view renders, equal to the eager sharded frame."""
+    s, scene, cam_kw, _, _ = _capture_case("hybrid")
+    data = scene().build(dev)
+    r = _sharded(dev)(s, data)
+    eager = _sharded(dev, capture=False)(s, data)
+    r.bin_capacity = 16
+    cam = OrbitCamera(width=64, height=64, **cam_kw)
+    states = [cam.step() for _ in range(3)]
+    for cs in states[:2]:
+        r.render(cs)
+        eager.render(cs)
+    before = [{k: v.clone() for k, v in h.items()} for h in r.histories]
+    with pytest.raises(RuntimeError, match="binning capacity"):
+        r.render(states[2])
+    assert r.frame_count == 2
+    for h, b in zip(r.histories, before):
+        assert h.keys() == b.keys()
+        assert all(torch.equal(b[k], v) for k, v in h.items())
+    r.bin_capacity = None
+    assert torch.equal(r.render(states[2]), eager.render(states[2]))
+
+
+def test_sharded_capture_failure_raises(dev):
+    """A sharded frame that reads a device value on the host cannot be
+    captured: the renderer raises after the key's eager first use, with
+    no graph and no history kept, and never renders it eagerly
+    instead."""
+    s, scene, cam_kw, _, _ = _capture_case("forward_taa")
+    r = _sharded(dev)(s, scene().build(dev))
+    post = r.path.graph.passes[-1]
+    fn = post.fn
+
+    def syncing(reg, ctx):
+        out = fn(reg, ctx)
+        float(out["RENDER_OUTPUT"].sum())    # a host sync
+        return out
+
+    post.fn = syncing
+    cam = OrbitCamera(width=64, height=64, **cam_kw)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        r.render(cam.step(taa_enabled=True))
+    assert not r._graphs and r.frame_count == 0
+    assert all(h == {} for h in r.histories)
+
+
+def test_sharded_frame_over_separate_cards(dev):
+    """make_mesh() over the visible cards (one shard a card, as many as
+    divide 64 rows): H and R, four frames each through the captured
+    sharded renderer, equal the single-device frames bit for bit. Skips
+    with fewer than two cards."""
+    from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+    from hybridrenderer_tpu_torch.parallel.sharded import ShardedRenderer
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(max(k for k in range(2, count + 1) if 64 % k == 0))
+    assert len(mesh.distinct) == len(mesh)
+    for case in ("hybrid", "raytraced"):
+        sharded, _, r = _sharded_frames(
+            dev, case, lambda s, data: ShardedRenderer.for_scene(s, data,
+                                                                 mesh))
+        single, _, _ = _sharded_frames(dev, case, _single)
+        assert len(r._graphs) == 2
+        for i, (a, b) in enumerate(zip(sharded, single)):
+            assert a.device == dev and torch.equal(a, b), (case, i)

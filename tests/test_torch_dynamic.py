@@ -22,7 +22,8 @@ from hybridrenderer_tpu_torch.scene import scene as port_scenes
 
 from .test_torch_slice import (CASES, SVGF_FLAGS, _edge_tri_ids,
                                reference_renderer)
-from .torch_parity import clear_reference_knobs, off_edge_errors
+from .torch_parity import (clear_reference_knobs, off_edge_errors,
+                           one_torch_thread)
 
 MAPS = ("vertex_instance", "local_lo", "local_hi", "instance_entity",
         "cdf_tri", "cdf_seg_start")
@@ -31,6 +32,8 @@ MAPS = ("vertex_instance", "local_lo", "local_hi", "instance_entity",
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _translate(x, y, z):

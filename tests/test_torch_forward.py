@@ -38,7 +38,8 @@ from hybridrenderer_tpu_torch.scene import scene as port_scenes
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .test_torch_slice import CUBE_CAM, _edge_tri_ids
-from .torch_parity import clear_reference_knobs, flatten, off_edge_errors
+from .torch_parity import (clear_reference_knobs, flatten, off_edge_errors,
+                           one_torch_thread)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "cube_forward_64.png")
@@ -47,6 +48,8 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _t(a):

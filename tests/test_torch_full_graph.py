@@ -34,7 +34,8 @@ from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .test_torch_slice import (CORNELL_CAM, CUBE_CAM, _edge_tri_ids,
                                _settings, reference_renderer)
-from .torch_parity import clear_reference_knobs, flatten, off_edge_errors
+from .torch_parity import (clear_reference_knobs, flatten, off_edge_errors,
+                           one_torch_thread)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "cornell_full_128.png")
@@ -51,6 +52,8 @@ GOLDEN_OFF_EDGE_MAX, GOLDEN_P99_MAX = 131, 33.0
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def check_full_graph(case):

@@ -38,7 +38,7 @@ from .test_torch_full_graph import FULL, REF_FULL, check_full_graph
 from .test_torch_slice import (CASES, _edge_tri_ids, _settings,
                                reference_renderer)
 from .torch_parity import (clear_reference_knobs, flatten,
-                           record_secondary_hits)
+                           one_torch_thread, record_secondary_hits)
 
 REF_NO_SVGF = ~(RefFlags.SVGF | RefFlags.SVGF_TEMPORAL
                 | RefFlags.SVGF_SPATIAL)
@@ -49,6 +49,8 @@ NO_SVGF = ~(RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 # the share of pixels off the primary edges whose secondary hit may

@@ -28,7 +28,7 @@ from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .test_torch_packet_records import tile_order
 from .test_torch_trace import _rays
-from .torch_parity import clear_reference_knobs, flatten
+from .torch_parity import clear_reference_knobs, flatten, one_torch_thread
 
 SCENES = {"cube": (ref_scenes.cube_scene,
                    dict(distance=7.0, pitch=0.45, yaw=0.6,
@@ -40,6 +40,8 @@ SCENES = {"cube": (ref_scenes.cube_scene,
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

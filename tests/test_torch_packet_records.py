@@ -18,12 +18,18 @@ from hybridrenderer_tpu_torch.ops import composition, trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene import scene as scenes
 
-from .torch_parity import chain_bvh
+from .torch_parity import chain_bvh, one_torch_thread
 
 CAMS = {"cube": dict(distance=7.0, pitch=0.45, yaw=0.6,
                      focal_point=(0, 0.7, 0)),
         "cornell": dict(distance=13.0, focal_point=(0, 2.5, 0))}
 PACKET = trace_cuda.PACKET
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _bits(x):

@@ -29,7 +29,7 @@ from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
 from .test_torch_slice import CORNELL_CAM, CUBE_CAM
 from .test_torch_trace import _rays
-from .torch_parity import clear_reference_knobs, flatten
+from .torch_parity import clear_reference_knobs, flatten, one_torch_thread
 
 STRESS_CAM = dict(distance=18.0, pitch=0.5, yaw=0.8, focal_point=(0, 2.0, 0))
 FULL = RenderFlags.default_hybrid() | RenderFlags.REFLECTION | RenderFlags.GI
@@ -38,6 +38,8 @@ FULL = RenderFlags.default_hybrid() | RenderFlags.REFLECTION | RenderFlags.GI
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def frame_radiance_rays(data, size, cam_kw, flags=FULL):

@@ -22,7 +22,7 @@ from hybridrenderer_tpu_torch.ops import gbuffer, raster, raster_cuda
 from hybridrenderer_tpu_torch.ops.image import tri_boundary_mask
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import clear_reference_knobs, flatten
+from .torch_parity import clear_reference_knobs, flatten, one_torch_thread
 
 _CAM_FIELDS = ("view", "proj", "view_inverse", "proj_inverse",
                "view_proj_inverse", "prev_view", "prev_proj", "position",
@@ -32,6 +32,8 @@ _CAM_FIELDS = ("view", "proj", "view_inverse", "proj_inverse",
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _port_cam(ref_cam):

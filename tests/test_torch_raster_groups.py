@@ -13,9 +13,15 @@ import torch
 
 from hybridrenderer_tpu_torch.ops import raster, raster_cuda
 
-from .torch_parity import heavy_tile_bins
+from .torch_parity import heavy_tile_bins, one_torch_thread
 
 TILE, GROUP = raster_cuda.TILE, raster_cuda.GROUP
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def replay(rec, tile_start, entry_cand, width, height):

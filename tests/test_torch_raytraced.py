@@ -41,7 +41,8 @@ from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 from .test_demo_passes import _setup as demo_setup
 from .test_torch_raster import _port_cam
 from .test_torch_slice import CUBE_CAM, _edge_tri_ids
-from .torch_parity import clear_reference_knobs, flatten, off_edge_errors
+from .torch_parity import (clear_reference_knobs, flatten, off_edge_errors,
+                           one_torch_thread)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "cube_raytraced_128.png")
@@ -60,6 +61,8 @@ RT_CAM = dict(distance=14.0, pitch=0.25, yaw=0.0, focal_point=(0, 0.7, 0))
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _settings(size, **kw):

@@ -11,10 +11,16 @@ from hybridrenderer_tpu.scene import scene as ref_scenes
 from hybridrenderer_tpu_torch.ops import sampling as port
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import flatten
+from .torch_parity import flatten, one_torch_thread
 
 RNG = np.random.default_rng(1234)
 U32 = RNG.integers(0, 2**32, size=(2, 4096), dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _t(a):

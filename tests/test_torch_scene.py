@@ -16,7 +16,7 @@ from hybridrenderer_tpu_torch.ops import bvh as port_bvh
 from hybridrenderer_tpu_torch.scene import scene as port_scenes
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import flatten
+from .torch_parity import flatten, one_torch_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {
@@ -27,6 +27,12 @@ SCENES = {
 }
 # joins computed with einsum: XLA and PyTorch may round them apart
 DERIVED = ("attr_rows", "raster_rows")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _fields(obj, prefix=""):

@@ -39,7 +39,8 @@ from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene import scene as port_scenes
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import clear_reference_knobs, flatten, off_edge_errors
+from .torch_parity import (clear_reference_knobs, flatten, off_edge_errors,
+                           one_torch_thread)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "cube_hybrid_128.png")
@@ -58,6 +59,8 @@ SVGF_FLAGS = (RefFlags.SVGF | RefFlags.SVGF_TEMPORAL | RefFlags.SVGF_SPATIAL)
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _settings(size, **kw):

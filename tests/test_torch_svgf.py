@@ -14,7 +14,7 @@ from hybridrenderer_tpu.ops import stencil_pallas
 from hybridrenderer_tpu.ops import svgf as ref_svgf
 from hybridrenderer_tpu_torch.ops import stencil_cuda, svgf
 
-from .torch_parity import clear_reference_knobs
+from .torch_parity import clear_reference_knobs, one_torch_thread
 
 PHI = (4.0, 128.0, 0.02, 0.0)
 PHI_F32 = tuple(float(x) for x in np.asarray(PHI, np.float32))
@@ -23,6 +23,8 @@ PHI_F32 = tuple(float(x) for x in np.asarray(PHI, np.float32))
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
     clear_reference_knobs(monkeypatch)
+    with one_torch_thread():
+        yield
 
 
 def _t(a):

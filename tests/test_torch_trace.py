@@ -17,7 +17,13 @@ from hybridrenderer_tpu_torch.ops import trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import flatten
+from .torch_parity import flatten, one_torch_thread
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _rays(n, seed):

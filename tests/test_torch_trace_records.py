@@ -19,7 +19,13 @@ from hybridrenderer_tpu_torch.ops import bvh, trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene.convert import scene_from_numpy
 
-from .torch_parity import chain_bvh, flatten
+from .torch_parity import chain_bvh, flatten, one_torch_thread
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _stress():

@@ -21,10 +21,18 @@ from hybridrenderer_tpu_torch.ops import bvh, bvh_wide, trace, trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene import scene as port_scenes
 
+from .torch_parity import one_torch_thread
+
 RECORDS = ("nodes_flat", "leaves_flat", "meta", "slot_child_bin",
            "cluster_tri")
 SCENES = {"cube": ref_scenes.cube_scene, "cornell": ref_scenes.cornell_scene,
           "stress25": lambda: ref_scenes.stress_scene(num_objects=25)}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _soup(name):

@@ -22,9 +22,17 @@ import torch
 from hybridrenderer_tpu_torch.ops import bvh, bvh_wide, trace_cuda
 from hybridrenderer_tpu_torch.scene import scene as scenes
 
+from .torch_parity import one_torch_thread
+
 SCENES = {"cube": scenes.cube_scene, "cornell": scenes.cornell_scene,
           "stress25": lambda: scenes.stress_scene(num_objects=25)}
 TMIN = 0.01
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 @functools.cache
