@@ -4,6 +4,9 @@
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --find-big-scene   # only the search for
                                              # BIG_OBJECTS
+    python3 chip_smoke.py --k5-against DIR   # only K5 against the K5 of
+                                             # the tree in DIR (e.g. the
+                                             # parent commit, unpacked)
 
 Phases (a failed kernel check is reported and the renders still run,
 so one run shows every failure; any failure makes the script exit
@@ -20,7 +23,11 @@ non-zero without printing a result):
    and its time on the heaviest tile alone), with the tolerance stated,
    timed with CUDA events beside the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time (library); K1's bf16 mode (raster_attr_bits=16) beside
+   call's time (library), the kernels under 0.2 ms (K1 f32, vis-only and
+   bf16, K1v, K3, K5, variance_blur) and K5's library call as device
+   time (device_time: graphs of calls over input sets no call finds in
+   L2) beside their eager calls' time, K5 at the sharded frame's shard
+   shape too; K1's bf16 mode (raster_attr_bits=16) beside
    its f32 mode; the bilinear texture sampler (plain PyTorch, no kernel)
    on one textured 1080p G-buffer's lookups against the CPU, with its
    time; and K2 / K2c over the bf16 triangles of a scene above the
@@ -262,6 +269,31 @@ def graph_time(fn, reps):
     return cuda_time(graph.replay, reps)
 
 
+# calls a graph of device_time replays, and the input sets they cycle over
+GRAPH_CALLS = 10
+INPUT_SETS = 4
+
+
+def copies(args, n=INPUT_SETS):
+    """``n`` input sets: ``args``, then copies of its tensors in memory of
+    their own (other arguments shared)."""
+    import torch
+
+    return [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args) for _ in range(n - 1)]
+
+
+def device_time(fn, sets, calls=GRAPH_CALLS, reps=20):
+    """Device ms per call of ``fn(*s)``: ``calls`` calls cycling over the
+    input ``sets``, their outputs all kept, captured into one CUDA graph
+    and replayed (graph_time), over ``calls``. The sets lie in memory of
+    their own, so a call whose sets and outputs together pass the 50 MB
+    L2 finds its inputs evicted by the calls between, as a frame's kernel
+    finds its inputs; the host's wrapper calls do not pace it."""
+    return graph_time(lambda: [fn(*sets[i % len(sets)])
+                               for i in range(calls)], reps) / calls
+
+
 # ---------------------------------------------------------------------------
 # phase 1-2
 # ---------------------------------------------------------------------------
@@ -413,14 +445,16 @@ def check_raster(dev):
     err = max(err, _raster_exact((rec_o, ts_o, ec_o, data.raster_rows, Wo,
                                   Ho))[0])
     most_o = int((ts_o[1:] - ts_o[:-1]).max())
-    ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
+    ms = device_time(rc.raster_tiles, copies(args))
+    eager_ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
     plain_ms = cuda_time(lambda: rc.raster_tiles_plain(*args), 2)
     # ~20 FLOP per (candidate, pixel) coverage test, every pixel of the
     # 16x16 tile of every tile entry (csrc/raster.cu)
     b = bound(nbytes(rec, ts, ec, data.raster_rows, vk.tri_id, vk.depth,
                      vk.bary1, vk.bary2, ak),
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=b,
+    return dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound=b,
                 shape=f"{W}x{H}, {ec.shape[0]} tile entries, "
                       f"{rec.shape[0]} candidates; exact too at {Wo}x{Ho} "
                       f"({ec_o.shape[0]} tile entries, up to {most_o} in a "
@@ -450,15 +484,17 @@ def check_raster_bf16(dev):
     if not same:
         raise AssertionError("K1's bf16 mode disagrees with its plain "
                              "version at 1920x1080")
-    ms = cuda_time(lambda: rc.raster_tiles(*args, attr_bits=16), 20)
-    ms32 = cuda_time(lambda: rc.raster_tiles(*args), 20)
+    sets = copies(args)
+    ms = device_time(lambda *a: rc.raster_tiles(*a, attr_bits=16), sets)
+    ms32 = device_time(rc.raster_tiles, sets)
+    eager_ms = cuda_time(lambda: rc.raster_tiles(*args, attr_bits=16), 20)
     plain_ms = cuda_time(lambda: rc.raster_tiles_bf16_plain(*args), 2)
     b = bound(nbytes(rec, ts, ec, data.raster_rows, vk.tri_id, vk.depth,
                      vk.bary1, vk.bary2, ak),
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
     log(f"[kernel] raster_tiles_bf16: {ms:.4f} ms against the f32 mode's "
-        f"{ms32:.4f} ms in the same call")
-    return dict(err=0.0, ms=ms, plain_ms=plain_ms, bound=b,
+        f"{ms32:.4f} ms in the same call (device time)")
+    return dict(err=0.0, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound=b,
                 shape=f"{W}x{H}, {ec.shape[0]} tile entries, "
                       f"{rec.shape[0]} candidates, bf16 attributes; the f32 "
                       f"mode {ms32:.4f} ms in the same call",
@@ -1024,25 +1060,30 @@ def check_raster_vis(frame):
             f"{int((counts > rc.GROUP).sum())} over {rc.GROUP}, "
             f"{int((counts > 1024).sum())} over 1024")
     ties = (k1.tri_id != k.tri_id).float().mean().item()
-    ms = cuda_time(lambda: rc.raster_tiles(*args, keyed=True), 20)
-    k1_ms = cuda_time(lambda: rc.raster_tiles(*args), 20)
+    sets = copies(args)
+    ms = device_time(lambda *a: rc.raster_tiles(*a, keyed=True), sets)
+    k1_ms = device_time(rc.raster_tiles, sets)
+    eager_ms = cuda_time(lambda: rc.raster_tiles(*args, keyed=True), 20)
+    k1_eager = cuda_time(lambda: rc.raster_tiles(*args), 20)
     heavy_ms = cuda_time(lambda: rc.raster_tiles(*heavy_args, keyed=True),
                          20)
     heavy_k1_ms = cuda_time(lambda: rc.raster_tiles(*heavy_args), 20)
     log(f"[kernel] raster_vis bins: {hist}; the heaviest tile alone K1v "
-        f"{heavy_ms:.4f} ms, K1 vis-only {heavy_k1_ms:.4f} ms; all tiles "
-        f"K1v {ms:.4f} ms, K1 vis-only {k1_ms:.4f} ms")
+        f"{heavy_ms:.4f} ms, K1 vis-only {heavy_k1_ms:.4f} ms (eager "
+        f"calls); all tiles K1v {ms:.4f} ms, K1 vis-only {k1_ms:.4f} ms "
+        f"(device time; eager calls {eager_ms:.4f}, {k1_eager:.4f})")
     # K1's ~20 FLOP per (candidate, pixel) coverage test and key; the
     # same bound holds K1 vis-only on these bins
     b = bound(nbytes(rec, ts, ec, k.tri_id, k.depth, k.bary1, k.bary2),
               20.0 * ec.shape[0] * rc.TILE * rc.TILE)
-    return dict(err=err, ms=ms, plain_ms=cuda_time(
+    return dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=cuda_time(
                     lambda: rc.raster_vis_plain(rec, ts, ec, W, H), 2),
                 bound=b,
                 shape=f"{W}x{H} depth prepass, {ec.shape[0]} tile entries, "
                       f"{rec.shape[0]} candidates ({hist}); the heaviest "
-                      f"tile alone {heavy_ms:.4f} ms; K1 vis-only on the "
-                      f"same bins {k1_ms:.4f} ms (bound {b[0]:.4f} ms too; "
+                      f"tile alone {heavy_ms:.4f} ms (eager); K1 vis-only on "
+                      f"the same bins {k1_ms:.4f} ms, eager {k1_eager:.4f} "
+                      f"ms (bound {b[0]:.4f} ms too; "
                       f"heaviest tile alone {heavy_k1_ms:.4f} ms), winner "
                       f"differs from K1's on {ties:.2e} of pixels (2^-17 "
                       f"near-ties); both exact too at {Wo}x{Ho} "
@@ -1423,11 +1464,12 @@ def check_temporal(dev):
             f"{k[y, x].tolist()} plain {p[y, x].tolist()} motion "
             f"{mp[y, x].tolist()} oid {oid[y, x].item()}")
     valid = (p[..., 7] > 0.01).float().mean().item()
-    ms = cuda_time(lambda: temporal_cuda.temporal_fetch(*args), 50)
+    ms = device_time(temporal_cuda.temporal_fetch, copies(args))
+    eager_ms = cuda_time(lambda: temporal_cuda.temporal_fetch(*args), 50)
     plain_ms = cuda_time(lambda: temporal_cuda.temporal_fetch_plain(*args), 5)
     check_reproject(dev, H, W, hist_sig, hist_mom, prev_depth, oid, nrm, mp)
     # ~25 FLOP per tap (validation + 7 weighted sums), 4 taps a pixel
-    return dict(err=err, ms=ms, plain_ms=plain_ms,
+    return dict(err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound=bound(nbytes(*args, k), 110.0 * H * W),
                 shape=f"{W}x{H}, bf16 history, {valid:.3f} valid",
                 tol="1e-5 abs")
@@ -1455,15 +1497,16 @@ def check_reproject(dev, H, W, hist_sig, hist_mom, prev_depth, oid, nrm, mp):
         raise AssertionError(f"K3s max err {err}")
 
 
-def check_window_sample(dev):
-    """K5 on the TAA history fetch of the forward + TAA frame at
-    1920x1080 on the headline camera (the third frame's fetch: a
-    three-plane f32 history and its reprojected uv), against its plain
-    version and against grid_sample, which computes the same function
-    (bilinear, border padding, align_corners=False, uv * 2 - 1)."""
-    import torch
-    import torch.nn.functional as F
+# frames of the forward + TAA run whose TAA history fetches K5's timings
+# cycle over (frames 3-6), and the sets of device_time: each fetch twice
+K5_FRAMES = 4
+K5_SETS = 2 * K5_FRAMES
 
+
+def _window_sample_sets(dev):
+    """The TAA history fetches of frames 3-6 of the forward + TAA frame at
+    1920x1080 on the headline camera, orbiting (a three-plane f32 history
+    and its reprojected uv each), each copied into memory of its own."""
     from hybridrenderer_tpu_torch.core.camera import OrbitCamera
     from hybridrenderer_tpu_torch.ops import taa, temporal_cuda
     from hybridrenderer_tpu_torch.runtime.renderer import Renderer
@@ -1474,41 +1517,177 @@ def check_window_sample(dev):
     calls = []
 
     def recording(image, uv):
-        calls.append((image, uv))
+        # the history buffer is updated in place: keep this frame's copy
+        calls.append((image.clone(), uv.clone()))
         return temporal_cuda.window_sample(image, uv)
 
     taa.window_sample = recording
     cam = OrbitCamera(width=W, height=H, **HEADLINE_CAM)
     try:
-        for _ in range(3):
+        for _ in range(2 + K5_FRAMES):
             r.render(cam.step(taa_enabled=True))
             cam.orbit(0.01, 0.0)
     finally:
         taa.window_sample = temporal_cuda.window_sample
-    image, uv = calls[-1]
-    k = temporal_cuda.window_sample(image, uv)
-    p = temporal_cuda.window_sample_plain(image, uv)
-    err = (k - p).abs().max().item()
+    return calls[-K5_FRAMES:]
+
+
+def _shard_fetch(image, uv):
+    """A fetch at the sharded frame's shard shape: the whole 1080-row
+    history and the uv of shard 1's 270 rows, as parallel/sharded.py
+    launches K5 for each shard."""
+    h = HEADLINE["height"] // SHARDS
+    return image, uv[h:2 * h].contiguous()
+
+
+def _grid_sample_args(image, uv):
+    """grid_sample's inputs for K5's function: the image as (1, P, H, W)
+    planes and the uv as (1, ..., 2) in [-1, 1]."""
+    return (image.permute(2, 0, 1).unsqueeze(0).contiguous(),
+            (uv * 2.0 - 1.0).unsqueeze(0))
+
+
+def _grid_sample(planes, grid):
+    """One PyTorch call computing K5's function (bilinear, border padding,
+    align_corners=False); the port never calls it."""
+    import torch.nn.functional as F
+
+    return F.grid_sample(planes, grid, mode="bilinear", padding_mode="border",
+                         align_corners=False)
+
+
+def _k5_times(fn, fetches):
+    """(device ms, eager ms) of ``fn`` on ``fetches``: device_time over
+    K5_SETS sets in memory of their own, the eager calls on the first."""
+    sets = fetches + [copies(f, 2)[1] for f in fetches]
+    return (device_time(fn, sets),
+            cuda_time(lambda: fn(*fetches[0]), 50))
+
+
+def _k5_bound(image, uv, out):
+    """K5's bound on one fetch: uv read and output written once, and of
+    the image the rows its taps reach (all of them at 1080p; a shard's
+    footprints reach about a quarter); 4 taps: ~10 FLOP of coordinates,
+    6 per plane."""
+    import torch
+
+    H, W, P = image.shape
+    y0 = torch.floor(uv[..., 1] * H - 0.5)
+    rows = torch.unique(torch.cat([torch.clamp(y0, 0, H - 1),
+                                   torch.clamp(y0 + 1.0, 0, H - 1)]))
+    return bound(rows.numel() * W * P * 4 + nbytes(uv, out),
+                 (10.0 + 6.0 * P) * uv.numel() // 2)
+
+
+def check_window_sample(dev):
+    """K5 on the TAA history fetches of the forward + TAA frame at
+    1920x1080 on the headline camera (frames 3-6: a three-plane f32
+    history and its reprojected uv each) and at the sharded frame's shard
+    shape (the same histories, 270 rows of uv), against its plain version
+    and against grid_sample, which computes the same function (bilinear,
+    border padding, align_corners=False, uv * 2 - 1). Times: device time,
+    over sets no call finds in L2 (device_time), beside the eager calls'."""
+    from hybridrenderer_tpu_torch.ops import temporal_cuda
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    fetches = _window_sample_sets(dev)
+    shards = [_shard_fetch(*f) for f in fetches]
+    err = 0.0
+    for image, uv in fetches + shards:
+        k = temporal_cuda.window_sample(image, uv)
+        p = temporal_cuda.window_sample_plain(image, uv)
+        err = max(err, (k - p).abs().max().item())
     if err > 0.0:
         raise AssertionError(f"K5 max err {err}")
-    grid = (uv * 2.0 - 1.0).unsqueeze(0)
-    planes = image.permute(2, 0, 1).unsqueeze(0).contiguous()
-    lib = lambda: F.grid_sample(planes, grid, mode="bilinear",
-                                padding_mode="border", align_corners=False)
-    lib_err = (lib()[0].permute(1, 2, 0) - k).abs().max().item()
+    image, uv = fetches[-1]
+    k = temporal_cuda.window_sample(image, uv)
+    lib_err = (_grid_sample(*_grid_sample_args(image, uv))[0].permute(
+        1, 2, 0) - k).abs().max().item()
     on = ((uv >= 0.0) & (uv <= 1.0)).all(-1).float().mean().item()
     P = image.shape[-1]
-    return dict(err=err, ms=cuda_time(lambda: temporal_cuda.window_sample(
-                    image, uv), 50),
+    ms, eager_ms = _k5_times(temporal_cuda.window_sample, fetches)
+    lib_ms, lib_eager = _k5_times(
+        _grid_sample, [_grid_sample_args(*f) for f in fetches])
+    s_ms, s_eager = _k5_times(temporal_cuda.window_sample, shards)
+    s_lib, s_lib_eager = _k5_times(
+        _grid_sample, [_grid_sample_args(*f) for f in shards])
+    s_bound = _k5_bound(*shards[-1], temporal_cuda.window_sample(*shards[-1]))
+    h = shards[-1][1].shape[0]
+    log(f"[kernel] window_sample at the shard shape ({W}x{h} uv over the "
+        f"{W}x{H} history): {s_ms:.4f} ms device time (eager calls "
+        f"{s_eager:.4f}), grid_sample {s_lib:.4f} (eager {s_lib_eager:.4f}), "
+        f"bound {s_bound[0]:.4f} ms ({s_bound[1]}); on {nvidia_smi_line()}")
+    return dict(err=err, ms=ms, eager_ms=eager_ms,
                 plain_ms=cuda_time(lambda: temporal_cuda.window_sample_plain(
                     image, uv), 10),
-                library_ms=cuda_time(lib, 50),
-                # 4 taps: ~10 FLOP of coordinates, 6 per plane
-                bound=bound(nbytes(image, uv, k), (10.0 + 6.0 * P) * H * W),
-                shape=f"{W}x{H}, {P} f32 planes (the third forward + TAA "
-                      f"frame's history), {on:.4f} of uv on screen; "
-                      f"grid_sample differs by {lib_err:.3g}",
-                tol="exact")
+                library_ms=lib_ms, library_eager_ms=lib_eager,
+                bound=_k5_bound(image, uv, k),
+                shape=f"{W}x{H}, {P} f32 planes (frames 3-6 of forward + "
+                      f"TAA), {on:.4f} of uv on screen; grid_sample differs "
+                      f"by {lib_err:.3g}; device time over {K5_SETS} sets; "
+                      f"shard shape {W}x{h} uv: {s_ms:.4f} ms, grid_sample "
+                      f"{s_lib:.4f}, bound {s_bound[0]:.4f}",
+                tol="exact, at both shapes")
+
+
+def k5_against(dev, other):
+    """K5 of this checkout against K5 built from the tree in ``other``
+    (by that tree's own native.py into its own build/; the parent commit
+    unpacked with git archive, say) on the same fetches: both exact
+    against the plain version at both shapes, then the device time of
+    each at both shapes, in turns other, this, this, other, each turn
+    with grid_sample's beside it, and the eager calls' times."""
+    import ctypes
+
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import temporal_cuda
+
+    built = subprocess.run(
+        [sys.executable, "-c", "from hybridrenderer_tpu_torch import native; "
+         "native.kernel_library(); print(native.kernel_library_path())"],
+        cwd=other, capture_output=True, text=True, timeout=900, check=True)
+    entry = ctypes.CDLL(built.stdout.split()[-1]).hr_window_sample
+    entry.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+
+    def other_k5(image, uv):
+        H, W, P = image.shape
+        out = torch.empty((*uv.shape[:-1], P), dtype=torch.float32,
+                          device=uv.device)
+        rc = entry(image.data_ptr(), H, W, P, uv.data_ptr(), uv.numel() // 2,
+                   out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{other}'s K5: CUDA error {rc}")
+        return out
+
+    fetches = _window_sample_sets(dev)
+    shapes = {"1920x1080": fetches,
+              "shard": [_shard_fetch(*f) for f in fetches]}
+    for name, fs in shapes.items():
+        for fn in (other_k5, temporal_cuda.window_sample):
+            err = max((fn(*f) - temporal_cuda.window_sample_plain(*f)).abs()
+                      .max().item() for f in fs)
+            if err > 0.0:
+                raise AssertionError(f"K5 ({fn.__name__}) at {name}: max err "
+                                     f"{err}")
+    kernels = {"other": other_k5, "this": temporal_cuda.window_sample}
+    rows = []
+    for turn in ("other", "this", "this", "other"):
+        for name, fs in shapes.items():
+            ms, eager = _k5_times(kernels[turn], fs)
+            lib, lib_eager = _k5_times(
+                _grid_sample, [_grid_sample_args(*f) for f in fs])
+            rows.append(dict(tree=turn, shape=name, ms=ms, eager_ms=eager,
+                             grid_sample_ms=lib,
+                             grid_sample_eager_ms=lib_eager))
+            log(f"[k5] {turn:5s} {name:9s}: {ms:.4f} ms device time (eager "
+                f"{eager:.4f}); grid_sample {lib:.4f} (eager {lib_eager:.4f})")
+    log(f"[k5] both exact at both shapes; other tree {other}; on "
+        f"{nvidia_smi_line()}")
+    print(json.dumps({"k5_turns": rows}))
 
 
 def _stencil_inputs(dev, H, W, seed):
@@ -1584,9 +1763,14 @@ def check_stencils(dev):
                               20) / reps
             shape += (f", per step (1, 2, 4); on an all-background copy "
                       f"(no taps) {bg_ms:.4f} ms per step")
+        ms = cuda_time(kern, 20) / reps
+        timing = dict(ms=ms)
+        if name == "variance_blur":
+            # under 0.2 ms: device time, the eager calls' time beside it
+            timing = dict(ms=device_time(sc.variance_blur, copies((mom,))),
+                          eager_ms=ms)
         out[name] = dict(
-            err=err, ms=cuda_time(kern, 20) / reps,
-            plain_ms=cuda_time(plain, 2) / reps,
+            err=err, **timing, plain_ms=cuda_time(plain, 2) / reps,
             bound=bound(reads + nbytes(*(ks[:1] if reps > 1 else ks)),
                         30.0 * taps * px),
             shape=shape + "; also within the gate at 203x117 and 7x5",
@@ -2472,6 +2656,8 @@ def main(argv=None):
                     help="directory for the rendered PNGs")
     ap.add_argument("--find-big-scene", action="store_true",
                     help="only search the object count BIG_OBJECTS names")
+    ap.add_argument("--k5-against", metavar="DIR",
+                    help="only time K5 against K5 built from the tree in DIR")
     args = ap.parse_args(argv)
 
     import torch
@@ -2494,6 +2680,9 @@ def main(argv=None):
         find_big_scene()
         return 0
     phase_build()
+    if args.k5_against:
+        k5_against(dev, os.path.abspath(args.k5_against))
+        return 0
     # every check runs, so one call reports every failure; any failure
     # fails the script after the renders
     results, failures = {}, []
@@ -2518,9 +2707,15 @@ def main(argv=None):
         off = "" if native.KERNELS[name].on_path else \
             " (checked only: no path launches it)"
         lib = res.get("library_ms")
+        # device time where the check gives the eager calls' time beside it
+        timer = (f"device time; eager calls {res['eager_ms']:.4f}"
+                 if "eager_ms" in res else "eager calls")
         log(f"[kernel] {name}: max err {res['err']:.3g} ({res['tol']}); "
-            f"{res['ms']:.4f} ms kernel vs {res['plain_ms']:.4f} ms plain"
+            f"{res['ms']:.4f} ms kernel ({timer}) vs {res['plain_ms']:.4f} "
+            f"ms plain"
             + (f" vs {lib:.4f} ms library" if lib is not None else "")
+            + (f" (eager {res['library_eager_ms']:.4f})"
+               if "library_eager_ms" in res else "")
             + f"; bound {res['bound'][0]:.4f} ms ({res['bound'][1]}) "
             f"at {res['shape']}{off}")
     for name, check in (("sampler", check_sampler),
@@ -2699,7 +2894,9 @@ def main(argv=None):
             launches=sum(per_path.values()), max_abs_err=res["err"],
             ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
             bound_by=res["bound"][1], library_ms=res.get("library_ms"),
-            launches_per_path=per_path, shape=res["shape"]))
+            launches_per_path=per_path, shape=res["shape"],
+            **{key: res[key] for key in ("eager_ms", "library_eager_ms")
+               if key in res}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -138,7 +138,9 @@ def window_sample(image, uv):
 
     CUDA tensors launch kernel K5, which replaces the TPU kernel
     temporal_pallas._sample_kernel; CPU tensors take the plain version.
-    On the card the kernel is bound by memory; see csrc/temporal.cu."""
+    On the card the kernel is bound by memory; see csrc/temporal.cu.
+    Views of any alignment are taken (uv is read in whole 8-byte loads
+    where it is aligned for them)."""
     if uv.device.type == "cpu":
         return window_sample_plain(image, uv)
     if uv.device.type != "cuda":
@@ -148,6 +150,8 @@ def window_sample(image, uv):
         raise ValueError(f"image: shape {tuple(image.shape)}, expected "
                          f"(H, W, P)")
     H, W, P = image.shape
+    if H < 1 or W < 1:
+        raise ValueError(f"window_sample: empty image {tuple(image.shape)}")
     native.check(image, "image", torch.float32, (H, W, P), dev)
     native.check(uv, "uv", torch.float32, (*uv.shape[:-1], 2), dev)
     Q = uv.numel() // 2

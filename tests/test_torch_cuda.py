@@ -459,6 +459,76 @@ def test_window_sample_kernel_matches_plain(dev):
                                rtol=0, atol=0)
 
 
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = base[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _window_sample_case(case, g):
+    """(image (H, W, P), uv (..., 2)) as numpy f32 for one K5 case; uv
+    from pixel centres moved a little, as TAA's reprojection moves them,
+    unless the case says otherwise."""
+    H, W, P, rows = 45, 70, 3, None
+    if case.startswith("p"):
+        P = int(case[1:])
+    elif case == "ragged_203x117":
+        H, W = 117, 203
+    elif case == "shard":
+        H, W, rows = 48, 64, (12, 24)
+    elif case == "unaligned_image":
+        P = 4
+    r0, r1 = rows or (0, H)
+    yy, xx = np.mgrid[r0:r1, 0:W].astype(np.float32)
+    uv = np.stack([(xx + 0.5) / W, (yy + 0.5) / H], -1)
+    uv = uv + 0.004 * g.standard_normal(uv.shape)
+    if case == "offscreen":
+        uv = np.where(g.random(uv.shape) < 0.5,
+                      g.uniform(-3.0, -0.01, uv.shape),
+                      g.uniform(1.01, 4.0, uv.shape))
+    elif case == "zero_one":
+        uv = g.choice([0.0, 1.0], uv.shape)
+    elif case == "far":
+        uv = g.random(uv.shape)
+    return (g.random((H, W, P)).astype(np.float32), uv.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", [
+    "p1", "p3", "p4", "ragged_203x117", "offscreen", "zero_one", "far",
+    "shard", "unaligned_uv", "unaligned_image"])
+def test_window_sample_kernel_cases(dev, case):
+    """K5 equal to its plain version bit for bit, one launch a call: P =
+    1, 3, 4; a width and a point count (203x117) that neither a lane's
+    points nor a warp's divide; uv wholly off screen; uv exactly 0 and 1;
+    footprints far from their own pixels; the shard shape (12 uv rows over
+    a 48-row image); a uv view and a 4-plane image view that are not
+    16-byte aligned."""
+    img, uv = (_t(a, dev) for a in _window_sample_case(
+        case, np.random.default_rng(5)))
+    if case == "unaligned_uv":
+        uv = _unaligned(uv)
+    elif case == "unaligned_image":
+        img = _unaligned(img)
+    before = native.KERNELS["window_sample"].launches
+    k = temporal_cuda.window_sample(img, uv)
+    assert native.KERNELS["window_sample"].launches == before + 1
+    assert k.shape == (*uv.shape[:-1], img.shape[-1])
+    torch.testing.assert_close(k, temporal_cuda.window_sample_plain(img, uv),
+                               rtol=0, atol=0)
+
+
+def test_window_sample_empty_image_raises(dev):
+    """An image without pixels has no taps: K5 refuses it unlaunched."""
+    before = native.KERNELS["window_sample"].launches
+    with pytest.raises(ValueError, match="empty image"):
+        temporal_cuda.window_sample(torch.zeros((0, 4, 3), device=dev),
+                                    torch.zeros((5, 2), device=dev))
+    assert native.KERNELS["window_sample"].launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_temporal_kernel_matches_plain(dev, dtype):
     g = np.random.default_rng(1)
