@@ -53,8 +53,9 @@ non-zero without printing a result):
    replay them), with the launch count of every kernel it runs (counts
    set to 0 just before it; a replay adds its graph's launches), a check
    that no plain version ran on the card, the capture times, per-pass
-   ms of one eager frame (runtime/profiling.profile_frame) and one
-   replayed frame under torch.profiler:
+   device ms of replayed frames (a renderer made with trace=True, its
+   device spans read through trace_totals) and one replayed frame
+   under torch.profiler:
    a. the headline, bench.py's hybrid frame (shadow + AO + SVGF);
    b. the full graph, the headline plus reflections and diffuse GI;
    c. forward + TAA (LIGHT | IBL | TAA);
@@ -1969,18 +1970,36 @@ def phase_golden(dev):
         raise AssertionError(f"golden gate failed: {ok}")
 
 
-def frame_breakdown(name, r, cam, next_frame):
-    """Per-pass ms of one eager frame (runtime/profiling.profile_frame:
-    CUDA events around each pass, after the renderer's history, which it
-    leaves as it was), then one more frame of the path, a replay, under
-    torch.profiler (profiled_frame). ``next_frame(camera state)`` renders
-    a frame as the path does."""
-    from hybridrenderer_tpu_torch.runtime import profiling
+TRACED_FRAMES = 4
 
-    spent = profiling.profile_frame(r, cam.step(taa_enabled=True), iters=3)
-    log(f"[{name}] per pass ms (eager, CUDA events around each pass): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in spent.items())
-        + f"; sum {sum(spent.values()):.3f}")
+
+def frame_breakdown(name, dev, settings, host_fn, dynamic, cam, next_frame):
+    """Device ms a frame of each pass, of the frame's glue outside the
+    passes, of the commit and (dynamic paths) of the scene update and
+    refit, over TRACED_FRAMES replayed frames of a renderer made with
+    ``trace=True`` on a fresh scene (its device spans: event nodes of the
+    captured graphs, runtime/profiling), after its two eager frames;
+    then one more frame of the timed renderer, a replay, under
+    torch.profiler (profiled_frame). ``next_frame(camera state)``
+    renders a frame of the timed renderer as the path does."""
+    traced, _, traced_frame = _path_renderer(dev, settings, host_fn,
+                                             dynamic, trace=True)
+    for k in range(2 + TRACED_FRAMES):
+        if k == 2:
+            traced.reset_trace()
+        traced_frame(cam.step(taa_enabled=True))
+    spans = {k: ms / n for k, (ms, n) in
+             traced.trace_totals()["device"].items()}
+    passes = [p.name for p in traced.path.graph.passes]
+    rest = {"outside": spans["frame"] - sum(spans[p] for p in passes)}
+    rest.update({k: v for k, v in spans.items()
+                 if k not in passes and k != "frame"})
+    log(f"[{name}] device ms a frame (replayed, device spans): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    [*((p, spans[p]) for p in passes), *rest.items()])
+        + f"; frame {spans['frame']:.3f}")
+    del traced, traced_frame
+    gc.collect()
     return profiled_frame(name, cam, next_frame)
 
 
@@ -2029,7 +2048,8 @@ def rot_y(a):
                      [0, 0, 0, 1]], np.float32)
 
 
-def _path_renderer(dev, settings, host_fn, dynamic, capture=True):
+def _path_renderer(dev, settings, host_fn, dynamic, capture=True,
+                   trace=False):
     """(renderer, DynamicScene or None, next_frame) on a fresh scene:
     ``host_fn`` makes the host scene (default: the stress scene of 250
     objects). ``next_frame(camera state)`` renders the path's next frame:
@@ -2043,7 +2063,8 @@ def _path_renderer(dev, settings, host_fn, dynamic, capture=True):
 
     host = scenes.stress_scene(num_objects=HEADLINE["objects"]) \
         if host_fn is None else host_fn()
-    r = Renderer.for_scene(settings, host.build(dev), capture=capture)
+    r = Renderer.for_scene(settings, host.build(dev), capture=capture,
+                           trace=trace)
     dyn = DynamicScene(host, r) if dynamic else None
     turn = [0]
 
@@ -2150,7 +2171,8 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
         f"launches {launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; binning "
         f"capacity {capacity}; image {png}")
-    prof = frame_breakdown(name, r, cam, next_frame)
+    prof = frame_breakdown(name, dev, settings, host_fn, dynamic, cam,
+                           next_frame)
     return launches, img, prof, med
 
 

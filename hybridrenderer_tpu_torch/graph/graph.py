@@ -70,8 +70,8 @@ class RenderGraph:
         """Run every pass → (registry, new history dict). History reads
         fall back to the current-frame resource of the same name.
         ``run_pass(p, registry, ctx)``, when given, runs each pass in
-        place of ``p.fn(registry, ctx)`` (runtime/profiling times them
-        so)."""
+        place of ``p.fn(registry, ctx)`` (runtime/profiling's tracer
+        times each pass so)."""
         if not self._compiled:
             self.compile(external=tuple(registry.keys()))
         new_history: dict = {}

@@ -72,6 +72,7 @@ from ..graph.params import ROW_SIZE, FrameParams, FrameState, pack_row
 from ..graph.passes import FrameContext
 from ..ops.raster_cuda import Binning
 from ..paths.factory import create_render_path
+from ..runtime import profiling
 from ..runtime.renderer import (DEFAULT_PHI, _build_tracer, _Graph,
                                 _needs_tracer, _pairs, _Result, run_key,
                                 trace_hooks)
@@ -365,6 +366,8 @@ class ShardedRenderer:
         # each key's exchanges, one list a shard, from its eager frame
         self.exchanges = {}
         self.capture_ms = {}     # each key's capture time, host clock
+        self.recaptures = 0      # keys captured again on a bin overflow
+        self.tracing = profiling.OFF     # run_key's spans: none here
         self._graphs = {}
         self._rows = {d: torch.empty(ROW_SIZE, dtype=torch.float32,
                                      device=d) for d in mesh.distinct}

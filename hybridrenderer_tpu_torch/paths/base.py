@@ -25,9 +25,10 @@ class RenderPath:
     def export_mermaid(self) -> str:
         return self.graph.export_mermaid()
 
-    def run(self, ctx, state: FrameState):
+    def run(self, ctx, state: FrameState, run_pass=None):
         """Execute the pass stack → (output image, new FrameState,
-        registry)."""
-        registry, new_history = self.graph.execute({}, ctx, state)
+        registry); ``run_pass``: RenderGraph.execute's hook."""
+        registry, new_history = self.graph.execute({}, ctx, state,
+                                                   run_pass=run_pass)
         return registry[RS.RENDER_OUTPUT], FrameState(history=new_history), \
             registry

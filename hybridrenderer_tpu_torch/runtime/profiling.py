@@ -1,67 +1,155 @@
-"""Per-pass timing (hybridrenderer_tpu/runtime/profiling.py) — the
-reference engine's declared GPU timestamp queries (RenderGraph.h:319-343)
-made real.
+"""The renderer's tracer: spans on the host and on the device (the
+reference engine's declared GPU timestamp queries, RenderGraph.h:319-343,
+made real inside the captured frame).
 
-A captured frame is one CUDA graph, so per-pass times do not exist in
-it; ``profile_frame`` runs one frame of the renderer's path eagerly, one
-pass at a time, after the renderer's current history (which it leaves
-as it was), and times each pass: with CUDA events on the card, with the
-host clock on the CPU. Use it for guidance; the eager passes launch
-what the graph launches, plus the host's dispatch gaps between them.
+A renderer made with ``trace=True`` holds a ``Tracer``; otherwise it
+holds ``OFF``, whose spans are one shared no-op context, so that an
+untraced renderer records nothing and captures the graphs it always
+did. Tracing is fixed for the renderer's life: it changes what the
+captured graphs hold.
+
+* Host spans (``host(name)``): while a profiler runs, a
+  ``torch.profiler.record_function`` named ``hr.<name>``, on its
+  timeline beside the device operations; and always its host ms,
+  summed by name.
+* Device spans (``device(name)``): a pair of CUDA events on the current
+  stream. Under a capture they are external events, so they become
+  event-record nodes of the graph and time the span on the device clock
+  at every replay; the renderer reads a frame graph's pairs while the
+  host waits for the frame, and the commit graph's before its next
+  replay (``replayed``, ``flush``). Each pass is one (``run_pass``, the render
+  graph's hook), the frame body another (``frame``), the scene update
+  and refit and the commit graph's copies others. On the CPU the same
+  spans are timed with the host clock and ``totals()["clock"]`` says
+  so.
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict
 
 import torch
+from torch.profiler import record_function
 
-from ..graph.params import pack_row
-from .renderer import DEFAULT_PHI
+NULL = contextlib.nullcontext()
+_NO_SPANS = contextlib.nullcontext(())
+PREFIX = "hr."
 
 
-def _time_ms(fn, iters: int, device) -> tuple:
-    """(ms a call of ``fn`` over ``iters`` calls after one untimed call,
-    its last result)."""
-    out = fn()
-    if device.type == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True)
+class _Off:
+    """The tracer of an untraced renderer: every span is ``NULL``."""
+
+    run_pass = None
+
+    def host(self, name):
+        return NULL
+
+    def device(self, name):
+        return NULL
+
+    def collecting(self):
+        return _NO_SPANS
+
+    def replayed(self, spans):
+        pass
+
+    def flush(self):
+        pass
+
+    def totals(self) -> dict:
+        return {}
+
+    def reset(self):
+        pass
+
+
+OFF = _Off()
+
+
+def _add(sums, name, ms):
+    s = sums.setdefault(name, [0.0, 0])
+    s[0] += ms
+    s[1] += 1
+
+
+class Tracer:
+    """Spans of one renderer on ``device`` (see the module)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.host_ms = {}            # name → [ms, count]
+        self.device_ms = {}
+        self._pending = []           # (name, start, end) events to read
+        self._collect = None         # a capture's event pairs
+
+    @contextlib.contextmanager
+    def host(self, name):
+        t0 = time.perf_counter()
+        try:
+            # a record_function costs ~10 us; only a profiler reads it
+            with record_function(PREFIX + name) \
+                    if torch.autograd._profiler_enabled() else NULL:
+                yield
+        finally:
+            _add(self.host_ms, name, 1e3 * (time.perf_counter() - t0))
+
+    @contextlib.contextmanager
+    def device(self, name):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            yield
+            _add(self.device_ms, name, 1e3 * (time.perf_counter() - t0))
+            return
+        start, end = (torch.cuda.Event(enable_timing=True, external=True)
                       for _ in range(2))
         start.record()
-        for _ in range(iters):
-            out = fn()
+        yield
         end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters, out
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn()
-    return 1e3 * (time.perf_counter() - t0) / iters, out
+        (self._pending if self._collect is None
+         else self._collect).append((name, start, end))
 
+    def run_pass(self, p, registry, ctx):
+        """The render graph's ``run_pass`` hook: each pass a device
+        span under its name."""
+        with self.device(p.name):
+            return p.fn(registry, ctx)
 
-@torch.no_grad()
-def profile_frame(renderer, cam_state, iters: int = 5) -> Dict[str, float]:
-    """Returns {pass_name: ms} for one frame of ``renderer``'s path."""
-    row = torch.from_numpy(pack_row(cam_state, 1.0, DEFAULT_PHI,
-                                    renderer.frame_count)).to(renderer.device)
-    hv = renderer.frame_count > 0
-    ctx, state = renderer._context(row, renderer.scene, renderer.tracer,
-                                   renderer._history_for(hv), hv)
-    timings: Dict[str, float] = {}
+    @contextlib.contextmanager
+    def collecting(self):
+        """Device spans opened inside go to the list it yields (a
+        capture's, read at each replay through ``replayed``)."""
+        outer, self._collect = self._collect, []
+        try:
+            yield self._collect
+        finally:
+            self._collect = outer
 
-    def run_pass(p, registry, ctx):
-        timings[p.name], out = _time_ms(lambda: p.fn(registry, ctx), iters,
-                                        renderer.device)
-        return out
+    def replayed(self, spans):
+        """A graph holding ``spans`` (from ``collecting``) was launched:
+        its events are read at the next ``flush``."""
+        self._pending.extend(spans)
 
-    renderer.path.graph.execute({}, ctx, state, run_pass=run_pass)
-    return timings
+    def flush(self):
+        """Reads every launched pair, each as soon as its end event has
+        run: while a frame runs, its first spans are read as its later
+        ones run."""
+        pending, self._pending = self._pending, []
+        for name, start, end in pending:
+            end.synchronize()
+            _add(self.device_ms, name, start.elapsed_time(end))
 
+    def totals(self) -> dict:
+        """{clock: "device" or "host" (the device spans' clock), device:
+        {span: (ms, count)}, host: {span: (ms, count)}}; waits for the
+        spans launched."""
+        self.flush()
+        return {"clock": "device" if self.cuda else "host",
+                "device": {k: tuple(v) for k, v in self.device_ms.items()},
+                "host": {k: tuple(v) for k, v in self.host_ms.items()}}
 
-def print_profile(timings: Dict[str, float]):
-    total = sum(timings.values())
-    width = max(len(k) for k in timings)
-    for name, ms in timings.items():
-        bar = "#" * int(40 * ms / max(total, 1e-9))
-        print(f"{name:<{width}}  {ms:8.2f} ms  {bar}")
-    print(f"{'TOTAL (unfused)':<{width}}  {total:8.2f} ms")
+    def reset(self):
+        """Clears the sums (spans launched and not read are dropped)."""
+        self._pending.clear()
+        self.host_ms.clear()
+        self.device_ms.clear()
+

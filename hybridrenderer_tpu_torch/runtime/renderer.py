@@ -30,8 +30,15 @@ two the host reads the tile entries the frame's rasters needed. A frame
 that needed more than the binning capacity is not committed: its key is
 captured again at a capacity sized from what it needed, and the frame
 replayed (or, with ``Renderer.bin_capacity`` fixed, it raises, and the
-history is left as it was). CPU scenes run the same functions eagerly,
-with exact tile lists.
+history is left as it was; ``Renderer.recaptures`` counts these). CPU
+scenes run the same functions eagerly, with exact tile lists.
+
+A renderer made with ``trace=True`` times its work (runtime/profiling):
+host spans around the row upload, the frame graph's launch, the read of
+the tile entries, the commit graph's launch, the image's clone and a
+recapture; device spans around each pass, the frame body, the scene
+update, the refit and the commit, held in the captured graphs as event
+nodes and read after each replay. ``trace_totals()`` sums them.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from ..ops import trace
 from ..ops.raster_cuda import Binning
 from ..paths.factory import create_render_path
 from ..scene import dynamic
+from . import profiling
 from .log import core as _log
 
 DEFAULT_PHI = (4.0, 128.0, 0.02, 0.0)
@@ -83,12 +91,15 @@ class _Graph:
     capacity: Any        # the tile entries each binning may use (a tuple)
     launches: dict = dataclasses.field(default_factory=dict)  # one replay's
     keep: tuple = ()     # inputs the graph reads that the key names by id
+    spans: tuple = ((), ())  # the device spans of replay() and commit()
 
 
 class Renderer:
-    def __init__(self, settings, scene_data, tracer=None, capture=None):
+    def __init__(self, settings, scene_data, tracer=None, capture=None,
+                 trace=False):
         """``capture``: replay CUDA graphs (the default on a CUDA scene);
-        False runs every frame eagerly."""
+        False runs every frame eagerly. ``trace``: time the renderer's
+        work in spans (runtime/profiling), for the renderer's life."""
         self.settings = settings
         self.scene = scene_data
         self.device = scene_data.device
@@ -96,6 +107,8 @@ class Renderer:
             else bool(capture)
         if self.capture and self.device.type != "cuda":
             raise ValueError("CUDA graphs need a scene on a CUDA device")
+        self.tracing = profiling.Tracer(self.device) if trace \
+            else profiling.OFF
         self.path = create_render_path(settings)
         self.tracer = tracer
         self.frame_count = 0
@@ -108,14 +121,16 @@ class Renderer:
         self._transforms = None  # the dynamic updates' (N, 4, 4) buffer
         self._stats = None
         self.capture_ms = {}     # each key's capture time, host clock
+        self.recaptures = 0      # keys captured again on a bin overflow
 
     @classmethod
-    def for_scene(cls, settings, scene_data, capture=None):
+    def for_scene(cls, settings, scene_data, capture=None, trace=False):
         """Renderer with the ray tracer attached when the path or the
         flags ask for ray-traced passes."""
         tracer = _build_tracer(scene_data, settings) \
             if _needs_tracer(settings) else None
-        return cls(settings, scene_data, tracer=tracer, capture=capture)
+        return cls(settings, scene_data, tracer=tracer, capture=capture,
+                   trace=trace)
 
     # --- frame functions -------------------------------------------------
     def _context(self, row, scene, tracer, history, history_valid,
@@ -133,12 +148,18 @@ class Renderer:
     def _frame(self, row, scene, tracer, history, history_valid, binning):
         """One frame's math over a (ROW_SIZE,) row → (out (H, W, 3), new
         history dict, stats (3,) i64)."""
-        ctx, state = self._context(row, scene, tracer, history,
-                                   history_valid, binning)
-        out, new_state, registry = self.path.run(ctx, state)
-        stats = registry.get("_FrameStats")
-        if stats is None:
-            stats = torch.zeros(3, dtype=torch.int64, device=row.device)
+        with self.tracing.device("frame"):
+            ctx, state = self._context(row, scene, tracer, history,
+                                       history_valid, binning)
+            # each pass a device span; an untraced frame calls run as
+            # it always did
+            hook = self.tracing.run_pass
+            out, new_state, registry = (
+                self.path.run(ctx, state) if hook is None
+                else self.path.run(ctx, state, run_pass=hook))
+            stats = registry.get("_FrameStats")
+            if stats is None:
+                stats = torch.zeros(3, dtype=torch.int64, device=row.device)
         return out, new_state.history, stats
 
     def _history_for(self, history_valid):
@@ -148,14 +169,18 @@ class Renderer:
                  update_lights):
         """The scene after a dynamic update and the tracer refit on it
         (new tensors; the renderer's are read, not written)."""
-        if use_subset:
-            scene = dynamic.update_transforms_subset(
-                self.scene, maps, transforms, vert_idx, tri_idx,
-                update_lights=update_lights)
-        else:
-            scene = dynamic.update_transforms(self.scene, maps, transforms)
-        tracer = None if self.tracer is None else self.tracer.refit(scene)
-        return scene, tracer
+        with self.tracing.device("scene.update"):
+            if use_subset:
+                scene = dynamic.update_transforms_subset(
+                    self.scene, maps, transforms, vert_idx, tri_idx,
+                    update_lights=update_lights)
+            else:
+                scene = dynamic.update_transforms(self.scene, maps,
+                                                  transforms)
+        if self.tracer is None:
+            return scene, None
+        with self.tracing.device("scene.refit"):
+            return scene, self.tracer.refit(scene)
 
     def _row_buffer(self, k):
         buf = self._rows.get(k)
@@ -196,21 +221,26 @@ class Renderer:
                                 keep)
         if res.stats is not None:
             self._stats = res.stats
-        return res.out.clone() if replayed and res.out is not None \
-            else res.out
+        if not replayed or res.out is None:
+            return res.out
+        with self.tracing.host("out_clone"):
+            return res.out.clone()
 
     def _capture(self, body, capacity):
         """The frame graph of ``body`` and the graph that commits its
-        results."""
+        results; with tracing on, each holds its device spans' events."""
         frame = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(frame):
+        with self.tracing.collecting() as frame_spans, \
+                torch.cuda.graph(frame):
             res = body(Binning(None if capacity is None else capacity[0]))
             pairs = _pairs(res.commits)
         commit = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(commit):
+        with self.tracing.collecting() as commit_spans, \
+                torch.cuda.graph(commit), self.tracing.device("commit"):
             for dst, src in pairs:
                 dst.copy_(src)
-        return _Graph(frame.replay, commit.replay, res, capacity)
+        return _Graph(frame.replay, commit.replay, res, capacity,
+                      spans=(frame_spans, commit_spans))
 
     # --- public API --------------------------------------------------------
     @property
@@ -241,8 +271,9 @@ class Renderer:
     @torch.no_grad()
     def render(self, cam_state, exposure: float = 1.0, svgf_phi=DEFAULT_PHI):
         """Render one frame → (H, W, 3) float32 tensor on the device."""
-        self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
-                                   self.frame_count)[None])
+        with self.tracing.host("upload"):
+            self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
+                                       self.frame_count)[None])
         return self._render_row()
 
     def _render_row(self):
@@ -271,7 +302,8 @@ class Renderer:
         dirty rows ``vert_idx`` / ``tri_idx`` when ``use_subset``), then
         the tracer's refit, both written into the scene's and the
         tracer's tensors: ``DynamicScene.commit``'s work."""
-        tf = self._upload_transforms(transforms)
+        with self.tracing.host("upload"):
+            tf = self._upload_transforms(transforms)
 
         def body(binning):
             scene, tracer = self._updated(maps, tf, vert_idx, tri_idx,
@@ -291,9 +323,10 @@ class Renderer:
         refit, then the frame over the updated scene, in one graph (the
         reference's one-dispatch dynamic frame); the scene and the tracer
         are left updated, exactly as ``update_dynamic`` leaves them."""
-        buf = self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
-                                         self.frame_count)[None])
-        tf = self._upload_transforms(transforms)
+        with self.tracing.host("upload"):
+            buf = self._upload_rows(pack_row(cam_state, exposure, svgf_phi,
+                                             self.frame_count)[None])
+            tf = self._upload_transforms(transforms)
         hv = self.frame_count > 0
 
         def body(binning):
@@ -319,9 +352,10 @@ class Renderer:
         each row copied on the device into the frame's row buffer; the
         frames and the history are exactly those of K ``render``
         calls."""
-        rows = self._upload_rows(np.stack([
-            pack_row(cs, exposure, svgf_phi, self.frame_count + i)
-            for i, cs in enumerate(cam_states)]))
+        with self.tracing.host("upload"):
+            rows = self._upload_rows(np.stack([
+                pack_row(cs, exposure, svgf_phi, self.frame_count + i)
+                for i, cs in enumerate(cam_states)]))
         one, outs = self._row_buffer(1), []
         for i in range(rows.shape[0]):
             if rows is not one:
@@ -366,24 +400,6 @@ class Renderer:
         first frame's graph reads no history."""
         self.frame_count = 0
 
-    def benchmark(self, camera, frames: int = 32, warmup: int = 4) -> dict:
-        """Steady-state frame rate over ``frames`` frames after
-        ``warmup``, the camera stepping with TAA jitter; the device is
-        synchronised before each clock reading."""
-        def sync():
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-
-        for _ in range(warmup):
-            self.render(camera.step(taa_enabled=True))
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(frames):
-            self.render(camera.step(taa_enabled=True))
-        sync()
-        dt = time.perf_counter() - t0
-        return {"fps": frames / dt, "ms_per_frame": 1000.0 * dt / frames}
-
     def frame_stats(self) -> dict:
         """Last frame's instance drawn/culled counts and covered pixels
         (the active-ray count). Waits for the device."""
@@ -391,6 +407,15 @@ class Renderer:
             else self._stats.cpu().numpy()
         return {"instances_drawn": int(s[0]), "instances_culled": int(s[1]),
                 "covered_pixels": int(s[2])}
+
+    def trace_totals(self) -> dict:
+        """The tracer's sums (``profiling.Tracer.totals``; empty without
+        ``trace=True``) and ``recaptures``; waits for the device."""
+        return {**self.tracing.totals(), "recaptures": self.recaptures}
+
+    def reset_trace(self):
+        """Clears the tracer's sums (not ``recaptures``)."""
+        self.tracing.reset()
 
 
 def _key_name(key) -> str:
@@ -411,7 +436,9 @@ def run_key(owner, key, eager, capture, keep=()):
     binning (the result's ``needed``: one for each shard); on a failure
     ``undo`` is taken back and the error raised. Only then are the pairs
     copied. Later uses replay the graph (see _replay_key). → (the
-    result, whether it is the graph's)."""
+    result, whether it is the graph's). The spans the owner's tracer
+    launched before are read first."""
+    owner.tracing.flush()
     graph = owner._graphs.get(key)
     fixed = owner.bin_capacity
     if graph is not None and graph.capacity is not None \
@@ -433,8 +460,9 @@ def run_key(owner, key, eager, capture, keep=()):
             for fn in reversed(undo):
                 fn()
             raise
-    for dst, src in pairs:
-        dst.copy_(src)
+    with owner.tracing.device("commit"):
+        for dst, src in pairs:
+            dst.copy_(src)
     return res, False
 
 
@@ -466,7 +494,8 @@ def _replay_key(owner, key, graph, capture):
     capacity is captured again, every binning at a capacity sized from
     what it needed where it overflowed, and replayed (with bin_capacity
     fixed, it raises), and only then committed."""
-    needed = _replay_frame(graph)
+    tracing = owner.tracing
+    needed = _replay_frame(owner, graph)
     if needed is not None and _overflowed(needed, graph.capacity):
         if owner.bin_capacity is not None:
             raise RuntimeError(
@@ -478,16 +507,20 @@ def _replay_key(owner, key, graph, capture):
         _log().warn("binning capacity overflowed; recapturing",
                     key=_key_name(key), needed=needed,
                     capacity=graph.capacity)
+        owner.recaptures += 1
         keep, capacity = graph.keep, tuple(
             _capacity_for(n) if n > c else c
             for n, c in zip(needed, graph.capacity))
-        del owner._graphs[key], graph         # frees its pools
-        graph = _capture_key(owner, key, capture, capacity, keep)
-        needed = _replay_frame(graph)
+        with tracing.host("recapture"):
+            del owner._graphs[key], graph     # frees its pools
+            graph = _capture_key(owner, key, capture, capacity, keep)
+            needed = _replay_frame(owner, graph)
         if _overflowed(needed, graph.capacity):
             raise RuntimeError(f"{_key_name(key)}: the recaptured frame "
                                f"overflowed again ({needed} entries)")
-    graph.commit()
+    with tracing.host("commit"):
+        graph.commit()
+    tracing.replayed(graph.spans[1])          # read at the next run_key
     return graph.result
 
 
@@ -495,13 +528,21 @@ def _overflowed(needed, capacity) -> bool:
     return any(n > c for n, c in zip(needed, capacity))
 
 
-def _replay_frame(graph):
+def _replay_frame(owner, graph):
     """Replays a key's frame graphs → the most tile entries each binning
-    needed (None for a key without a frame); waits for the frame."""
-    graph.replay()
+    needed (None for a key without a frame); waits for the frame,
+    reading its device spans as they end."""
+    tracing = owner.tracing
+    with tracing.host("replay"):
+        graph.replay()
     native.add_counts(graph.launches)
+    tracing.replayed(graph.spans[0])
     needed = graph.result.needed
-    return None if needed is None else tuple(int(n) for n in needed)
+    if needed is None:
+        return None
+    with tracing.host("tile_read"):
+        tracing.flush()
+        return tuple(int(n) for n in needed)
 
 
 def _scene_commits(renderer, scene, tracer):

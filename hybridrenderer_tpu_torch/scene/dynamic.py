@@ -320,7 +320,8 @@ class DynamicScene:
         (``Renderer.update_dynamic``)."""
         if not self._dirty_entities:
             return
-        tf, vert_idx, tri_idx, use_subset, lights = self._pending()
+        with self.renderer.tracing.host("dynamic_pending"):
+            tf, vert_idx, tri_idx, use_subset, lights = self._pending()
         self.renderer.update_dynamic(self.maps, tf, vert_idx, tri_idx,
                                      use_subset, lights)
         self._dirty_entities.clear()
@@ -330,7 +331,8 @@ class DynamicScene:
         a plain frame when nothing is dirty."""
         if not self._dirty_entities:
             return self.renderer.render(cam_state, **kw)
-        tf, vert_idx, tri_idx, use_subset, lights = self._pending()
+        with self.renderer.tracing.host("dynamic_pending"):
+            tf, vert_idx, tri_idx, use_subset, lights = self._pending()
         out = self.renderer.render_dynamic(cam_state, self.maps, tf, vert_idx,
                                            tri_idx, use_subset, lights, **kw)
         self._dirty_entities.clear()

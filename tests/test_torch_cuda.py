@@ -878,7 +878,7 @@ def _capture_case(case):
     return s, scene, cam, taa, case == "dynamic"
 
 
-def _render_frames(dev, case, capture, frames=4):
+def _render_frames(dev, case, capture, frames=4, trace=False):
     """``frames`` frames of a case on the card → (images, launches a
     kernel made, the renderer); the dynamic case moves entity 1 before
     each frame through DynamicScene.commit_and_render."""
@@ -887,7 +887,7 @@ def _render_frames(dev, case, capture, frames=4):
 
     s, scene, cam_kw, taa, dynamic = _capture_case(case)
     host = scene()
-    r = Renderer.for_scene(s, host.build(dev), capture=capture)
+    r = Renderer.for_scene(s, host.build(dev), capture=capture, trace=trace)
     dyn = DynamicScene(host, r) if dynamic else None
     cam = OrbitCamera(width=64, height=64, **cam_kw)
     native.reset_counts()
@@ -1012,6 +1012,110 @@ def test_binning_overflow_recaptures(dev, monkeypatch):
             assert r._graphs[("frame", True)].capacity == (2 * 48,)
     for i, (a, b) in enumerate(zip(*imgs)):
         assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("case", ["hybrid", "full_graph", "dynamic"])
+def test_traced_frames_equal_untraced(dev, case):
+    """Four captured frames of a renderer made with ``trace=True`` (their
+    graphs hold the device spans' event nodes) against an untraced
+    renderer's, whose graphs hold none: equal bit for bit, with the same
+    launches; each replay read every pass's span once."""
+    traced, counts_t, r = _render_frames(dev, case, True, trace=True)
+    plain, counts_p, rp = _render_frames(dev, case, True)
+    for i, (a, b) in enumerate(zip(traced, plain)):
+        assert torch.equal(a, b), (case, i)
+    assert counts_t == counts_p
+    assert all(g.spans == ((), ()) for g in rp._graphs.values())
+    assert all(g.spans[0] and g.spans[1] for g in r._graphs.values())
+    tot = r.trace_totals()
+    assert tot["clock"] == "device"
+    names = [p.name for p in r.path.graph.passes] + ["frame", "commit"]
+    if case == "dynamic":
+        names = ["scene.update", "scene.refit"] + names
+    assert list(tot["device"]) == names
+    # frames 1-2 eager, 3-4 replayed: four of each span
+    assert all(n == 4 and ms > 0.0 for ms, n in tot["device"].values())
+    assert {k: n for k, (_, n) in tot["host"].items()} == {
+        "upload": 4, "replay": 2, "tile_read": 2,
+        "commit": 2, "out_clone": 2, **({"dynamic_pending": 4}
+                                         if case == "dynamic" else {})}
+
+
+def test_device_spans_sum_to_the_replayed_frame(dev):
+    """The device spans of a replayed hybrid frame (the passes, the
+    frame's glue outside them, the commit) add up to within 2% of CUDA
+    events around its frame and commit graphs launched back to back,
+    over 10 replays of the 250-object stress scene at 1280x720."""
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    s = RenderSettings(width=1280, height=720, path=RenderPathType.HYBRID,
+                       flags=RenderFlags.default_hybrid())
+    r = Renderer.for_scene(s, scenes.stress_scene(num_objects=250).build(dev),
+                           trace=True)
+    cam = OrbitCamera(width=1280, height=720, **CAM)
+    for _ in range(3):
+        r.render(cam.step())
+    g = r._graphs[("frame", True)]
+    torch.cuda.synchronize()
+    r.reset_trace()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    outer = 0.0
+    for _ in range(10):
+        start.record()
+        g.replay()
+        g.commit()
+        end.record()
+        end.synchronize()
+        outer += start.elapsed_time(end)
+        r.tracing.replayed(g.spans[0] + g.spans[1])
+        r.tracing.flush()
+    spans = {k: ms for k, (ms, _) in r.trace_totals()["device"].items()}
+    passes = sum(spans[p.name] for p in r.path.graph.passes)
+    outside = spans["frame"] - passes
+    total = passes + outside + spans["commit"]
+    print(f"device spans {total:.3f} ms (passes {passes:.3f}, outside "
+          f"{outside:.3f}, commit {spans['commit']:.3f}) against "
+          f"{outer:.3f} ms around 10 replays")
+    assert outside >= 0.0 and abs(total - outer) <= 0.02 * outer
+
+
+def test_traced_binning_overflow_counts_one_recapture(dev, monkeypatch):
+    """A traced renderer whose view outgrows its key's binning capacity
+    (test_binning_overflow_recaptures's frames) counts one recapture, in
+    ``recaptures`` and in the host span of that name, whose replay and
+    tile read nest under it on the profiler's timeline; its frames equal
+    an untraced renderer's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hybridrenderer_tpu_torch.runtime import profiling
+    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+
+    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    s, scene, cam_kw, _, _ = _capture_case("dynamic")
+    data = scene().build(dev)
+    far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
+                      yaw=0.0, focal_point=(0, 2.5, 0))
+    near = OrbitCamera(width=64, height=64, **cam_kw)
+    states = [far.step(), far.step(), near.step(), near.step()]
+    r = renderer_mod.Renderer.for_scene(s, data, trace=True)
+    plain = renderer_mod.Renderer.for_scene(s, data)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for cs in states:
+            assert torch.equal(r.render(cs), plain.render(cs))
+    tot = r.trace_totals()
+    assert r.recaptures == plain.recaptures == tot["recaptures"] == 1
+    assert tot["host"]["recapture"][1] == 1
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.name.startswith(profiling.PREFIX)),
+                   key=lambda sp: sp[1])
+    (_, r0, r1), = [sp for sp in spans if sp[0] == "hr.recapture"]
+    assert [n for n, s0, s1 in spans if r0 <= s0 and s1 <= r1
+            and n != "hr.recapture"] == ["hr.replay", "hr.tile_read"]
+    # frames 1-2 eager, 3 replayed twice (overflow, then recaptured), 4
+    assert tot["device"]["frame"][1] == 5 and tot["device"]["commit"][1] == 4
 
 
 def test_cuda_display_shadow_matches_cpu(dev):

@@ -15,6 +15,7 @@ from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
 from hybridrenderer_tpu_torch.parallel.sharded import (RowExchange,
                                                        ShardedRenderer,
                                                        _Lockstep, _Segments)
+from hybridrenderer_tpu_torch.runtime import profiling
 from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
 from hybridrenderer_tpu_torch.runtime.renderer import _Graph, _Result, run_key
 from hybridrenderer_tpu_torch.scene import scene as scenes
@@ -164,6 +165,8 @@ class _Owner:
         self.bin_capacity = None
         self._graphs = {}
         self.capture_ms = {}
+        self.recaptures = 0
+        self.tracing = profiling.OFF
 
 
 def _frames(owner, script, fail=()):
@@ -232,6 +235,37 @@ def test_run_key_capture_replay_and_overflow(monkeypatch):
     assert calls["commits"] == 3 and calls["eager"] == 1
     assert native.KERNELS[kernel].launches == 12
     assert owner._graphs[("frame", True)].capacity == (20, 90)
+    assert owner.recaptures == 1
+
+
+def test_run_key_host_spans_nest(monkeypatch):
+    """With a tracer, run_key's host spans: each replay's frame launch,
+    tile read and commit launch, and a recapture holding its launch and
+    tile read, nested on the profiler's timeline; the eager frame's
+    commit is a device span (host clock on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    owner = _Owner()
+    owner.tracing = profiling.Tracer("cpu")
+    _, _, render, _ = _frames(owner, [(10, 20), (30, 20), (30, 20)])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            render()
+    tot = owner.tracing.totals()
+    assert {k: n for k, (_, n) in tot["host"].items()} == {
+        "replay": 3, "tile_read": 3, "commit": 2, "recapture": 1}
+    assert {k: n for k, (_, n) in tot["device"].items()} == {"commit": 1}
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.name.startswith(profiling.PREFIX)),
+                   key=lambda sp: sp[1])
+    assert [n for n, _, _ in spans].count("hr.replay") == 3
+    (_, r0, r1), = [s for s in spans if s[0] == "hr.recapture"]
+    inside = [n for n, s, e in spans if r0 <= s and e <= r1 and
+              n != "hr.recapture"]
+    assert inside == ["hr.replay", "hr.tile_read"]
+    assert owner.recaptures == 1
 
 
 def test_run_key_fixed_capacity_and_capture_failure():

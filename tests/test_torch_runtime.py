@@ -1,7 +1,7 @@
 """The port's runtime against the reference's, on the CPU: the packed
 camera row and the frame parameters read from it, the padded tile
 binning a captured frame uses, exposure and the SVGF phis read on the
-device, checkpoint and resume, per-pass profiling, the log channels, and
+device, checkpoint and resume, the tracer's spans, the log channels, and
 the capture check of tests/torch_capture.py over the frame functions.
 The burst, the fused dynamic frame and history across packages have
 files of their own (test_torch_burst.py, test_torch_dynamic_fused.py,
@@ -189,21 +189,95 @@ def test_state_io_round_trip_bitexact(tmp_path):
     assert torch.equal(resumed[1], straight[3])
 
 
-def test_profile_frame_keys_equal_reference_pass_names():
-    """profile_frame times every pass of the path, under the reference's
-    pass names, and leaves the renderer's history as it was."""
+def test_traced_frame_spans_equal_reference_pass_names():
+    """A renderer made with ``trace=True`` times every pass of the path,
+    under the reference's pass names and in its order, then the frame
+    body and the commit (host clock on the CPU), and renders the frames
+    an untraced renderer renders; reset_trace clears the sums."""
     data = port_scenes.cube_scene().build("cpu")
-    r = Renderer.for_scene(_hybrid(32), data)
+    r = Renderer.for_scene(_hybrid(32), data, trace=True)
+    plain = Renderer.for_scene(_hybrid(32), data)
     cam = OrbitCamera(width=32, height=32, **CUBE_CAM)
-    r.render(cam.step())
-    before = {k: v.clone() for k, v in r.state.history.items()}
-    timings = profiling.profile_frame(r, cam.step(), iters=1)
+    for _ in range(2):
+        cs = cam.step()
+        assert torch.equal(r.render(cs), plain.render(cs))
     ref = RefRenderer(RefSettings(width=32, height=32, path=RefPath.HYBRID,
                                   flags=RefFlags.default_hybrid()),
                       ref_scenes.cube_scene().build())
-    assert list(timings) == [p.name for p in ref.path.graph.passes]
-    assert all(ms >= 0.0 for ms in timings.values())
-    assert all(torch.equal(before[k], v) for k, v in r.state.history.items())
+    passes = [p.name for p in ref.path.graph.passes]
+    tot = r.trace_totals()
+    assert tot["clock"] == "host"
+    assert list(tot["device"]) == passes + ["frame", "commit"]
+    assert all(n == 2 and ms >= 0.0 for ms, n in tot["device"].values())
+    assert sum(tot["device"][p][0] for p in passes) <= \
+        tot["device"]["frame"][0]
+    assert {k: n for k, (_, n) in tot["host"].items()} == {"upload": 2}
+    assert tot["recaptures"] == 0
+    r.reset_trace()
+    assert r.trace_totals()["device"] == {}
+
+
+def test_host_spans_on_the_profiler_timeline():
+    """Under torch.profiler a traced renderer's host spans are events
+    named hr.<span> on its timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r = Renderer.for_scene(_hybrid(32), port_scenes.cube_scene().build(
+        "cpu"), trace=True)
+    cam = OrbitCamera(width=32, height=32, **CUBE_CAM)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        r.render(cam.step())
+    assert "hr.upload" in {e.name for e in prof.events()}
+
+
+def test_untraced_renderer_opens_no_span(monkeypatch):
+    """Without ``trace`` a renderer holds profiling.OFF: two frames and a
+    dynamic frame open no span, create no record_function, collect no
+    event for a graph, and trace_totals holds the recapture count
+    alone."""
+    def opened(*a, **k):
+        raise AssertionError("a span was opened")
+
+    for name in ("host", "device", "collecting", "flush", "replayed"):
+        monkeypatch.setattr(profiling.Tracer, name, opened)
+    monkeypatch.setattr(profiling, "record_function", opened)
+    host = port_scenes.cube_scene()
+    r = Renderer.for_scene(_hybrid(32), host.build("cpu"))
+    assert r.tracing is profiling.OFF and r.tracing.run_pass is None
+    assert r.tracing.host("upload") is profiling.NULL
+    with r.tracing.collecting() as spans:
+        assert spans == ()
+    dyn = DynamicScene(host, r)
+    cam = OrbitCamera(width=32, height=32, **CUBE_CAM)
+    r.render(cam.step())
+    dyn.set_entity_transform(1, _translate(0.3, 0.75, 0.0))
+    dyn.commit_and_render(cam.step())
+    assert r.trace_totals() == {"recaptures": 0}
+
+
+def test_traced_dynamic_update_spans():
+    """A traced dynamic frame (DynamicScene.commit_and_render) times the
+    scene update and the refit before the passes, the frame and the
+    commit, and its host spans time dynamic_pending and the upload;
+    DynamicScene.commit alone times the update, refit and commit,
+    with no frame."""
+    host = port_scenes.cube_scene()
+    r = Renderer.for_scene(_hybrid(32), host.build("cpu"), trace=True)
+    dyn = DynamicScene(host, r)
+    cam = OrbitCamera(width=32, height=32, **CUBE_CAM)
+    dyn.set_entity_transform(1, _translate(0.3, 0.75, 0.0))
+    dyn.commit_and_render(cam.step())
+    passes = [p.name for p in r.path.graph.passes]
+    tot = r.trace_totals()
+    assert list(tot["device"]) == ["scene.update", "scene.refit"] + \
+        passes + ["frame", "commit"]
+    assert {k: n for k, (_, n) in tot["host"].items()} == {
+        "dynamic_pending": 1, "upload": 1}
+    r.reset_trace()
+    dyn.set_entity_transform(1, _translate(0.6, 0.75, 0.0))
+    dyn.commit()
+    assert list(r.trace_totals()["device"]) == ["scene.update",
+                                                "scene.refit", "commit"]
 
 
 def test_structured_log_channels():
