@@ -24,7 +24,10 @@ non-zero without printing a result):
    timed with CUDA events beside the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
    call's time (library), the kernels under 0.2 ms (K1 f32, vis-only and
-   bf16, K1v, K3, K5, variance_blur) and K5's library call as device
+   bf16, K1v, K3, K5, variance_blur), the hit-shading pair
+   (hr_shade_hit, hr_shade_finish, on one 1080p full-graph frame's
+   reflection and GI hits of the 1000-object scene from framebench's
+   camera, exact) and K5's library call as device
    time (device_time: graphs of calls over input sets no call finds in
    L2) beside their eager calls' time, K5 at the sharded frame's shard
    shape too; K1's bf16 mode (raster_attr_bits=16) beside
@@ -840,6 +843,108 @@ def check_trace(dev):
                       f"{tri_diff}; ms for both",
                 tol="visibility mismatch <= 1e-3 of rays per query; every "
                     "ray's triangle equal")
+
+
+# framebench's camera: 50 units from (0, 2, 0) at pitch 0.5
+BENCH_CAM = dict(HEADLINE_CAM, distance=50.0)
+
+
+def check_shade(dev):
+    """The hit-shading pair (hr_shade_hit, hr_shade_finish) on the
+    radiance queries of one full-graph frame at 1920x1080 on the
+    1000-object scene from framebench's camera (quantized shade rows,
+    as full.orbit shades), recorded as the passes hand them over: each
+    kernel against its plain version on the card at that stage's inputs,
+    bit for bit, and its device time over both queries (device_time,
+    the stage's few small PyTorch operations on its arguments included)
+    beside its bound: the bytes the stage must move, each once (a
+    ray's hit flag and outputs, a hit's ray and hit, the used 26 columns
+    of each distinct hit triangle's shade row; in the finish a hit's
+    terms, distance and visibilities, a miss's direction)."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.types import RenderFlags
+    from hybridrenderer_tpu_torch.ops import shade_cuda
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = _headline_scene(dev, SPONZA_OBJECTS)
+    r = Renderer.for_scene(_hybrid_settings(
+        W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI), data,
+        capture=False)
+    tracer, trace, calls = r.tracer, r.tracer.trace_radiance, []
+
+    def recording(scene, origin, direction, ctx, depth=0, active=None,
+                  **kw):
+        calls.append((origin, direction, active, ctx))
+        return trace(scene, origin, direction, ctx, depth, active=active,
+                     **kw)
+
+    tracer.trace_radiance = recording
+    r.render(OrbitCamera(width=W, height=H, **BENCH_CAM).step(
+        taa_enabled=True))
+    del tracer.trace_radiance
+    if len(calls) != 2 or r.scene.shade_rows_q is None:
+        raise AssertionError(f"expected the reflection and GI queries over "
+                             f"quantized rows, got {len(calls)} queries")
+    preps, finishes, bytes_p, bytes_f, hits = [], [], 0, 0, []
+    for origin, direction, active, ctx in calls:
+        h = tracer.radiance_hits(origin, direction, active)
+        args = (tracer.shade_rows, r.scene, h.o, h.d, h.t, h.tri, h.u, h.v,
+                h.hit, ctx, h.fwd, 0)
+        k = shade_cuda.shade_hit_prepare(*args)
+        p = shade_cuda.shade_hit_prepare_plain(*args)
+        for name in ("occ_o", "occ_d", "occ_act", "terms"):
+            a, b = getattr(k, name), getattr(p, name)
+            if not torch_equal_nan(a, b):
+                raise AssertionError(
+                    f"hr_shade_hit's {name} differs from the plain "
+                    f"version's at {int((a != b).sum())} values")
+        R = h.o.shape[0]
+        vis = tracer.occluded(k.occ_o, k.occ_d, shade_cuda.SHADOW_TMAX,
+                              k.occ_act, h.width)
+        sun_vis = vis[:R] if k.sun else None
+        l_vis = vis[-R:] if k.nee else None
+        fargs = (r.scene, ctx, k.terms, sun_vis, l_vis, h.hit, h.t, h.d,
+                 h.pos)
+        fk = shade_cuda.shade_hit_finish(*fargs)
+        fp = shade_cuda.shade_hit_finish_plain(*fargs)
+        if not all(torch_equal_nan(a, b) for a, b in zip(fk, fp)):
+            raise AssertionError("hr_shade_finish differs from the plain "
+                                 "version")
+        preps.append(args)
+        finishes.append(fargs)
+        # what must move: a ray's hit flag and outputs; a hit's ray, hit
+        # and shade row columns (each distinct row once), and in the
+        # finish its terms, distance and visibilities; a miss's direction
+        n_hit = int(h.hit.sum())
+        rows = torch.unique(h.tri[h.hit]).numel()
+        K = k.occ_act.numel() // R
+        bytes_p += R * (1 + 25 * K + 4 * shade_cuda.TERMS) + n_hit * 40 \
+            + rows * 26 * 4
+        bytes_f += R * (1 + 16) + n_hit * (4 * shade_cuda.TERMS + 4
+                                            + 4 * K) + (R - n_hit) * 12
+        hits.append(n_hit)
+    out = {}
+    for name, fn, plain, arg_list, nb in (
+            ("shade_hit", shade_cuda.shade_hit_prepare,
+             shade_cuda.shade_hit_prepare_plain, preps, bytes_p),
+            ("shade_finish", shade_cuda.shade_hit_finish,
+             shade_cuda.shade_hit_finish_plain, finishes, bytes_f)):
+        kern = lambda: [fn(*a) for a in arg_list]
+        # two input sets of each query, in memory of their own
+        sets = [c for a in arg_list for c in copies(a, 2)]
+        out[name] = dict(
+            err=0.0, ms=2 * device_time(fn, sets),
+            eager_ms=cuda_time(kern, 10),
+            plain_ms=cuda_time(lambda: [plain(*a) for a in arg_list], 1),
+            bound=bound(nb, 0),
+            shape=f"2 queries (reflection, GI) of {W * H} rays of one "
+                  f"{W}x{H} full-graph frame on {SPONZA_OBJECTS} objects, "
+                  f"{hits} hits; ms for both",
+            tol="every output bit for bit")
+    return out
 
 
 def trace_bound(tree, batches, outs, visits):
@@ -2712,6 +2817,7 @@ def main(argv=None):
                         ("raster_tiles_bf16", check_raster_bf16),
                         ("trace_any", check_trace),
                         ("trace_closest", check_trace_closest),
+                        ("shade", check_shade),
                         ("packet_path", check_packet_path),
                         ("wide", check_wide),
                         ("temporal_fetch", check_temporal),
@@ -2723,7 +2829,8 @@ def main(argv=None):
             log(f"[kernel] {name} FAILED: {e}")
             failures.append(name)
             continue
-        results.update(res if name in ("packet_path", "wide", "stencils")
+        results.update(res if name in ("packet_path", "wide", "stencils",
+                                       "shade")
                        else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
@@ -2759,24 +2866,27 @@ def main(argv=None):
               "filter_moments", "atrous"]
     wide = dict(trace_backend="pallas-wide")
     direct = ["trace_any", "trace_closest", "trace_packet"]
+    # radiance hits: one shading pair a radiance query
+    shading = ["shade_hit", "shade_finish"]
+    two_queries = {"shade_hit": 2, "shade_finish": 2}
     runs = {
         "headline": phase_render(dev, args.out, "headline",
                                  _hybrid_settings(W, H), hybrid),
         "full_graph": phase_render(
             dev, args.out, "full_graph", _hybrid_settings(
                 W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
-            hybrid + ["trace_closest"]),
+            hybrid + ["trace_closest"] + shading, per_frame=two_queries),
         "forward_taa": phase_render(dev, args.out, "forward_taa",
                                     _forward_settings(W, H),
                                     ["raster_tiles", "window_sample"]),
         "raytraced": phase_render(
             dev, args.out, "raytraced", _raytraced_settings(W, H),
-            ["raster_tiles", "trace_closest", "trace_any", "window_sample"],
-            absent=["raster_vis", "trace_packet"]),
+            ["raster_tiles", "trace_closest", "trace_any", "window_sample"]
+            + shading, absent=["raster_vis", "trace_packet"]),
         "raytraced_packet": phase_render(
             dev, args.out, "raytraced_packet", _raytraced_settings(
                 W, H, raster_eval="v2", trace_backend="pallas"),
-            ["raster_vis", "trace_packet", "window_sample"],
+            ["raster_vis", "trace_packet", "window_sample"] + shading,
             absent=["raster_tiles", "trace_closest", "trace_any"]),
         "dynamic": phase_render(
             dev, args.out, "dynamic", _hybrid_settings(W, H), hybrid,
@@ -2793,7 +2903,8 @@ def main(argv=None):
     runs["full_graph_tex"] = phase_render(
         dev, args.out, "full_graph_tex", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
-        hybrid + ["trace_closest"], host_fn=_textured_headline)
+        hybrid + ["trace_closest"] + shading, host_fn=_textured_headline,
+        per_frame=two_queries)
     runs["cutout"] = phase_render(
         dev, args.out, "cutout", _hybrid_settings(W, H),
         ["raster_tiles", "trace_closest", "temporal_fetch", "filter_moments",
@@ -2801,7 +2912,7 @@ def main(argv=None):
         cam_kw=CUTOUT_CAM, per_frame={"raster_tiles": 2})
     runs["raytraced_cutout"] = phase_render(
         dev, args.out, "raytraced_cutout", _raytraced_settings(W, H),
-        ["raster_tiles", "trace_closest", "window_sample"],
+        ["raster_tiles", "trace_closest", "window_sample"] + shading,
         absent=["trace_any", "raster_vis", "trace_packet"],
         host_fn=scenes.cutout_scene, cam_kw=CUTOUT_CAM,
         per_frame={"raster_tiles": 1})
@@ -2824,7 +2935,7 @@ def main(argv=None):
         runs["raytraced_" + tag] = phase_render(
             dev, args.out, "raytraced_" + tag,
             _raytraced_settings(W, H, wide_kernel=k, **wide),
-            ["raster_tiles", kernel, "window_sample"],
+            ["raster_tiles", kernel, "window_sample"] + shading,
             absent=direct + [other[kernel]])
     # the large-scene contract: bench.py's 1000-object rungs (S, S-tex,
     # S-fwd-tex) and the full graph and ray-traced path on the same scene
@@ -2849,7 +2960,8 @@ def main(argv=None):
             raise AssertionError("R-w-big's tracer is not K2 / K2c over "
                                  "bf16 triangles")
 
-    rt = ["raster_tiles", "trace_closest", "trace_any", "window_sample"]
+    rt = ["raster_tiles", "trace_closest", "trace_any", "window_sample"] \
+        + shading
     large = dict(frames=LARGE_FRAMES)
     runs["sponza"] = phase_render(dev, args.out, "sponza",
                                   _hybrid_settings(W, H), hybrid,
@@ -2863,8 +2975,8 @@ def main(argv=None):
     runs["full_graph_1000"] = phase_render(
         dev, args.out, "full_graph_1000", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
-        hybrid + ["trace_closest"], host_fn=sponza, check=quantized_rows,
-        **large)
+        hybrid + ["trace_closest"] + shading, host_fn=sponza,
+        check=quantized_rows, per_frame=two_queries, **large)
     runs["raytraced_1000"] = phase_render(
         dev, args.out, "raytraced_1000", _raytraced_settings(W, H), rt,
         host_fn=sponza, check=quantized_rows, **large)

@@ -152,6 +152,9 @@ _SIGNATURES = {
     "hr_atrous": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "hr_filter_moments": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "hr_variance_blur": [_P, _I, _I, _P, _P],
+    "hr_shade_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
+                     _P, _P, _P, _P, _P],
+    "hr_shade_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 
@@ -235,6 +238,10 @@ KERNELS = {
                _TPU + "stencil_pallas.py:246"),
         Kernel("variance_blur", _CSRC + "stencil.cu",
                _TPU + "stencil_pallas.py:308", on_path=False),
+        # radiance hit shading around its occlusion query (closesthit.rchit
+        # and miss.rmiss): plain jnp in the reference, no TPU kernel
+        Kernel("shade_hit", _CSRC + "shade.cu", _TPU + "trace.py:703"),
+        Kernel("shade_finish", _CSRC + "shade.cu", _TPU + "trace.py:691"),
     )
 }
 

@@ -1,5 +1,8 @@
 """PBR shading math (hybridrenderer_tpu/ops/shade.py), elementwise over
-leading dims."""
+leading dims: the G-buffer's and composition's shading, and the plain
+version of radiance hit shading's material point, normal map and BRDF
+(ops/shade_cuda.py's prepare stage), whose kernel hr_shade_hit
+(csrc/shade.cu) does these float operations in this order."""
 from __future__ import annotations
 
 import dataclasses

@@ -2,7 +2,12 @@
 ``SceneTracer.build``, the visibility queries (``shadow_query`` over
 images, ``occluded`` over flat rays) through the any-hit traversal K2,
 and ``trace_radiance``, the closest-hit traversal K2c with hit shading
-(closesthit.rchit) and the sky on a miss (miss.rmiss). In a scene with
+(closesthit.rchit) and the sky on a miss (miss.rmiss). The shading runs
+in two stages around the hit's occlusion query (ops/shade_cuda.py): a
+prepare stage writes the sun and NEE occlusion rays and the unshadowed
+terms, ``occluded`` traces the rays, and a finish stage adds the
+shadowed terms or the sky and writes the result in pixel order; on the
+card each stage is one kernel. In a scene with
 alpha-tested (cut-out) materials every query skips transparent texels
 in up to ``ALPHA_ROUNDS`` closest-hit rounds through K2c. With
 ``trace_backend="pallas"`` all three go through the packet traversal
@@ -37,15 +42,14 @@ queries take the reference's 32x32 tile-major order for them
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
 from ..core import maths
-from ..core.types import RenderFlags
 from ..scene import schema
 from ..scene.schema import SHADE_COLS
-from . import sampling, shade, sky, texture
+from . import sampling, shade_cuda, texture
 from .bvh import build_bvh, refit_bvh, refit_levels
 from .bvh_wide import build_wide, quantize_bf16, quantize_triangles, refit_wide
 from .trace_cuda import (INACTIVE_TRI, PACKET_STACK_DEPTH, STACK_DEPTH,
@@ -198,6 +202,21 @@ def plan_wide(wide, kernel):
     if why is not None:
         return None, quantized, f"{kernel} runs as K2 / K2c: {why}"
     return kernel, quantized, None
+
+
+class RadianceHits(NamedTuple):
+    """``SceneTracer.radiance_hits``: R traced rays and their hits."""
+    lead: tuple     # the rays' leading shape
+    o: Any          # (R, 3) f32, in traced order
+    d: Any          # (R, 3) f32
+    t: Any          # (R,) f32 hit distance from o
+    tri: Any        # (R,) i32 hit triangle
+    u: Any          # (R,) f32 barycentrics
+    v: Any
+    hit: Any        # (R,) bool: active rays that hit a triangle
+    fwd: Any        # (R,) i64 each traced ray's pixel, or None (pixel order)
+    pos: Any        # (P,) i64 each pixel's traced position, or None
+    width: int      # the image's columns where traced in pixel order, or 0
 
 
 @dataclasses.dataclass
@@ -477,15 +496,10 @@ class SceneTracer:
                        device=o.device)
         return o, d, t, act
 
-    def trace_radiance(self, scene, origin, direction, ctx, depth: int = 0,
-                       active=None, row0: int = 0):
-        """Trace and shade closest hits. origin / direction (..., 3) →
-        (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
-        rays trace nothing and take the miss value. The NEE seed of a ray
-        is its flat index, the reference's original pixel index, also
-        where the wide kernels trace (H, W) rays in tile order; (H, W)
-        rays that are rows ``row0`` on of an image take that image's
-        index (the reference's ``pix_offset``)."""
+    def radiance_hits(self, origin, direction, active=None) -> RadianceHits:
+        """The closest hits of ``trace_radiance``'s rays, in the order
+        they are traced (K2c, or the wide kernels' tiles), past the
+        transparent texels of a cut-out scene."""
         lead = origin.shape[:-1]
         o, d, tmax, act = self.radiance_rays(origin, direction, active)
         fwd, pos, (o, d, tmax, act) = self._packet_order(lead, o, d, tmax,
@@ -514,128 +528,22 @@ class SceneTracer:
                 v = torch.where(transparent, v2, v)
                 hit = (tri >= 0) & (tri < HIT_ID_LIMIT) & act
             t = t + t_off
-        ray_idx = fwd
-        if row0:
-            if fwd is None:
-                fwd = torch.arange(o.shape[0], dtype=torch.int64,
-                                   device=o.device)
-            ray_idx = fwd + row0 * lead[1]
-        rgb_hit = self._shade_hit(scene, o, d, t, tri, u, v, ctx, hit,
-                                  ray_idx, width)
-        rgb_miss = sky.sample_environment(
-            d, scene.sky_texture, scene.textures,
-            bool(ctx.settings.flags & RenderFlags.IBL),
-            has_sky=scene.has_sky_texture)
-        rgb = torch.where(hit.unsqueeze(-1), rgb_hit, rgb_miss)
-        dist = torch.where(hit, t, torch.full_like(t, -1.0))
-        return _pixel_order(pos, rgb, lead), _pixel_order(pos, dist, lead)
+        return RadianceHits(lead, o, d, t, tri, u, v, hit, fwd, pos, width)
 
-    def _shade_hit(self, sc, o, d, t, tri, u, v, ctx, active, ray_idx=None,
-                   width=0):
-        """closesthit.rchit: interpolate the hit's attributes, evaluate
-        its material, sun and emissive-light NEE (both shadowed, with the
-        reference's facing gates), IBL ambient and emission. ``active``
-        (the hit mask) gates the occlusion rays; ``ray_idx``, the rays'
-        pixel indices (default: their flat index), seeds NEE; ``width``,
-        the columns of the image the rays are in pixel order, or 0."""
-        params, flags = ctx.params, ctx.settings.flags
-        R = o.shape[0]
-        dev = o.device
-        safe = torch.clamp(tri, 0, self.shade_rows.shape[0] - 1).long()
-        b0 = (1.0 - u - v).unsqueeze(-1)
-        b1 = u.unsqueeze(-1)
-        b2 = v.unsqueeze(-1)
-        world_pos = o + d * t.unsqueeze(-1)
-
-        row = self.shade_rows[safe]
-        lerp = row[:, 0:9] * b0 + row[:, 9:18] * b1 + row[:, 18:27] * b2
-        ln = lerp[:, 0:3]
-        lt = lerp[:, 3:7]
-        uv = lerp[:, 7:9]
-        nmat = row[:, 27:36]
-        mrow = row[:, 37:53]
-
-        def to_world(x):
-            return torch.stack([maths.dot(nmat[:, 3 * i:3 * i + 3], x)
-                                for i in range(3)], dim=-1)
-
-        geo_n = maths.normalize(to_world(ln))
-        # face the ray (closesthit.rchit:56)
-        flip = maths.dot(geo_n, d, keepdim=True) > 0.0
-        geo_n = torch.where(flip, -geo_n, geo_n)
-        mp = shade.material_point_from_row(mrow, uv, sc.textures)
-        if shade.uses_normal_map(sc.textures):
-            wt = torch.cat([maths.normalize(to_world(lt[:, :3])),
-                            lt[:, 3:4]], dim=-1)
-            n = shade.apply_normal_map(sc.materials, row[:, 36], geo_n, wt,
-                                       uv, sc.textures,
-                                       nrm_tex_id=mrow[:, 13].to(torch.int32))
-        else:
-            n = maths.normalize(geo_n)
-
-        view = -d
-        light_on = bool(flags & RenderFlags.LIGHT)
-        sun_dir = maths.normalize(-params.sun_direction).expand(R, 3)
-        sun_int = params.sun_color * params.sun_intensity if light_on \
-            else torch.zeros(3, device=dev)
-        shadow_origin = sampling.offset_ray(world_pos, geo_n)
-        sun_brdf = shade.eval_pbr(mp.colour, 1.5, mp.roughness, mp.metallic,
-                                  n, view, sun_dir) * sun_int
-        # facing gates: a hit facing away from the sun or the sampled
-        # light gets no light from it, so its occlusion ray is not traced
-        sun_act = None
-        if light_on:
-            sun_act = (maths.dot(geo_n, sun_dir) > 0.0) & active
-
-        nee_act = None
-        if sc.lights.count > 0:
-            if ray_idx is None:
-                ray_idx = torch.arange(R, dtype=torch.int64, device=dev)
-            seed = sampling.init_random_seed(ray_idx, params.frame_index)
-            ldir, sampled_inst, _ = sampling.sample_lights(sc, world_pos,
-                                                           seed)
-            has = (maths.length(ldir) > 0.001) & (maths.dot(geo_n, ldir)
-                                                  > 0.0)
-            inst_emission = sc.materials.emission[
-                sc.instances.material.long()] * 5.0
-            l_rad = inst_emission[torch.clamp(sampled_inst, min=0).long()]
-            nee = shade.eval_pbr(mp.colour, 1.5, mp.roughness, mp.metallic,
-                                 n, view, ldir) * l_rad
-            nee_act = has & active
-
-        # the sun and light rays share origins: one any-hit call of 2R
-        # rays when both are live
-        sun_shadow = torch.zeros((R,), device=dev)
-        lshadow = None
-        if sun_act is not None and nee_act is not None:
-            # two images one above the other: still ``width`` columns
-            both = self.occluded(torch.cat([shadow_origin, shadow_origin]),
-                                 torch.cat([sun_dir, ldir]), 1000.0,
-                                 torch.cat([sun_act, nee_act]), width)
-            sun_shadow, lshadow = both[:R], both[R:]
-        elif sun_act is not None:
-            sun_shadow = self.occluded(shadow_origin, sun_dir, 1000.0,
-                                       sun_act, width)
-        elif nee_act is not None:
-            lshadow = self.occluded(shadow_origin, ldir, 1000.0, nee_act,
-                                    width)
-        direct = sun_brdf * sun_shadow.unsqueeze(-1)
-        if nee_act is not None:
-            ok = (has & (lshadow > 0.5) & (sampled_inst >= 0)).unsqueeze(-1)
-            direct = direct + torch.where(ok, nee, torch.zeros_like(nee))
-
-        # IBL ambient (closesthit.rchit:99-113)
-        ambient = torch.zeros_like(direct)
-        if flags & RenderFlags.IBL:
-            r = maths.reflect(d, n)
-            env_spec = sky.sample_environment(r, sc.sky_texture, sc.textures,
-                                              True, sc.has_sky_texture)
-            env_diff = sky.sample_environment(n, sc.sky_texture, sc.textures,
-                                              True, sc.has_sky_texture)
-            metal = mp.metallic.unsqueeze(-1)
-            f0 = maths.mix(torch.full_like(mp.colour, 0.04), mp.colour, metal)
-            f = shade.fresnel_schlick(f0, n, view)
-            kd = (1.0 - f) * (1.0 - metal)
-            amb_str = torch.clamp(params.ambient_strength, min=0.2)
-            ambient = (kd * env_diff * mp.colour + f * env_spec) * amb_str
-        return direct + ambient + mp.emission
+    def trace_radiance(self, scene, origin, direction, ctx, depth: int = 0,
+                       active=None, row0: int = 0):
+        """Trace and shade closest hits. origin / direction (..., 3) →
+        (rgb (..., 3), hit distance (...) with -1 on a miss). Inactive
+        rays trace nothing and take the miss value. The NEE seed of a ray
+        is its flat index, the reference's original pixel index, also
+        where the wide kernels trace (H, W) rays in tile order; (H, W)
+        rays that are rows ``row0`` on of an image take that image's
+        index (the reference's ``pix_offset``). The shading is
+        ops/shade_cuda.py's two stages around the sun and light rays'
+        occlusion query, one any-hit call of 2R rays when both are live
+        (two images one above the other: still ``width`` columns)."""
+        h = self.radiance_hits(origin, direction, active)
+        rgb, dist = shade_cuda.shade_radiance(
+            self, scene, h.o, h.d, h.t, h.tri, h.u, h.v, h.hit, ctx, h.fwd,
+            row0 * h.lead[1] if row0 else 0, h.width, h.pos)
+        return rgb.reshape(*h.lead, 3), dist.reshape(h.lead)

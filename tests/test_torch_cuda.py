@@ -8,8 +8,9 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
-(compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m and K5 agree
-exactly; K4's exp and pow may differ in the last ulp."""
+(compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m, K5 and the
+hit-shading pair agree exactly; K4's exp and pow may differ in the last
+ulp."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,8 @@ from hybridrenderer_tpu_torch.ops import raster, raster_cuda, stencil_cuda
 from hybridrenderer_tpu_torch.ops import temporal_cuda, trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene import scene as scenes
+
+from . import torch_shade_cases as shade_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -1598,3 +1601,69 @@ def test_sharded_frame_over_separate_cards(dev):
         assert len(r._graphs) == 2
         for i, (a, b) in enumerate(zip(sharded, single)):
             assert a.device == dev and torch.equal(a, b), (case, i)
+
+
+# --- radiance hit shading: hr_shade_hit and hr_shade_finish ------------------
+
+def _assert_same(k, p, what):
+    """``k`` equal to ``p`` bit for bit (NaN where NaN), else the count of
+    values that differ and their largest distance in ulps."""
+    if k.dtype == torch.bool or torch.equal(k, p):
+        assert torch.equal(k, p), what
+        return
+    same = (k == p) | (torch.isnan(k) & torch.isnan(p))
+    ulps = (k.view(torch.int32).long() - p.view(torch.int32).long()).abs()
+    assert same.all(), (f"{what}: {int((~same).sum())} of {k.numel()} "
+                        f"values differ, by up to {int(ulps.max())} ulps")
+
+
+@pytest.mark.parametrize("case", sorted(shade_cases.CASES))
+def test_shade_kernels_match_plain(dev, case):
+    """hr_shade_hit and hr_shade_finish against their plain versions on
+    the card, on each case's hits (tests/torch_shade_cases.py: quantized
+    rows, four texture slots and the normal map, NEE in a row window, an
+    equirect sky, IBL off, LIGHT off, a tile-order tracer, a cut-out
+    scene; inactive rays and misses in each): every output bit for bit.
+    trace_radiance then launches each kernel once and no plain version,
+    and returns what the plain stages compose."""
+    from hybridrenderer_tpu_torch.ops import shade_cuda
+
+    tracer, data, ctx, o, d, a, row0 = shade_cases.build(case, dev)
+    h = tracer.radiance_hits(o, d, a)
+    args = (tracer.shade_rows, data, h.o, h.d, h.t, h.tri, h.u, h.v, h.hit,
+            ctx, h.fwd, row0 * h.lead[1])
+    k = shade_cuda.shade_hit_prepare(*args)
+    p = shade_cuda.shade_hit_prepare_plain(*args)
+    assert (k.sun, k.nee) == (p.sun, p.nee)
+    for name in ("occ_o", "occ_d", "occ_act", "terms"):
+        _assert_same(getattr(k, name), getattr(p, name), name)
+    R = h.o.shape[0]
+    vis = tracer.occluded(p.occ_o, p.occ_d, shade_cuda.SHADOW_TMAX,
+                          p.occ_act, h.width)
+    fargs = (data, ctx, p.terms, vis[:R] if p.sun else None,
+             vis[-R:] if p.nee else None, h.hit, h.t, h.d, h.pos)
+    fk = shade_cuda.shade_hit_finish(*fargs)
+    fp = shade_cuda.shade_hit_finish_plain(*fargs)
+    for name, x, y in zip(("rgb", "dist"), fk, fp):
+        _assert_same(x, y, name)
+    native.reset_counts()
+    rgb, dist = tracer.trace_radiance(data, o, d, ctx, 0, active=a,
+                                      row0=row0)
+    counts = native.counts()
+    assert counts["shade_hit"] == (1, 0) and counts["shade_finish"] == (1, 0)
+    assert not any(plain for _, plain in counts.values())
+    _assert_same(rgb.reshape(-1, 3), fp[0], "trace_radiance rgb")
+    _assert_same(dist.reshape(-1), fp[1], "trace_radiance distance")
+
+
+def test_replayed_full_graph_frame_launches_the_shading_pair(dev):
+    """A replayed full-graph frame shades its reflection and GI hits with
+    one hr_shade_hit and one hr_shade_finish each, and runs no plain
+    version."""
+    _, _, r = _render_frames(dev, "full_graph", True, frames=3)
+    _, _, cam_kw, _, _ = _capture_case("full_graph")
+    native.reset_counts()
+    r.render(OrbitCamera(width=64, height=64, **cam_kw).step())
+    counts = native.counts()
+    assert counts["shade_hit"] == (2, 0) and counts["shade_finish"] == (2, 0)
+    assert not any(plain for _, plain in counts.values())
