@@ -16,8 +16,9 @@ depth gradient that can be nought, so a last-place difference in a
 pixel's depth can change which neighbours it averages; the reference's
 filters therefore weigh neighbours by the program's depth, normal and
 object planes (render.py), which the numbers below hold to the
-reference's own. The image is judged by its mean difference, the
-layers under it pixel by pixel. Each number is its worst frame's."""
+reference's own. The image is judged by its mean difference and by its
+worst band of rows' (a sharded cell's seams), the layers under it pixel
+by pixel. Each number is its worst frame's."""
 from __future__ import annotations
 
 import math
@@ -74,9 +75,22 @@ def image_mean_abs(p, r):
     return float((p["image"] - r["image"]).abs().amax(-1).mean())
 
 
+BAND = 16
+
+
+def image_band_max(p, r):
+    """The largest, over bands of BAND rows of the image (the last one
+    may be shorter), of a band's mean of the largest channel's
+    difference: a seam along rows, such as a shard leaves that filters
+    its rows without its neighbours', shows here long before it moves
+    the whole image's mean."""
+    d = (p["image"] - r["image"]).abs().amax(-1).mean(-1)
+    return max(float(b.mean()) for b in d.split(BAND))
+
+
 NUMBERS = {f.__name__: f for f in (object_mismatch, depth_p999,
                                    shadow_ao_mismatch, radiance_p99,
-                                   image_mean_abs)}
+                                   image_mean_abs, image_band_max)}
 
 
 def applicable(frame) -> list:

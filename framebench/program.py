@@ -2,7 +2,10 @@
 it: the scene built from the benchmark's arrays through the port's
 host Scene, its ``Renderer``, and one frame through the entry the cell
 times: ``Renderer.render``, or ``DynamicScene.commit_and_render`` where
-the traffic moves entities. Only the port's public classes are used.
+the traffic moves entities. A configuration with ``"shards": n`` (n > 1)
+renders through ``ShardedRenderer`` instead, its rows split over a mesh
+of n devices: ``cuda:0`` ... ``cuda:n-1``, or n shards on one CPU. Only
+the port's public classes are used.
 """
 from __future__ import annotations
 
@@ -33,8 +36,19 @@ class Program:
         host = scenegen.build_host_scene(desc, Scene, Material, MeshData,
                                          TextureStack, torch.from_numpy)
         data = host.build(device)
-        self.renderer = Renderer.for_scene(settings, data)
-        self.devices = [device]
+        shards = cfg.get("shards", 1)
+        if shards == 1:
+            self.renderer = Renderer.for_scene(settings, data)
+            self.devices = [device]
+        else:
+            from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
+            from hybridrenderer_tpu_torch.parallel.sharded import \
+                ShardedRenderer
+
+            mesh = make_mesh(shards) if device.type == "cuda" \
+                else make_mesh(devices=[device] * shards)
+            self.renderer = ShardedRenderer.for_scene(settings, data, mesh)
+            self.devices = list(mesh.distinct)
         self.dynamic = DynamicScene(host, self.renderer) \
             if traffic.moved else None
 
@@ -58,20 +72,22 @@ class Program:
 
     def planes(self) -> dict:
         """The planes the last frame left in the renderer's history, on
-        the host, under compare.py's names."""
-        h = self.renderer.state.history
+        the host, under compare.py's names: a sharded renderer's shards'
+        rows joined in rank order."""
+        hs = getattr(self.renderer, "histories", None) \
+            or [self.renderer.state.history]
 
-        def host(x):      # a copy: the renderer reuses its buffers
-            return x.to("cpu", copy=True)
+        def host(name):   # a copy: the renderer reuses its buffers
+            return torch.cat([h[name].to("cpu", copy=True) for h in hs])
 
-        out = {"object_id": host(h["ObjectID"].long()),
-               "normal": host(h["Normal"].float()),
-               "motion": host(h["Motion"].float())}
+        out = {"object_id": host("ObjectID").long(),
+               "normal": host("Normal").float(),
+               "motion": host("Motion").float()}
         out["depth"] = out["motion"][..., 2]
         for name, prefix in (("shadow_ao", "SVGF_ShadowAO"),
                              ("reflection", "SVGF_Refl"), ("gi", "SVGF_GI")):
-            if prefix + "Moments" in h:
-                out[name] = host(h[prefix + "Moments"][..., 0].float())
+            if prefix + "Moments" in hs[0]:
+                out[name] = host(prefix + "Moments")[..., 0].float()
         return out
 
     def capture_ms(self) -> float:

@@ -78,6 +78,9 @@ def test_union_idle_and_gaps():
     assert t.is_port_kernel("void trace_any_kernel<4>(float4 const*)")
     assert not t.is_port_kernel("void trace_any_kernel_v2(int)")
     assert spec.metric("device.idle_share")(t) == pytest.approx(0.65)
+    # a sharded cell's split metrics read as the shared ones
+    for name in ("device.idle_share", "kernels.device_ms", "ops.device_ms"):
+        assert spec.metric(name + ".sharded")(t) == spec.metric(name)(t)
 
 
 def test_a_device_not_traced_reads_nothing():
@@ -85,6 +88,15 @@ def test_a_device_not_traced_reads_nothing():
     assert spec.metric("device.idle_share")(t) is None
     assert rooflines.share(t, "K2") is None
     assert spec.metric("kernels.device_ms")(t) is None
+
+
+def test_traced_frames_tail_and_silence_without_frames():
+    # twenty frame spans of 10..29 ms (host us), in no order
+    spans = [("frame", 1e5 * k, 1e5 * k + 1e3 * (10 + (7 * k) % 20))
+             for k in range(20)] + [("render", 0.0, 5e4)]
+    p95 = spec.metric("parallel.frame_ms_p95")
+    assert p95(_trace([], spans, devices=4)) == pytest.approx(28.0)
+    assert p95(_trace([], [("render", 0.0, 5e4)])) is None
 
 
 def test_roofline_share_of_a_kernel_and_silence_when_absent():

@@ -12,6 +12,8 @@ from framebench import spec
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+FRAME = {m["name"] for m in BENCH["end_to_end"]
+         if m["name"].split(".")[0] == "frame_ms"}
 
 
 def test_keys_and_sizes():
@@ -44,7 +46,10 @@ def test_cell_found_by_name(w):
     limits = spec.limits(w["name"])
     assert limits and all(v >= 0 for v in limits.values())
     e2e = {m["name"] for m in spec.end_to_end(BENCH, w["name"])}
-    assert e2e == {"setup_s", "frame_ms", "frame_ms_p95"}
+    # set-up and a frame time: frame_ms, or frame_ms.<kind> bounded apart
+    assert "setup_s" in e2e and len(e2e & FRAME) == 1
+    assert {n.split(".")[0] for n in e2e} <= {"setup_s", "frame_ms",
+                                              "frame_ms_p95"}
     assert spec.per_layer(BENCH, w["name"])
 
 
@@ -55,11 +60,14 @@ def test_metric_reader_found_by_name(m):
     assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
     cells = {w["name"] for w in BENCH["workloads"]}
     assert set(m.get("workloads", cells)) <= cells
+    for name in m.get("workloads", cells):      # each reports what it moves
+        assert m["moves"] in {e["name"] for e in spec.end_to_end(BENCH, name)}
 
 
 def test_end_to_end_bounds():
     names = [m["name"] for m in BENCH["end_to_end"]]
-    assert names == ["setup_s", "frame_ms", "frame_ms_p95"]
+    assert names[:3] == ["setup_s", "frame_ms", "frame_ms_p95"]
+    assert {n.split(".")[0] for n in names[3:]} <= set(names[1:3])
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
 

@@ -3,9 +3,11 @@ small size past the harness's look for a card, comes out correct, and
 comes out not correct with the timed path broken underneath, once for
 each fault the cell can have: a step that returns its state unchanged
 (the history, and in the dynamic cell the scene too), half of the image
-left out, and an answer altered where it is produced: one 40 x 40 block
+left out, an answer altered where it is produced: one 40 x 40 block
 of the image brightened by 0.5 (a single pixel is below what the image's
-mean difference can see, compare.py). The cell's own limits judge."""
+mean difference can see, compare.py), and in a sharded cell (four shards
+on the CPU) the exchange between shards left out. The cell's own limits
+judge."""
 import time
 
 import pytest
@@ -21,6 +23,11 @@ def _small(name):
     w = spec.cell(BENCH, name)
     cfg = spec.config(BENCH, w["config"])
     cfg["scene"].update(num_objects=24, spheres=10, tex_size=16)
+    if cfg.get("shards", 1) > 1:
+        # the seams between shards have to cross shadows and objects, as
+        # they do among the cell's 1,000: across 24 objects' floor and sky
+        # a shard left without its neighbours' rows reads under the limits
+        cfg["scene"].update(num_objects=200, spheres=96)
     cfg["render"].update(width=96, height=64)
     return harness.Cell(BENCH, w, cfg, spec.traffic(w["traffic"]),
                         spec.limits(name), 2 ** 31 + 11)
@@ -80,15 +87,36 @@ def scene_unchanged(monkeypatch):
                         lambda self, *a, **kw: (self.scene, self.tracer))
 
 
+def exchange_left_out(monkeypatch):
+    # the rows a shard would take from the other shards (halos, gathers)
+    # arrive as zeros
+    from hybridrenderer_tpu_torch.parallel.sharded import RowExchange
+
+    orig = RowExchange._take
+
+    def take(self, blocks, wanted):
+        blocks = [b if j == self.rank else tuple(map(torch.zeros_like, b))
+                  for j, b in enumerate(blocks)]
+        return orig(self, blocks, wanted)
+
+    monkeypatch.setattr(RowExchange, "_take", take)
+
+
 FAULTS = [(c, f) for c in CELLS
           for f in (state_unchanged, half_left_out, answer_altered)]
 FAULTS += [("stress.dynamic", scene_unchanged)]
+FAULTS += [(w["name"], exchange_left_out) for w in BENCH["workloads"]
+           if spec.config(BENCH, w["config"]).get("shards", 1) > 1]
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_sound_run_is_correct(name, monkeypatch):
     res = _run(name, monkeypatch)
     assert res["correct"], res["checks"]
+    # the cell's end-to-end metrics, frame_ms.sharded read as frame_ms
+    assert set(res["metrics"]) == {m["name"] for m in
+                                   spec.end_to_end(BENCH, name)}
+    assert all(v["value"] > 0 for v in res["metrics"].values())
 
 
 @pytest.mark.parametrize("name,fault", FAULTS,
