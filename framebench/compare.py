@@ -8,17 +8,21 @@ float32 frame; ``object_id``, the object each pixel shows (-1: none);
 SVGF chain (``shadow_ao``, ``reflection``, ``gi``) the first moment of
 the luminance it accumulated over time, which the chain carries to the
 next frame: of the raw shadow and AO signal, and of the reflection and
-GI radiance over albedo. The program's planes other than the image are
-the history its renderer carries (``Renderer.state``).
+GI radiance over albedo; a path without SVGF (FORWARD) has none, and
+the numbers that read them do not apply to it. The program's planes
+other than the image are the history its renderer carries
+(``Renderer.state``).
 
 The SVGF filters weigh neighbours by their depth difference over a
 depth gradient that can be nought, so a last-place difference in a
 pixel's depth can change which neighbours it averages; the reference's
 filters therefore weigh neighbours by the program's depth, normal and
-object planes (render.py), which the numbers below hold to the
-reference's own. The image is judged by its mean difference and by its
-worst band of rows' (a sharded cell's seams), the layers under it pixel
-by pixel. Each number is its worst frame's."""
+object planes (render.py), and the forward reference's TAA picks each
+pixel's nearest neighbour by the program's depth (forward.py): the
+numbers below hold those planes to the reference's own. The image is
+judged by its mean difference and by its worst band of rows' (a sharded
+cell's seams), the layers under it pixel by pixel. Each number is its
+worst frame's."""
 from __future__ import annotations
 
 import math
@@ -93,10 +97,13 @@ NUMBERS = {f.__name__: f for f in (object_mismatch, depth_p999,
                                    image_mean_abs, image_band_max)}
 
 
+NEEDS = {"shadow_ao_mismatch": ("shadow_ao",),
+         "radiance_p99": ("reflection", "gi")}
+
+
 def applicable(frame) -> list:
     """The numbers a frame's planes allow."""
-    return [k for k in NUMBERS if k != "radiance_p99"
-            or all(c in frame for c in ("reflection", "gi"))]
+    return [k for k in NUMBERS if all(c in frame for c in NEEDS.get(k, ()))]
 
 
 def readings(program_frames, reference_frames, names) -> dict:

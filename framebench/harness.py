@@ -177,11 +177,12 @@ def program_frames(prog, k0: int) -> list:
 
 def reference_frames(cell, desc, traffic, k0, device, program,
                      tf32=False) -> list:
-    """The reference's CHECK_FRAMES frames k0.. on ``device``, on the
-    host, its SVGF filters guided by the ``program`` frames' planes.
-    ``tf32`` computes its matrix products in TF32: the control, the
-    precision below the configuration's."""
-    from .reference.render import Reference
+    """The reference of the configuration's render path (spec.reference)
+    renders CHECK_FRAMES frames k0.. on ``device``, on the host, each
+    handed the ``program`` frame's planes (the hybrid reference's SVGF
+    filters are guided by them). ``tf32`` computes its matrix products
+    in TF32: the control, the precision below the configuration's."""
+    Reference = spec.reference(cell.config["render"]["path"])
 
     gc.collect()
     if device.type == "cuda":

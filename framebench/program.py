@@ -72,8 +72,9 @@ class Program:
 
     def planes(self) -> dict:
         """The planes the last frame left in the renderer's history, on
-        the host, under compare.py's names: a sharded renderer's shards'
-        rows joined in rank order."""
+        the host, under compare.py's names, and ``device_depth``, the
+        raster's reversed-Z depth, which the forward reference's TAA
+        reads: a sharded renderer's shards' rows joined in rank order."""
         hs = getattr(self.renderer, "histories", None) \
             or [self.renderer.state.history]
 
@@ -84,6 +85,8 @@ class Program:
                "normal": host("Normal").float(),
                "motion": host("Motion").float()}
         out["depth"] = out["motion"][..., 2]
+        if "Depth" in hs[0]:          # reversed-Z, as the raster wrote it
+            out["device_depth"] = host("Depth").float()
         for name, prefix in (("shadow_ao", "SVGF_ShadowAO"),
                              ("reflection", "SVGF_Refl"), ("gi", "SVGF_GI")):
             if prefix + "Moments" in hs[0]:

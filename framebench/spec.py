@@ -9,7 +9,10 @@ found by its name:
 * ``metrics/<metric>.py`` with ``read(trace) -> number or None``,
 * ``roofline/<kernel>.py`` with ``NAMES`` (the kernel's function names in
   the port's csrc/) and ``count(shape) -> (bytes, flop)`` a frame,
-* ``limits/<cell>.json``: each compared number's limit.
+* ``limits/<cell>.json``: each compared number's limit,
+* ``reference/<path>.py`` with a class ``Reference``: the plain
+  reference of the configurations whose ``render.path`` is ``<path>``,
+  lower-cased (``reference/hybrid.py``, ``reference/forward.py``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import glob
 import importlib.util
 import json
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -76,6 +80,17 @@ def rooflines() -> dict:
         name = os.path.basename(path)[:-3]
         out[name] = _module("roofline", name)
     return out
+
+
+def reference(path: str):
+    """The reference class of render path ``path`` (a RenderPathType
+    name): ``Reference`` of reference/<path lower-cased>.py."""
+    name = str(path).lower()
+    if not re.fullmatch(r"[a-z][a-z0-9_]*", name) or not os.path.exists(
+            os.path.join(HERE, "reference", f"{name}.py")):
+        raise KeyError(f"no reference file reference/{name}.py for the "
+                       f"render path {path!r}")
+    return importlib.import_module(f"framebench.reference.{name}").Reference
 
 
 def peaks() -> dict:

@@ -26,15 +26,34 @@ def test_rate_and_tail_over_a_window_with_a_stall():
         stats.rate_ms(1.0, 0)
 
 
-def _shape(extra=(), w=1920, h=1080, **settings):
-    return FrameShape.of({"width": w, "height": h, "flags": HYBRID
-                          + list(extra), "settings": settings})
+FORWARD = ["LIGHT", "IBL", "EMISSIVE", "SHADOW", "TAA"]
+
+
+def _shape(extra=(), w=1920, h=1080, path="HYBRID", **settings):
+    flags = HYBRID if path == "HYBRID" else FORWARD
+    return FrameShape.of({"width": w, "height": h, "path": path,
+                          "flags": flags + list(extra),
+                          "settings": settings})
+
+
+def _counts(s):
+    return (s.any_hit_queries, s.radiance_queries, s.svgf_chains,
+            s.taa_fetches)
 
 
 def test_queries_and_chains_follow_the_flags():
     h, f = _shape(), _shape(["REFLECTION", "GI"])
-    assert (h.any_hit_queries, h.radiance_queries, h.svgf_chains) == (2, 0, 1)
-    assert (f.any_hit_queries, f.radiance_queries, f.svgf_chains) == (4, 2, 3)
+    assert _counts(h) == (2, 0, 1, 0)
+    assert _counts(f) == (4, 2, 3, 0)
+    # the forward path: the sun's shadow query, TAA's history fetch; AO,
+    # radiance rays and SVGF flags give it nothing, the hybrid path no TAA
+    fwd = _shape(path="FORWARD")
+    assert _counts(fwd) == (1, 0, 0, 1)
+    assert _counts(_shape(["AO", "REFLECTION", "GI", "SVGF"],
+                          path="FORWARD")) == (1, 0, 0, 1)
+    assert _counts(_shape(["TAA"])) == (2, 0, 1, 0)
+    with pytest.raises(ValueError):
+        _shape(path="RAYTRACED")
 
 
 def test_roofline_counts_from_shapes():
@@ -52,11 +71,30 @@ def test_roofline_counts_from_shapes():
     assert r["K4a"].count(h) == (px * 48 * 3, px * 200 * 3)
 
 
-def _trace(ops, spans=(), start=0.0, end=1000.0, frames=1, devices=1):
+def test_k5_counts_the_forward_frame_and_no_hybrid_cell():
+    r = spec.rooflines()
+    px = 1920 * 1080
+    fwd = _shape(path="FORWARD")
+    # uv 8 B, three float32 history planes 12 B, the sample 12 B
+    assert r["K5"].count(fwd) == (px * 32, 0)
+    assert math.isclose(rooflines.bound_ms(_trace([], shape=fwd), "K5"),
+                        0.0198, rel_tol=0.01)
+    assert r["K2"].count(fwd) == (px * 25, 0)
+    for name in ("K2c", "K3", "K4m", "K4a"):
+        assert r[name].count(fwd) == (0, 0)
+    bench = spec.benchmark()
+    for w in bench["workloads"]:
+        cfg = spec.config(bench, w["config"])
+        if cfg["render"]["path"] == "HYBRID":
+            assert r["K5"].count(FrameShape.of(cfg["render"])) == (0, 0)
+
+
+def _trace(ops, spans=(), start=0.0, end=1000.0, frames=1, devices=1,
+           shape=None):
     return profile.Trace(
         ops=list(ops), spans=list(spans), start=start, end=end,
         frames=frames, kernel_names=frozenset({"trace_any_kernel"}),
-        shape=_shape(), counters={}, rooflines=spec.rooflines(),
+        shape=shape or _shape(), counters={}, rooflines=spec.rooflines(),
         peaks=spec.peaks(), devices=devices)
 
 
@@ -131,7 +169,8 @@ def test_the_harness_and_the_port_load_no_jax():
 
     code = ("import sys; sys.path.insert(0, %r); "
             "import framebench.harness, framebench.program, "
-            "framebench.calibrate, framebench.reference.render; "
+            "framebench.calibrate, framebench.reference.render, "
+            "framebench.reference.forward; "
             "import hybridrenderer_tpu_torch.runtime.renderer, "
             "hybridrenderer_tpu_torch.scene.dynamic, "
             "hybridrenderer_tpu_torch.ops.trace; "

@@ -1,6 +1,8 @@
 """BENCHMARK.json against the benchmark's files: every configuration,
-traffic mix, per-layer metric and cell is found by its name, and the
-file keeps to the limits a benchmark is held to."""
+traffic mix, per-layer metric, cell and render path's reference is
+found by its name, and the file keeps to the limits a benchmark is held
+to."""
+import importlib
 import json
 import os
 import re
@@ -72,11 +74,26 @@ def test_end_to_end_bounds():
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
 
 
+@pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
+def test_reference_found_by_the_render_path(c):
+    # reference/<path lower-cased>.py: a configuration on another path
+    # brings its reference as a file of its own, and the harness (which
+    # asks spec.reference) needs no edit
+    path = spec.config(BENCH, c["name"])["render"]["path"]
+    ref = spec.reference(path)
+    mod = importlib.import_module(f"framebench.reference.{path.lower()}")
+    assert mod.Reference is ref
+    assert callable(ref.frame) and callable(ref.move_to)
+
+
 def test_unknown_names_raise():
     with pytest.raises(KeyError):
         spec.cell(BENCH, "no.such.cell")
     with pytest.raises(KeyError):
         spec.metric("no_such_metric")
+    for path in ("NO_SUCH_PATH", "../render", "Render.py", ""):
+        with pytest.raises(KeyError):
+            spec.reference(path)
 
 
 def test_every_roofline_file_counts():

@@ -6,8 +6,10 @@ each fault the cell can have: a step that returns its state unchanged
 left out, an answer altered where it is produced: one 40 x 40 block
 of the image brightened by 0.5 (a single pixel is below what the image's
 mean difference can see, compare.py), and in a sharded cell (four shards
-on the CPU) the exchange between shards left out. The cell's own limits
-judge."""
+on the CPU) the exchange between shards left out. The forward cell has
+two of its own: the forward pass's shadow query answering "lit"
+everywhere, and TAA's history fetch returning the current colour in
+place of the reprojected history. The cell's own limits judge."""
 import time
 
 import pytest
@@ -102,9 +104,34 @@ def exchange_left_out(monkeypatch):
     monkeypatch.setattr(RowExchange, "_take", take)
 
 
+def shadow_lit(monkeypatch):
+    from hybridrenderer_tpu_torch.ops.trace import SceneTracer
+
+    monkeypatch.setattr(
+        SceneTracer, "shadow_query",
+        lambda self, world_pos, *a, **kw: torch.ones(
+            world_pos.shape[:2], device=world_pos.device))
+
+
+def history_is_current(monkeypatch):
+    from hybridrenderer_tpu_torch.ops import taa
+
+    resolve, current = taa.resolve, {}
+
+    def keep(cur, *a, **kw):
+        current["colour"] = cur
+        return resolve(cur, *a, **kw)
+
+    monkeypatch.setattr(taa, "resolve", keep)
+    monkeypatch.setattr(taa, "window_sample",
+                        lambda image, uv: current["colour"])
+
+
 FAULTS = [(c, f) for c in CELLS
           for f in (state_unchanged, half_left_out, answer_altered)]
 FAULTS += [("stress.dynamic", scene_unchanged)]
+FAULTS += [("forward.orbit", shadow_lit), ("forward.orbit",
+                                           history_is_current)]
 FAULTS += [(w["name"], exchange_left_out) for w in BENCH["workloads"]
            if spec.config(BENCH, w["config"]).get("shards", 1) > 1]
 

@@ -2,7 +2,11 @@
 against the analytic ray-plane intersection (a floor that reaches
 behind the camera too), its tree against testing every triangle, its
 direction patterns and ray offsets against the port's, which carry the
-same meaning; and the reference loads nothing of the port."""
+same meaning; the forward frame against the closed-form sun and sky
+light of a plane seen head-on, and a blocker's shadow; TAA's resolve
+against what a first frame, an image resolved against itself and an
+outlying history must give; and the references load nothing of the
+port."""
 import subprocess
 import sys
 
@@ -10,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from framebench import spec
-from framebench.reference import bvh, raster, shading
-from framebench.traffic import perspective_reversed_z, view_matrix
+from framebench import scenegen, spec
+from framebench.reference import bvh, forward, raster, shading, taa
+from framebench.traffic import Traffic, perspective_reversed_z, view_matrix
 
 W, H = 64, 40
 
@@ -120,10 +124,127 @@ def test_directions_and_offsets_mean_what_the_ports_do():
 
 def test_the_reference_loads_nothing_of_the_port():
     code = ("import sys; sys.path.insert(0, %r); "
-            "import framebench.reference.render; "
+            "import framebench.reference.render, "
+            "framebench.reference.hybrid, framebench.reference.forward, "
+            "framebench.reference.taa; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'hybridrenderer_tpu_torch', 'hybridrenderer_tpu', 'jax'}))"
             % spec.ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=True)
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# --- the forward frame ----------------------------------------------------
+
+FWD = {"render": {"path": "FORWARD", "width": W, "height": H,
+                  "flags": ["LIGHT", "IBL", "EMISSIVE", "SHADOW", "TAA"]}}
+FLOOR = dict(colour=(0.6, 0.5, 0.4), roughness=0.5)
+
+
+def _forward_frame(sun, blocker=False, intensity=3.0):
+    """The first forward frame of a 60 x 60 floor (and a 2-unit box
+    floating 3 to 5 units above its middle), seen from 20 units straight
+    above, unjittered → (image, G-buffer)."""
+    meshes, transforms = [scenegen.plane(60.0, 0, 1.0)], [np.eye(4)]
+    if blocker:
+        t = np.diag([2.0, 2.0, 2.0, 1.0])
+        t[1, 3] = 4.0
+        meshes.append(scenegen.cube(1))
+        transforms.append(t)
+    desc = scenegen.SceneDesc(
+        materials=[FLOOR, dict(colour=(0.2, 0.2, 0.2))], meshes=meshes,
+        transforms=np.stack(transforms).astype(np.float32),
+        kinds=["floor", "box"][:len(meshes)], textures=None,
+        sun=dict(direction=sun, intensity=intensity))
+    traffic = Traffic({"camera": dict(
+        distance=20.0, pitch=np.pi / 2, yaw=0.0, focal_point=[0, 0, 0],
+        orbit=0.0, taa_jitter=False)}, 1, W, H, desc.kinds,
+        desc.transforms)
+    ref = forward.Reference(FWD, desc, traffic, torch.device("cpu"))
+    out = ref.frame(1)
+    g = ref._gbuffer(forward.Camera(*traffic.camera(1), device="cpu"))
+    return out["image"], g
+
+
+def test_forward_lights_a_plane_seen_head_on_as_the_closed_form():
+    # sun and eye straight above: n = v = l, so the GGX term is
+    # F D G / 4 with F = 0.04, D = 1 / (pi a^2), G = 1, and the sky
+    # along the normal and the mirror ray is the zenith's colour
+    image, _ = _forward_frame((0.0, -1.0, 0.0))
+    albedo = np.array(FLOOR["colour"])
+    a = (FLOOR["roughness"] ** 2) ** 2
+    direct = (albedo * 0.96 / np.pi + 0.04 / (4.0 * np.pi * a)) * 3.0
+    zenith = np.array([0.1, 0.2, 0.4])
+    ambient = (0.96 * zenith * albedo + 0.04 * zenith) * 0.05
+    want = (direct + ambient) ** (1.0 / 2.2)
+    centre = image[H // 2 - 1:H // 2 + 1, W // 2 - 1:W // 2 + 1]
+    assert np.allclose(centre.reshape(-1, 3).numpy(), want, rtol=1e-3)
+
+
+def test_forward_pixel_behind_a_blocker_has_no_direct_term():
+    # the sun along (1, 2, 0): the box's shadow falls on the floor over
+    # x in [-3.5, -0.5], z in [-1, 1]; where the floor shows there, the
+    # pixel is what the floor gives with the sun put out
+    sun = (-1.0, -2.0, 0.0)
+    shadowed, g = _forward_frame(sun, blocker=True)
+    dark, _ = _forward_frame(sun, intensity=0.0)
+    lit, _ = _forward_frame(sun)
+    pos = g["pos"]
+    under = g["fg"] & (pos[..., 0] > -3.3) & (pos[..., 0] < -1.7) \
+        & (pos[..., 2].abs() < 0.8) & (pos[..., 1].abs() < 1e-4)
+    assert under.sum() >= 4
+    assert torch.allclose(shadowed[under], dark[under], atol=1e-6)
+    assert (lit[under] > dark[under] + 0.05).all()
+
+
+def _smooth(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32),
+                            indexing="ij")
+    c = torch.rand(3, generator=g) * 0.02
+    return torch.stack([0.3 + c[i] * xs + 0.01 * ys * i for i in range(3)],
+                       -1)
+
+
+def _nearness():
+    return torch.linspace(0.1, 0.9, W).expand(H, W).contiguous()
+
+
+def test_taa_first_frame_is_the_current_image():
+    g = torch.Generator().manual_seed(4)
+    cur = torch.rand(H, W, 3, generator=g) * 3.0
+    motion = (torch.rand(H, W, 2, generator=g) - 0.5) * 0.02
+    out = taa.resolve(cur, None, motion, _nearness(), (0.01, -0.02),
+                      (0.0, 0.0))
+    assert torch.allclose(out, cur, rtol=1e-5, atol=1e-6)
+
+
+def test_taa_resolves_a_still_image_against_itself_to_itself():
+    cur = _smooth()
+    zero = torch.zeros(H, W, 2)
+    out = taa.resolve(cur, cur.clone(), zero, _nearness(), (0.0, 0.0),
+                      (0.0, 0.0))
+    assert torch.allclose(out, cur, rtol=1e-5, atol=1e-6)
+    # a history of another colour is blended in by 0.9
+    other = taa.resolve(cur, cur * 0.99, zero, _nearness(), (0.0, 0.0),
+                        (0.0, 0.0))
+    assert not torch.allclose(other, cur, rtol=1e-4)
+
+
+def test_taa_clip_pulls_an_outlying_history_onto_the_box():
+    lo = torch.tensor([0.2, -0.1, -0.05])
+    hi = torch.tensor([0.4, 0.1, 0.05])
+    far = torch.tensor([0.9, 0.3, -0.2])
+    got = taa.clip_to_box(far, lo, hi)
+    assert ((got >= lo - 1e-6) & (got <= hi + 1e-6)).all()
+    on_face = torch.isclose(got, lo, atol=1e-6) | torch.isclose(got, hi,
+                                                                atol=1e-6)
+    assert on_face.any()
+    centre = 0.5 * (lo + hi)
+    # on the segment from the history to the box's centre
+    s = (got - far) / (centre - far)
+    assert torch.allclose(s, s[0].expand(3), atol=1e-5) and 0 < s[0] < 1
+    inside = torch.tensor([0.3, 0.02, 0.01])
+    assert torch.equal(taa.clip_to_box(inside, lo, hi), inside)
