@@ -27,7 +27,9 @@ non-zero without printing a result):
    bf16, K1v, K3, K5, variance_blur), the hit-shading pair
    (hr_shade_hit, hr_shade_finish, on one 1080p full-graph frame's
    reflection and GI hits of the 1000-object scene from framebench's
-   camera, exact) and K5's library call as device
+   camera, exact), TAA's resolve pair (hr_taa_reproject,
+   hr_taa_resolve, on the resolves of forward.orbit's 1080p frame, exact)
+   and K5's library call as device
    time (device_time: graphs of calls over input sets no call finds in
    L2) beside their eager calls' time, K5 at the sharded frame's shard
    shape too; K1's bf16 mode (raster_attr_bits=16) beside
@@ -1736,6 +1738,117 @@ def check_window_sample(dev):
                 tol="exact, at both shapes")
 
 
+# a TAA frame's launches: the reprojection, the history fetch K5, the
+# resolve
+TAA = ["taa_reproject", "window_sample", "taa_resolve"]
+# forward.orbit's frames whose TAA resolves check_taa records (3-6, a
+# valid history and an orbiting camera)
+TAA_FRAMES = 4
+
+
+def check_taa(dev):
+    """TAA's resolve pair (hr_taa_reproject, hr_taa_resolve) on the
+    resolves of forward.orbit's frame: 1920x1080 forward + TAA with the
+    sun's shadow ray on the 1000-object textured scene, framebench's
+    camera orbiting 0.01 rad a frame, frames 3-6 recorded as the TAA pass
+    hands them over. Each kernel against its plain version on the card
+    at its stage's inputs (K5's sample between them), bit for bit, and
+    its device time over those inputs (device_time) beside its bound:
+    the bytes the stage must move, each once (reproject: depth, the
+    winner's motion, prev_uv and alpha, 24 B a pixel; resolve: colour,
+    the sample and alpha in, the colour out, 40 B a pixel). Prints the
+    three launches' device time together beside their 96 B a pixel."""
+    import torch
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.core.config import RenderSettings
+    from hybridrenderer_tpu_torch.core.types import RenderFlags, RenderPathType
+    from hybridrenderer_tpu_torch.ops import taa, taa_cuda, temporal_cuda
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    data = scenes.stress_scene(num_objects=SPONZA_OBJECTS, textured=True,
+                               tex_size=TEX_SIZE).build(dev)
+    s = RenderSettings(width=W, height=H, path=RenderPathType.FORWARD,
+                       flags=RenderFlags.LIGHT | RenderFlags.IBL
+                       | RenderFlags.EMISSIVE | RenderFlags.SHADOW
+                       | RenderFlags.TAA)
+    r = Renderer.for_scene(s, data, capture=False)
+    resolve, calls = taa.resolve, []
+
+    def recording(*a, **kw):
+        # the history buffer is updated in place: keep this frame's copy
+        calls.append((tuple(x.clone() for x in a), kw))
+        return resolve(*a, **kw)
+
+    taa.resolve = recording
+    cam = OrbitCamera(width=W, height=H, **BENCH_CAM)
+    try:
+        for _ in range(2 + TAA_FRAMES):
+            r.render(cam.step(taa_enabled=True))
+            cam.orbit(0.01, 0.0)
+    finally:
+        taa.resolve = resolve
+    del r
+    reprojects, resolves, whole = [], [], []
+    for (cur, hist, motion, depth, jit, prev_j), kw in calls[-TAA_FRAMES:]:
+        if not kw["history_valid"] or cur.shape != (H, W, 3):
+            raise AssertionError(f"unexpected TAA call: {kw}, "
+                                 f"{tuple(cur.shape)}")
+        rargs = (motion, depth, jit, prev_j, True, kw.get("row0", 0),
+                 hist.shape[0])
+        k_uv, k_alpha = taa_cuda.taa_reproject(*rargs)
+        p_uv, p_alpha = taa_cuda.taa_reproject_plain(*rargs)
+        for name, a, b in (("prev_uv", k_uv, p_uv), ("alpha", k_alpha,
+                                                     p_alpha)):
+            if not torch_equal_nan(a, b):
+                raise AssertionError(
+                    f"hr_taa_reproject's {name} differs from the plain "
+                    f"version's at {int((a != b).sum())} values")
+        sample = temporal_cuda.window_sample(hist, p_uv)
+        sargs = (cur, sample, p_alpha)
+        k = taa_cuda.taa_resolve(*sargs)
+        p = taa_cuda.taa_resolve_plain(*sargs)
+        if not torch_equal_nan(k, p):
+            raise AssertionError(f"hr_taa_resolve differs from the plain "
+                                 f"version's at {int((k != p).sum())} "
+                                 f"values")
+        if not torch_equal_nan(taa.resolve(cur, hist, motion, depth, jit,
+                                           prev_j, True), p):
+            raise AssertionError("taa.resolve differs from its plain stages")
+        reprojects.append(rargs)
+        resolves.append(sargs)
+        whole.append((cur, hist, motion, depth, jit, prev_j, True))
+    moving = float((p_alpha > 0.1).float().mean())
+    on = float((p_alpha < 1.0).float().mean())
+    px = W * H
+    out = {}
+    for name, fn, plain, sets, per_px in (
+            ("taa_reproject", taa_cuda.taa_reproject,
+             taa_cuda.taa_reproject_plain, reprojects, 24),
+            ("taa_resolve", taa_cuda.taa_resolve,
+             taa_cuda.taa_resolve_plain, resolves, 40)):
+        out[name] = dict(
+            err=0.0, ms=device_time(fn, sets),
+            eager_ms=cuda_time(lambda: fn(*sets[0]), 20),
+            plain_ms=cuda_time(lambda: plain(*sets[0]), 3),
+            bound=bound(per_px * px, 0),
+            shape=f"{W}x{H}, frames 3-{2 + TAA_FRAMES} of forward.orbit's "
+                  f"frame ({SPONZA_OBJECTS} textured objects, framebench's "
+                  f"camera): {on:.4f} of pixels blend history, {moving:.4f} "
+                  f"with alpha above 0.1; device time over {TAA_FRAMES} "
+                  f"sets",
+            tol="every output bit for bit")
+    ms = device_time(taa.resolve, whole)
+    b = bound(96 * px, 0)
+    log(f"[kernel] TAA resolve, all three launches (reproject, K5, "
+        f"resolve): {ms:.4f} ms device time, bound {b[0]:.4f} ms "
+        f"({b[1]}, 96 B a pixel), {100 * b[0] / ms:.1f}%; on "
+        f"{nvidia_smi_line()}")
+    return out
+
+
 def k5_against(dev, other):
     """K5 of this checkout against K5 built from the tree in ``other``
     (by that tree's own native.py into its own build/; the parent commit
@@ -2368,9 +2481,9 @@ def phase_sharded(dev, out_dir):
         ("F", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
          hybrid + ["trace_closest"]),
-        ("T", _forward_settings(W, H), ["raster_tiles", "window_sample"]),
+        ("T", _forward_settings(W, H), ["raster_tiles"] + TAA),
         ("R", _raytraced_settings(W, H),
-         ["raster_tiles", "trace_closest", "trace_any", "window_sample"]))
+         ["raster_tiles", "trace_closest", "trace_any"] + TAA))
     smi = nvidia_smi_line()
     out, failures, singles = {}, [], {}
     for name, settings, kernels in paths:
@@ -2528,12 +2641,12 @@ def _wide_rungs(dev, out_dir, runs):
     runs["raytraced_wide_l8"] = phase_render(
         dev, out_dir, "raytraced_wide_l8",
         _raytraced_settings(W, H, bvh_leaf_tris=8, **wide),
-        ["raster_tiles", "trace_wide", "window_sample"], absent=direct,
+        ["raster_tiles", "trace_wide"] + TAA, absent=direct,
         check=shape(8, 8))
     runs["raytraced_wide_w16"] = phase_render(
         dev, out_dir, "raytraced_wide_w16",
         _raytraced_settings(W, H, bvh_width=16, **wide),
-        ["raster_tiles", "trace_closest", "trace_any", "window_sample"],
+        ["raster_tiles", "trace_closest", "trace_any"] + TAA,
         absent=["trace_wide", "trace_mimt"], check=demoted)
     runs["headline_fused"] = phase_render(
         dev, out_dir, "headline_fused",
@@ -2822,6 +2935,7 @@ def main(argv=None):
                         ("wide", check_wide),
                         ("temporal_fetch", check_temporal),
                         ("window_sample", check_window_sample),
+                        ("taa", check_taa),
                         ("stencils", check_stencils)):
         try:
             res = check(dev)
@@ -2830,7 +2944,7 @@ def main(argv=None):
             failures.append(name)
             continue
         results.update(res if name in ("packet_path", "wide", "stencils",
-                                       "shade")
+                                       "shade", "taa")
                        else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
@@ -2878,15 +2992,15 @@ def main(argv=None):
             hybrid + ["trace_closest"] + shading, per_frame=two_queries),
         "forward_taa": phase_render(dev, args.out, "forward_taa",
                                     _forward_settings(W, H),
-                                    ["raster_tiles", "window_sample"]),
+                                    ["raster_tiles"] + TAA),
         "raytraced": phase_render(
             dev, args.out, "raytraced", _raytraced_settings(W, H),
-            ["raster_tiles", "trace_closest", "trace_any", "window_sample"]
-            + shading, absent=["raster_vis", "trace_packet"]),
+            ["raster_tiles", "trace_closest", "trace_any"] + TAA + shading,
+            absent=["raster_vis", "trace_packet"]),
         "raytraced_packet": phase_render(
             dev, args.out, "raytraced_packet", _raytraced_settings(
                 W, H, raster_eval="v2", trace_backend="pallas"),
-            ["raster_vis", "trace_packet", "window_sample"] + shading,
+            ["raster_vis", "trace_packet"] + TAA + shading,
             absent=["raster_tiles", "trace_closest", "trace_any"]),
         "dynamic": phase_render(
             dev, args.out, "dynamic", _hybrid_settings(W, H), hybrid,
@@ -2912,7 +3026,7 @@ def main(argv=None):
         cam_kw=CUTOUT_CAM, per_frame={"raster_tiles": 2})
     runs["raytraced_cutout"] = phase_render(
         dev, args.out, "raytraced_cutout", _raytraced_settings(W, H),
-        ["raster_tiles", "trace_closest", "window_sample"] + shading,
+        ["raster_tiles", "trace_closest"] + TAA + shading,
         absent=["trace_any", "raster_vis", "trace_packet"],
         host_fn=scenes.cutout_scene, cam_kw=CUTOUT_CAM,
         per_frame={"raster_tiles": 1})
@@ -2935,7 +3049,7 @@ def main(argv=None):
         runs["raytraced_" + tag] = phase_render(
             dev, args.out, "raytraced_" + tag,
             _raytraced_settings(W, H, wide_kernel=k, **wide),
-            ["raster_tiles", kernel, "window_sample"] + shading,
+            ["raster_tiles", kernel] + TAA + shading,
             absent=direct + [other[kernel]])
     # the large-scene contract: bench.py's 1000-object rungs (S, S-tex,
     # S-fwd-tex) and the full graph and ray-traced path on the same scene
@@ -2960,8 +3074,7 @@ def main(argv=None):
             raise AssertionError("R-w-big's tracer is not K2 / K2c over "
                                  "bf16 triangles")
 
-    rt = ["raster_tiles", "trace_closest", "trace_any", "window_sample"] \
-        + shading
+    rt = ["raster_tiles", "trace_closest", "trace_any"] + TAA + shading
     large = dict(frames=LARGE_FRAMES)
     runs["sponza"] = phase_render(dev, args.out, "sponza",
                                   _hybrid_settings(W, H), hybrid,
@@ -2971,7 +3084,7 @@ def main(argv=None):
                                       host_fn=sponza_tex, **large)
     runs["sponza_fwd_tex"] = phase_render(
         dev, args.out, "sponza_fwd_tex", _forward_settings(W, H),
-        ["raster_tiles", "window_sample"], host_fn=sponza_tex, **large)
+        ["raster_tiles"] + TAA, host_fn=sponza_tex, **large)
     runs["full_graph_1000"] = phase_render(
         dev, args.out, "full_graph_1000", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),

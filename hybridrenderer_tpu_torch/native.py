@@ -155,6 +155,9 @@ _SIGNATURES = {
     "hr_shade_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, _I,
                      _P, _P, _P, _P, _P],
     "hr_shade_finish": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "hr_taa_reproject": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                         _P],
+    "hr_taa_resolve": [_P, _P, _P, _I, _I, _P, _P],
 }
 
 
@@ -242,6 +245,10 @@ KERNELS = {
         # and miss.rmiss): plain jnp in the reference, no TPU kernel
         Kernel("shade_hit", _CSRC + "shade.cu", _TPU + "trace.py:703"),
         Kernel("shade_finish", _CSRC + "shade.cu", _TPU + "trace.py:691"),
+        # TAA's resolve around K5 (taa.comp): plain jnp in the reference,
+        # no TPU kernel
+        Kernel("taa_reproject", _CSRC + "taa.cu", _TPU + "taa.py:52"),
+        Kernel("taa_resolve", _CSRC + "taa.cu", _TPU + "taa.py:52"),
     )
 }
 

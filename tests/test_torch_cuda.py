@@ -8,9 +8,9 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
-(compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m, K5 and the
-hit-shading pair agree exactly; K4's exp and pow may differ in the last
-ulp."""
+(compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m, K5, the
+hit-shading pair and the TAA pair agree exactly; K4's exp and pow may
+differ in the last ulp."""
 import numpy as np
 import pytest
 import torch
@@ -23,10 +23,13 @@ from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene import scene as scenes
 
 from . import torch_shade_cases as shade_cases
+from . import torch_taa_cases as taa_cases
 
 pytestmark = pytest.mark.cuda
 
 CAM = dict(distance=25.0, pitch=0.5, yaw=0.8, focal_point=(0, 2, 0))
+# TAA's launches: the reprojection, the history fetch K5, the resolve
+TAA_KERNELS = ("taa_reproject", "window_sample", "taa_resolve")
 
 
 @pytest.fixture
@@ -642,7 +645,7 @@ def test_cuda_frame_matches_cpu_frame(dev, path, flags, cam_kw, max_off,
         tri = r.state.history["ObjectID"].cpu().numpy()
     assert not any(k.plain_cuda_calls for k in native.KERNELS.values())
     want = {"full": ("trace_closest",), "full_raw": ("trace_closest",),
-            "taa": ("window_sample",)}.get(flags, ("trace_any",))
+            "taa": TAA_KERNELS}.get(flags, ("trace_any",))
     assert all(native.KERNELS[k].launches > 0 for k in want)
     edges = tri_boundary_mask(tri)
     flips = np.zeros_like(edges)
@@ -695,7 +698,7 @@ def test_cuda_raytraced_frame_matches_cpu_frame(dev, mode, max_off, max_p99):
     want = ("raster_vis", "trace_packet") if mode == "packet" \
         else ("raster_tiles", "trace_closest", "trace_any")
     assert all(native.KERNELS[k].launches > 0
-               for k in want + ("window_sample",))
+               for k in want + TAA_KERNELS)
     data = scenes.cube_scene().build("cpu")
     cam = OrbitCamera(width=size, height=size, **CUBE_KW).step().to("cpu")
     vp = cam.proj @ cam.view
@@ -925,6 +928,8 @@ def test_captured_frame_equals_eager_frame(dev, case):
         assert torch.equal(a, b), (case, i)
     assert counts_c == counts_e
     assert not any(plain for _, plain in counts_c.values())
+    if _capture_case(case)[3]:
+        assert all(counts_c[k] == (4, 0) for k in TAA_KERNELS), counts_c
 
 
 def test_captured_burst_and_restore(dev, tmp_path):
@@ -1666,4 +1671,51 @@ def test_replayed_full_graph_frame_launches_the_shading_pair(dev):
     r.render(OrbitCamera(width=64, height=64, **cam_kw).step())
     counts = native.counts()
     assert counts["shade_hit"] == (2, 0) and counts["shade_finish"] == (2, 0)
+    assert not any(plain for _, plain in counts.values())
+
+
+# --- TAA's resolve: hr_taa_reproject and hr_taa_resolve around K5 -----------
+
+@pytest.mark.parametrize("case", sorted(taa_cases.CASES))
+def test_taa_kernels_match_plain(dev, case):
+    """hr_taa_reproject and hr_taa_resolve against their plain versions
+    on the card, on each case of tests/torch_taa_cases.py (the whole
+    image, a row window with one halo row, no valid history, reprojection
+    off every edge, non-finite and negative colour, a strided motion
+    slice, a size that cuts the tiles): every output bit for bit. The
+    resolve then launches each kernel and K5 once and no plain version,
+    and returns the unsplit resolve's image bit for bit."""
+    from hybridrenderer_tpu_torch.ops import taa, taa_cuda
+
+    args, kw = taa_cases.build(case, dev)
+    cur, hist, motion, depth, jitter, prev_j = args
+    rargs = (motion, depth, jitter, prev_j, kw["history_valid"], kw["row0"],
+             hist.shape[0])
+    k_uv, k_alpha = taa_cuda.taa_reproject(*rargs)
+    p_uv, p_alpha = taa_cuda.taa_reproject_plain(*rargs)
+    _assert_same(k_uv, p_uv, "prev_uv")
+    _assert_same(k_alpha, p_alpha, "alpha")
+    sample = temporal_cuda.window_sample(hist, p_uv)
+    k = taa_cuda.taa_resolve(cur, sample, p_alpha)
+    p = taa_cuda.taa_resolve_plain(cur, sample, p_alpha)
+    _assert_same(k, p, "resolved")
+    native.reset_counts()
+    out = taa.resolve(*args, **kw)
+    counts = native.counts()
+    assert all(counts[n] == (1, 0) for n in TAA_KERNELS), counts
+    assert not any(plain for _, plain in counts.values())
+    _assert_same(out, p, "resolve")
+    _assert_same(out, taa_cases.unsplit_resolve(*args, **kw), "unsplit")
+
+
+def test_replayed_forward_taa_frame_launches_the_taa_kernels(dev):
+    """A replayed forward + TAA frame resolves with one hr_taa_reproject,
+    one K5 fetch and one hr_taa_resolve, and runs no plain version."""
+    _, _, r = _render_frames(dev, "forward_taa", True, frames=3)
+    _, _, cam_kw, _, _ = _capture_case("forward_taa")
+    native.reset_counts()
+    r.render(OrbitCamera(width=64, height=64, **cam_kw).step(
+        taa_enabled=True))
+    counts = native.counts()
+    assert all(counts[n] == (1, 0) for n in TAA_KERNELS), counts
     assert not any(plain for _, plain in counts.values())
