@@ -2369,7 +2369,7 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     if any(plain.values()):
         raise AssertionError(f"{name}: plain versions ran on the card: "
                              f"{plain}")
-    keys = sorted(r._graphs)
+    keys = sorted(r.graphs)
     if len(keys) != 2:
         raise AssertionError(f"{name}: expected the first and the later "
                              f"frames' graphs, got {keys}")
@@ -2383,7 +2383,7 @@ def phase_render(dev, out_dir, name, settings, kernels, absent=(),
     if wide is not None:
         log(f"[{name}] leaf pushes past the reference's 128 entries: "
             f"{int(wide.deep_pushes.item())}")
-    capacity = {_key(k): g.capacity for k, g in r._graphs.items()}
+    capacity = {_key(k): g.capacity for k, g in r.graphs.items()}
     log(f"[{name}] median ms/frame (frames 3-{F}, replayed) {med:.2f} on "
         f"{nvidia_smi_line()}; covered {stats['covered_pixels']}; "
         f"launches {launches}; peak memory "
@@ -2500,7 +2500,7 @@ def phase_sharded(dev, out_dir):
         cap = _sharded_run(f"{tag} captured", lambda: ShardedRenderer
                            .for_scene(settings, data, mesh), settings, True)
         r = cap.pop("renderer")
-        keys = sorted(r._graphs)
+        keys = sorted(r.graphs)
         img = cap["frames"][-1]
         write_png(os.path.join(out_dir, f"chip_smoke_sharded_{name}.png"),
                   np.clip(img, 0.0, 1.0))
@@ -2530,7 +2530,7 @@ def phase_sharded(dev, out_dir):
             f"{SHARDED_TOL}); launches captured {cap['launches']}, eager "
             f"sharded {eager['launches']}; plain on the card "
             f"{cap['plain']}; keys {keys}; frame stats {r.frame_stats()}")
-        capacity = {_key(k): g.capacity for k, g in r._graphs.items()}
+        capacity = {_key(k): g.capacity for k, g in r.graphs.items()}
         log(f"[{tag}] captured ms/frame (1-2 eager + capture, "
             f"3-{SHARDED_FRAMES} replayed) "
             f"{[round(t, 2) for t in cap['ms']]}, "
@@ -2589,7 +2589,7 @@ def phase_sharded_cards(dev, data=None, singles=None):
             settings, data, mesh), settings, False)
         r = run.pop("renderer")
         diff = _max_diff(run["frames"], single)
-        ok = diff <= SHARDED_TOL and len(r._graphs) == 2
+        ok = diff <= SHARDED_TOL and len(r.graphs) == 2
         log(f"[{tag}] {n} shards of {W}x{H // n} over {n} cards ({cards} "
             f"visible: {[torch.cuda.get_device_name(i) for i in range(n)]})"
             f", {SHARDED_FRAMES} frames: max abs diff against the "
@@ -2825,7 +2825,7 @@ def phase_overflow(dev):
     r.bin_capacity = None
     same = torch.equal(r.render(states[2]), eager.render(states[2]))
     log(f"[overflow] the same view with the capacity per key: rendered at "
-        f"capacity {r._graphs[('frame', True)].capacity}, equal to the "
+        f"capacity {r.graphs[('frame', True)].capacity}, equal to the "
         f"eager frame bit for bit: {same}")
     return [] if same else ["overflow recapture"]
 

@@ -19,7 +19,6 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     devices: tuple          # torch.device of each row shard, in row order
-    axis: str = "y"
 
     def __len__(self) -> int:
         return len(self.devices)
@@ -30,8 +29,7 @@ class Mesh:
         return tuple(dict.fromkeys(self.devices))
 
 
-def make_mesh(n_devices: "int | None" = None, devices=None,
-              axis: str = "y") -> Mesh:
+def make_mesh(n_devices: "int | None" = None, devices=None) -> Mesh:
     """A mesh of ``n_devices`` row shards: by default one for each
     visible CUDA card, or ``devices`` as given (which may repeat one).
     Raises where fewer cards exist than asked for, and never falls back
@@ -57,7 +55,7 @@ def make_mesh(n_devices: "int | None" = None, devices=None,
         devs = tuple(torch.device("cuda", i) for i in range(n))
     if not devs:
         raise ValueError("make_mesh: a mesh needs a device")
-    return Mesh(devs, axis)
+    return Mesh(devs)
 
 
 def row_sharding(mesh: Mesh, height: int) -> tuple:

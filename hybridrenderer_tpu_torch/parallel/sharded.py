@@ -28,11 +28,11 @@ its next turn. Only one shard runs at a time, so a frame's launches are
 made in a fixed order and the kernels' launch counts stay exact.
 
 On a mesh of CUDA devices the frame is captured, as ``Renderer``'s is
-(runtime/renderer.py ``run_key``): one set of graphs for each
-``history_valid``, as the reference keeps one jitted program for each.
-A key's first use runs eagerly with exact tile lists, and the key is
-then captured; every later use copies the frame's row to each device
-and replays. The exchanges cut each shard's frame into segments, and
+(runtime/capture.py ``CapturedRenderer.run_key``): one set of graphs
+for each ``history_valid``, as the reference keeps one jitted program
+for each. A key's first use runs eagerly with exact tile lists, and the
+key is then captured; every later use copies the frame's row to each
+device and replays. The exchanges cut each shard's frame into segments, and
 each segment is captured into a CUDA graph of its own (``_Segments``),
 on its device's capture stream and into its device's graph pool; a
 capture closes before its shard hands the turn on, so no two captures
@@ -50,10 +50,8 @@ buffers, so no replay reads a buffer that it writes. A frame that
 cannot be captured raises, with the renderer as it was;
 ``capture=False`` runs every frame eagerly. CPU meshes run eagerly.
 
-``shard_rays=False`` traces each ray query once over the whole image on
-the first device (the reference's GSPMD placement without shard_map),
-and gives the same pixels. Like the reference, the sharded frame renders
-static scenes only, and one frame a call.
+Like the reference, the sharded frame renders static scenes only, and
+one frame a call.
 """
 from __future__ import annotations
 
@@ -72,10 +70,8 @@ from ..graph.params import ROW_SIZE, FrameParams, FrameState, pack_row
 from ..graph.passes import FrameContext
 from ..ops.raster_cuda import Binning
 from ..paths.factory import create_render_path
-from ..runtime import profiling
-from ..runtime.renderer import (DEFAULT_PHI, _build_tracer, _Graph,
-                                _needs_tracer, _pairs, _Result, run_key,
-                                trace_hooks)
+from ..runtime.capture import CapturedRenderer, Graph, Result, commit_pairs
+from ..runtime.renderer import DEFAULT_PHI, trace_hooks, tracer_for
 from .mesh import replicated, row_sharding
 
 _MISSING = object()
@@ -301,22 +297,6 @@ class RowExchange:
         blocks, starts = self._blocks("gather", 0, images)
         return self._take(blocks, gather_parts(starts, len(images)))
 
-    def once(self, fn, *images):
-        """``fn`` over the whole images, once, on the first shard's
-        device → this shard's rows of its result (a tensor or a tuple of
-        them, whose leading dimension is the images')."""
-        blocks, starts = self._blocks("once", 0, images)
-        first = self.rank == 0
-        whole = self._take(blocks, gather_parts(starts, len(images))
-                           if first else [])
-        result = self._all(fn(*whole) if first else None)[0]
-        single = isinstance(result, torch.Tensor)
-        result = (result,) if single else tuple(result)
-        a, b = starts[self.rank], starts[self.rank + 1]
-        out = self._take([result], [[(0, k, a, b)]
-                                    for k in range(len(result))])
-        return out[0] if single else tuple(out)
-
 
 @dataclasses.dataclass
 class _Shard:
@@ -330,7 +310,7 @@ class _Shard:
     exchanges: list
 
 
-class ShardedRenderer:
+class ShardedRenderer(CapturedRenderer):
     """The frame of ``runtime.renderer.Renderer``, its image rows sharded
     over ``mesh`` (parallel/mesh.py). ``render`` returns the whole
     (H, W, 3) image on the mesh's first device; each shard's SVGF and TAA
@@ -338,37 +318,21 @@ class ShardedRenderer:
     frame. ``capture``: replay CUDA graphs (the default on a mesh of
     CUDA devices); False runs every frame eagerly."""
 
-    def __init__(self, settings, scene_data, mesh, axis: str = "y",
-                 tracer=None, shard_rays: bool = True, capture=None):
+    def __init__(self, settings, scene_data, mesh, tracer=None,
+                 capture=None):
+        super().__init__(mesh.devices, capture)
         self.settings = settings
-        self.scene = scene_data
         self.mesh = mesh
-        self.axis = axis
         self.rows = row_sharding(mesh, settings.height)
         # every shard runs the path over a window of its height
         self.shard_settings = settings.replace(height=self.rows[0][1])
         self.path = create_render_path(self.shard_settings)
-        self.tracer = tracer
-        self.shard_rays = shard_rays and tracer is not None
         self.scenes = replicated(mesh, scene_data)
         self.tracers = replicated(mesh, tracer) if tracer is not None \
             else (None,) * len(mesh)
-        cuda = all(d.type == "cuda" for d in mesh.devices)
-        self.capture = cuda if capture is None else bool(capture)
-        if self.capture and not cuda:
-            raise ValueError("CUDA graphs need every shard on a CUDA device")
-        # tile entries each shard's captured raster may use, fixed (an
-        # overflow raises); None: sized per shard and key, grown on an
-        # overflow
-        self.bin_capacity = None
-        self.frame_count = 0
         self.histories = [{} for _ in mesh.devices]
         # each key's exchanges, one list a shard, from its eager frame
         self.exchanges = {}
-        self.capture_ms = {}     # each key's capture time, host clock
-        self.recaptures = 0      # keys captured again on a bin overflow
-        self.tracing = profiling.OFF     # run_key's spans: none here
-        self._graphs = {}
         self._rows = {d: torch.empty(ROW_SIZE, dtype=torch.float32,
                                      device=d) for d in mesh.distinct}
         self._stats = None
@@ -378,43 +342,8 @@ class ShardedRenderer:
         """With the ray tracer attached when the path or the flags ask for
         ray-traced passes (``Renderer.for_scene``'s rule); it is built
         once and replicated on each distinct device."""
-        tracer = _build_tracer(scene_data, settings) \
-            if _needs_tracer(settings) else None
-        return cls(settings, scene_data, mesh, tracer=tracer, **kw)
-
-    def _hooks(self, rank, exchange):
-        """The shard's ray-query hooks: its own tracer over its rows, or
-        with ``shard_rays`` off the first shard's over the whole image."""
-        if self.shard_rays or self.tracers[rank] is None:
-            return trace_hooks(self.scenes[rank], self.tracers[rank])
-        scene, tracer = self.scenes[0], self.tracers[0]
-
-        def ones(p):
-            return torch.ones(p.shape[:2], dtype=torch.bool, device=p.device)
-
-        def shadow_query(p, n, d, tmax, active=None):
-            return exchange.once(
-                lambda *x: tracer.shadow_query(*x[:3], tmax, active=x[3]),
-                p, n, d.expand_as(p), ones(p) if active is None else active)
-
-        def shadow_query_pair(p, n, da, ta, db, tb, active=None):
-            return exchange.once(
-                lambda *x: tracer.shadow_query_pair(
-                    x[0], x[1], x[2], ta, x[3], tb, active=x[4]),
-                p, n, da.expand_as(p), db.expand_as(p),
-                ones(p) if active is None else active)
-
-        def trace_radiance(o, d, ctx, depth, active=None, row0=0):
-            # the first shard's rays start the image: its ctx and row0
-            return exchange.once(
-                lambda *x: tracer.trace_radiance(scene, x[0], x[1], ctx,
-                                                 depth, active=x[2],
-                                                 row0=row0),
-                o, d, ones(o) if active is None else active)
-
-        return dict(shadow_query=shadow_query,
-                    shadow_query_pair=shadow_query_pair,
-                    trace_radiance=trace_radiance)
+        return cls(settings, scene_data, mesh,
+                   tracer=tracer_for(settings, scene_data), **kw)
 
     def _shard_frame(self, step, rank, history_valid, binning,
                      segments=None) -> _Shard:
@@ -430,14 +359,14 @@ class ShardedRenderer:
             settings=self.shard_settings, state=state,
             history_valid=history_valid, binning=binning,
             row0=self.rows[rank][0], full_height=self.settings.height,
-            exchange=exchange, **self._hooks(rank, exchange))
+            exchange=exchange, **trace_hooks(scene, self.tracers[rank]))
         out, new_state, registry = self.path.run(ctx, state)
         return _Shard(out, new_state.history, registry.get("_FrameStats"),
                       binning.max_needed(dev), exchange.log)
 
-    def _result(self, shards) -> _Result:
-        return _Result([s.out for s in shards], [s.stats for s in shards],
-                       tuple(s.needed for s in shards), [])
+    def _result(self, shards) -> Result:
+        return Result([s.out for s in shards], [s.stats for s in shards],
+                      tuple(s.needed for s in shards), [])
 
     def _eager(self, key, undo):
         """The key's frame run eagerly, with exact tile lists → (result,
@@ -448,10 +377,10 @@ class ShardedRenderer:
                                Binning()) for r in range(len(self.mesh))],
             self.mesh.devices)
         self.exchanges[key] = [s.exchanges for s in shards]
-        return self._result(shards), _pairs(
+        return self._result(shards), commit_pairs(
             [(h, s.history) for h, s in zip(self.histories, shards)], undo)
 
-    def _capture(self, key, capacity) -> _Graph:
+    def _capture(self, key, capacity) -> Graph:
         """The key's frame captured shard by shard, segment by segment,
         each shard binning into its ``capacity``, and a commit graph for
         each device."""
@@ -469,7 +398,7 @@ class ShardedRenderer:
                 seg.begin()
                 s = self._shard_frame(step, rank, key[1],
                                       Binning(capacity[rank]), seg)
-                pairs = _pairs([(self.histories[rank], s.history)])
+                pairs = commit_pairs([(self.histories[rank], s.history)])
                 seg.end()
             except BaseException:
                 seg.abort()
@@ -508,7 +437,7 @@ class ShardedRenderer:
             for graph in commits:
                 graph.replay()
 
-        return _Graph(replay, commit, self._result(shards), capacity)
+        return Graph(replay, commit, self._result(shards), capacity)
 
     @torch.no_grad()
     def render(self, cam_state, exposure: float = 1.0,
@@ -520,19 +449,12 @@ class ShardedRenderer:
         for buf in self._rows.values():
             buf.copy_(row, non_blocking=True)
         key = ("frame", self.frame_count > 0)
-        res, _ = run_key(self, key, functools.partial(self._eager, key),
-                         functools.partial(self._capture, key))
+        res, _ = self.run_key(key, functools.partial(self._eager, key),
+                              functools.partial(self._capture, key))
         self._stats = res.stats
         self.frame_count += 1
         first = self.mesh.devices[0]
         return torch.cat([out.to(first) for out in res.out])
-
-    def render_np(self, cam_state, **kw) -> np.ndarray:
-        return self.render(cam_state, **kw).cpu().numpy()
-
-    def reset_history(self):
-        """The next frame is a first frame; the graphs are kept."""
-        self.frame_count = 0
 
     def frame_stats(self) -> dict:
         """As ``Renderer.frame_stats``, over the whole image: every shard

@@ -8,30 +8,13 @@ to the renderer's own buffers, which stay the same tensors from frame to
 frame: the history (``state``), and after a dynamic update the scene's
 and the tracer's tensors, written in place.
 
-On a CUDA scene each frame function is captured into CUDA graphs, one
-set for each key, as the reference keeps one jitted program for each:
-("frame", history_valid) for ``render`` (and ``render_burst``, which
-replays them once a frame), ("dynamic", history_valid, use_subset,
-update_lights, dirty set) for ``render_dynamic`` and ("commit", ...)
-for ``update_dynamic``. A key's first use runs eagerly, as the frame it
-is, so that every lazy set-up (kernel loads, cached constants, the
-refit's level walk, the exact tile lists that size the binning
-capacity) happens outside a capture; the graph is captured right after
-it, and every later use copies the row and replays. A frame that cannot
-be captured raises, with the renderer as it was; on the card nothing
-falls back to eager execution unless the renderer is made with
-``capture=False``.
-
-Each key holds two graphs: the frame, which reads the renderer's buffers
-and writes only memory of its own graph pool, and the commit, which
-copies the frame's results into the buffers; no replay reads a buffer
-that it writes (the reference donates its state instead). Between the
-two the host reads the tile entries the frame's rasters needed. A frame
-that needed more than the binning capacity is not committed: its key is
-captured again at a capacity sized from what it needed, and the frame
-replayed (or, with ``Renderer.bin_capacity`` fixed, it raises, and the
-history is left as it was; ``Renderer.recaptures`` counts these). CPU
-scenes run the same functions eagerly, with exact tile lists.
+On a CUDA scene each frame function is captured into CUDA graphs by the
+rule of runtime/capture.py, one set for each key: ("frame",
+history_valid) for ``render`` (and ``render_burst``, which replays them
+once a frame), ("dynamic", history_valid, use_subset, update_lights,
+dirty set) for ``render_dynamic`` and ("commit", ...) for
+``update_dynamic``. Every later use of a key copies the row and replays.
+CPU scenes run the same functions eagerly, with exact tile lists.
 
 A renderer made with ``trace=True`` times its work (runtime/profiling):
 host spans around the row upload, the frame graph's launch, the read of
@@ -42,14 +25,11 @@ nodes and read after each replay. ``trace_totals()`` sums them.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
-from typing import Any
 
 import numpy as np
 import torch
 
-from .. import native
 from ..core.camera import CameraState
 from ..core.types import RenderFlags, RenderPathType
 from ..graph.params import ROW_SIZE, FrameParams, FrameState, pack_row
@@ -58,43 +38,13 @@ from ..ops import trace
 from ..ops.raster_cuda import Binning
 from ..paths.factory import create_render_path
 from ..scene import dynamic
-from . import profiling
+from .capture import CapturedRenderer, Graph, Result, commit_pairs
 from .log import core as _log
 
 DEFAULT_PHI = (4.0, 128.0, 0.02, 0.0)
-# a captured frame bins into this many times the tile entries its key's
-# first (eager) frame, or an overflowed replay, needed, plus the slack;
-# Renderer.bin_capacity fixes it instead
-BIN_HEADROOM = 2
-BIN_SLACK = 1 << 16
 
 
-@dataclasses.dataclass
-class _Result:
-    """What a frame function returns: the image, the frame stats, the
-    most tile entries a raster needed, one for each binning (a shard's;
-    None without a frame), and (renderer buffer, new value) trees to
-    commit."""
-    out: Any
-    stats: Any
-    needed: Any
-    commits: list
-
-
-@dataclasses.dataclass
-class _Graph:
-    """A key's captured frame: ``replay()`` replays its frame graphs,
-    ``commit()`` its copy-back graphs."""
-    replay: Any
-    commit: Any
-    result: _Result      # the frame graphs' outputs, in their pools
-    capacity: Any        # the tile entries each binning may use (a tuple)
-    launches: dict = dataclasses.field(default_factory=dict)  # one replay's
-    keep: tuple = ()     # inputs the graph reads that the key names by id
-    spans: tuple = ((), ())  # the device spans of replay() and commit()
-
-
-class Renderer:
+class Renderer(CapturedRenderer):
     def __init__(self, settings, scene_data, tracer=None, capture=None,
                  trace=False):
         """``capture``: replay CUDA graphs (the default on a CUDA scene);
@@ -103,32 +53,19 @@ class Renderer:
         self.settings = settings
         self.scene = scene_data
         self.device = scene_data.device
-        self.capture = self.device.type == "cuda" if capture is None \
-            else bool(capture)
-        if self.capture and self.device.type != "cuda":
-            raise ValueError("CUDA graphs need a scene on a CUDA device")
-        self.tracing = profiling.Tracer(self.device) if trace \
-            else profiling.OFF
+        super().__init__((self.device,), capture, trace)
         self.path = create_render_path(settings)
         self.tracer = tracer
-        self.frame_count = 0
-        # tile entries a captured raster may use, fixed (an overflow
-        # raises); None: sized per key and grown on an overflow
-        self.bin_capacity = None
         self._history = {}
-        self._graphs = {}
         self._rows = {}          # K → the (K, ROW_SIZE) row buffer
         self._transforms = None  # the dynamic updates' (N, 4, 4) buffer
         self._stats = None
-        self.capture_ms = {}     # each key's capture time, host clock
-        self.recaptures = 0      # keys captured again on a bin overflow
 
     @classmethod
     def for_scene(cls, settings, scene_data, capture=None, trace=False):
         """Renderer with the ray tracer attached when the path or the
         flags ask for ray-traced passes."""
-        tracer = _build_tracer(scene_data, settings) \
-            if _needs_tracer(settings) else None
+        tracer = tracer_for(settings, scene_data)
         return cls(settings, scene_data, tracer=tracer, capture=capture,
                    trace=trace)
 
@@ -209,16 +146,14 @@ class Renderer:
 
     # --- graphs ----------------------------------------------------------
     def _run(self, key, body, keep=()):
-        """``body(binning)`` → _Result through key's graphs (run_key).
+        """``body(binning)`` → Result through key's graphs (run_key).
         Returns the result's image (a new tensor)."""
         def eager(undo):
             res = body(Binning())
-            return res, _pairs(res.commits, undo)
+            return res, commit_pairs(res.commits, undo)
 
-        res, replayed = run_key(self, key, eager,
-                                lambda capacity: self._capture(body,
-                                                               capacity),
-                                keep)
+        res, replayed = self.run_key(
+            key, eager, lambda capacity: self._capture(body, capacity), keep)
         if res.stats is not None:
             self._stats = res.stats
         if not replayed or res.out is None:
@@ -233,14 +168,14 @@ class Renderer:
         with self.tracing.collecting() as frame_spans, \
                 torch.cuda.graph(frame):
             res = body(Binning(None if capacity is None else capacity[0]))
-            pairs = _pairs(res.commits)
+            pairs = commit_pairs(res.commits)
         commit = torch.cuda.CUDAGraph()
         with self.tracing.collecting() as commit_spans, \
                 torch.cuda.graph(commit), self.tracing.device("commit"):
             for dst, src in pairs:
                 dst.copy_(src)
-        return _Graph(frame.replay, commit.replay, res, capacity,
-                      spans=(frame_spans, commit_spans))
+        return Graph(frame.replay, commit.replay, res, capacity,
+                     spans=(frame_spans, commit_spans))
 
     # --- public API --------------------------------------------------------
     @property
@@ -265,7 +200,7 @@ class Renderer:
         else:
             self._history = {k: v.to(self.device).clone()
                              for k, v in new.items()}
-            self._graphs = {}
+            self.graphs = {}
         self.frame_count = int(frame_count)
 
     @torch.no_grad()
@@ -285,15 +220,12 @@ class Renderer:
             out, history, stats = self._frame(
                 buf[0], self.scene, self.tracer, self._history_for(hv), hv,
                 binning)
-            return _Result(out, stats, (binning.max_needed(self.device),),
+            return Result(out, stats, (binning.max_needed(self.device),),
                            [(self._history, history)])
 
         out = self._run(("frame", hv), body)
         self.frame_count += 1
         return out
-
-    def render_np(self, cam_state, **kw) -> np.ndarray:
-        return self.render(cam_state, **kw).cpu().numpy()
 
     @torch.no_grad()
     def update_dynamic(self, maps, transforms, vert_idx, tri_idx,
@@ -308,7 +240,7 @@ class Renderer:
         def body(binning):
             scene, tracer = self._updated(maps, tf, vert_idx, tri_idx,
                                           use_subset, update_lights)
-            return _Result(None, None, None, _scene_commits(self, scene,
+            return Result(None, None, None, _scene_commits(self, scene,
                                                             tracer))
 
         self._run(("commit", use_subset, update_lights, id(maps),
@@ -334,7 +266,7 @@ class Renderer:
                                           use_subset, update_lights)
             out, history, stats = self._frame(
                 buf[0], scene, tracer, self._history_for(hv), hv, binning)
-            return _Result(out, stats, (binning.max_needed(self.device),),
+            return Result(out, stats, (binning.max_needed(self.device),),
                            [(self._history, history)]
                            + _scene_commits(self, scene, tracer))
 
@@ -385,20 +317,14 @@ class Renderer:
     def _apply(self, **changes):
         settings = self.settings.replace(**changes)
         path = create_render_path(settings)
-        if _needs_tracer(settings) and (
-                self.tracer is None
-                or self.tracer.request != trace.request_of(
-                    settings, self.scene.num_triangles)):
-            self.tracer = _build_tracer(self.scene, settings)
+        if self.tracer is None or self.tracer.request != trace.request_of(
+                settings, self.scene.num_triangles):
+            new = tracer_for(settings, self.scene)
+            if new is not None:  # else kept: the new settings trace no rays
+                self.tracer = new
         self.settings, self.path = settings, path
-        self._history, self._graphs = {}, {}
+        self._history, self.graphs = {}, {}
         self.reset_history()
-
-    def reset_history(self):
-        """Drop all carried history: the next frame is a first frame. The
-        graphs are kept, as the reference keeps its jitted programs: the
-        first frame's graph reads no history."""
-        self.frame_count = 0
 
     def frame_stats(self) -> dict:
         """Last frame's instance drawn/culled counts and covered pixels
@@ -418,197 +344,11 @@ class Renderer:
         self.tracing.reset()
 
 
-def _key_name(key) -> str:
-    return "/".join(str(k) for k in key[:4])
-
-
-def _capacity_for(needed: int) -> int:
-    return BIN_HEADROOM * needed + BIN_SLACK
-
-
-def run_key(owner, key, eager, capture, keep=()):
-    """The captured-frame rule of ``Renderer`` and
-    ``parallel.sharded.ShardedRenderer`` (``owner``: its ``capture``,
-    ``bin_capacity``, ``_graphs`` and ``capture_ms``). At the key's first
-    use ``eager(undo)`` → (_Result, (destination, source) pairs) runs the
-    frame, filling ``undo``; with ``owner.capture`` the key is then
-    captured by ``capture(capacity)`` → _Graph, a capacity for each
-    binning (the result's ``needed``: one for each shard); on a failure
-    ``undo`` is taken back and the error raised. Only then are the pairs
-    copied. Later uses replay the graph (see _replay_key). → (the
-    result, whether it is the graph's). The spans the owner's tracer
-    launched before are read first."""
-    owner.tracing.flush()
-    graph = owner._graphs.get(key)
-    fixed = owner.bin_capacity
-    if graph is not None and graph.capacity is not None \
-            and fixed is not None and any(c != fixed for c in graph.capacity):
-        del owner._graphs[key]                # bin_capacity was changed
-        graph = None
-    if graph is not None:
-        return _replay_key(owner, key, graph, capture), True
-    undo = []
-    res, pairs = eager(undo)
-    if owner.capture:
-        capacity = None if res.needed is None else tuple(
-            _capacity_for(int(n)) if fixed is None else fixed
-            for n in res.needed)
-        try:
-            _capture_key(owner, key, capture, capacity, keep)
-        except BaseException:
-            # nothing committed: the owner is left as it was
-            for fn in reversed(undo):
-                fn()
-            raise
-    with owner.tracing.device("commit"):
-        for dst, src in pairs:
-            dst.copy_(src)
-    return res, False
-
-
-def _capture_key(owner, key, capture, capacity, keep):
-    """``capture(capacity)`` into ``owner._graphs[key]``; the capture's
-    launch counts are taken back, and each replay adds them again."""
-    t0 = time.perf_counter()
-    before = native.counts()
-    try:
-        graph = capture(capacity)
-    except Exception as e:
-        raise RuntimeError(f"{_key_name(key)}: the frame cannot be "
-                           f"captured into a CUDA graph: {e}") from e
-    finally:
-        after = native.counts()
-        native.set_counts(before)
-    graph.launches = {n: (after[n][0] - before[n][0],
-                          after[n][1] - before[n][1]) for n in after}
-    graph.keep = keep
-    owner._graphs[key] = graph
-    owner.capture_ms[_key_name(key)] = ms = 1e3 * (time.perf_counter() - t0)
-    _log().info("frame graph captured", key=_key_name(key), ms=round(ms, 1),
-                bin_capacity=capacity)
-    return graph
-
-
-def _replay_key(owner, key, graph, capture):
-    """Replays the key's frame; a frame whose tile lists overflowed a
-    capacity is captured again, every binning at a capacity sized from
-    what it needed where it overflowed, and replayed (with bin_capacity
-    fixed, it raises), and only then committed."""
-    tracing = owner.tracing
-    needed = _replay_frame(owner, graph)
-    if needed is not None and _overflowed(needed, graph.capacity):
-        if owner.bin_capacity is not None:
-            raise RuntimeError(
-                f"{_key_name(key)}: the frame's tile lists need {needed} "
-                f"entries, above the fixed binning capacity "
-                f"{owner.bin_capacity}; nothing was committed. Set "
-                f"{type(owner).__name__}.bin_capacity higher, or to None, "
-                f"and render again.")
-        _log().warn("binning capacity overflowed; recapturing",
-                    key=_key_name(key), needed=needed,
-                    capacity=graph.capacity)
-        owner.recaptures += 1
-        keep, capacity = graph.keep, tuple(
-            _capacity_for(n) if n > c else c
-            for n, c in zip(needed, graph.capacity))
-        with tracing.host("recapture"):
-            del owner._graphs[key], graph     # frees its pools
-            graph = _capture_key(owner, key, capture, capacity, keep)
-            needed = _replay_frame(owner, graph)
-        if _overflowed(needed, graph.capacity):
-            raise RuntimeError(f"{_key_name(key)}: the recaptured frame "
-                               f"overflowed again ({needed} entries)")
-    with tracing.host("commit"):
-        graph.commit()
-    tracing.replayed(graph.spans[1])          # read at the next run_key
-    return graph.result
-
-
-def _overflowed(needed, capacity) -> bool:
-    return any(n > c for n, c in zip(needed, capacity))
-
-
-def _replay_frame(owner, graph):
-    """Replays a key's frame graphs → the most tile entries each binning
-    needed (None for a key without a frame); waits for the frame,
-    reading its device spans as they end."""
-    tracing = owner.tracing
-    with tracing.host("replay"):
-        graph.replay()
-    native.add_counts(graph.launches)
-    tracing.replayed(graph.spans[0])
-    needed = graph.result.needed
-    if needed is None:
-        return None
-    with tracing.host("tile_read"):
-        tracing.flush()
-        return tuple(int(n) for n in needed)
-
-
 def _scene_commits(renderer, scene, tracer):
     commits = [(renderer.scene, scene)]
     if tracer is not None:
         commits.append((renderer.tracer, tracer))
     return commits
-
-
-def _pairs(commits, undo=None) -> list:
-    """(buffer, new value) trees → (destination, source) tensor pairs to
-    copy. Given ``undo`` (a list; an eager frame), a history name without
-    a buffer of its shape gets one (a copy of the value) and a changed
-    non-tensor field (the refit's level order, on a first refit) is set,
-    and ``undo`` collects how to take each back; without it (under a
-    capture) either raises. A source that shares memory with any
-    destination is copied first, so the commit reads no buffer it
-    writes."""
-    pairs = []
-    for static, new in commits:
-        if isinstance(static, dict):
-            for name, v in new.items():
-                cur = static.get(name)
-                if cur is not None and cur.shape == v.shape \
-                        and cur.dtype == v.dtype:
-                    if v is not cur:
-                        pairs.append((cur, v))
-                elif undo is not None:
-                    undo.append(_restore_item(static, name))
-                    static[name] = v.clone()
-                else:
-                    raise RuntimeError(f"history '{name}' has no buffer")
-        else:
-            _tree_pairs(static, new, pairs, undo)
-    dsts = {d.untyped_storage().data_ptr() for d, _ in pairs}
-    if len(dsts) != len(pairs):
-        raise RuntimeError("two committed buffers share memory")
-    return [(d, s.clone() if s.untyped_storage().data_ptr() in dsts else s)
-            for d, s in pairs]
-
-
-def _restore_item(d, name):
-    if name in d:
-        old = d[name]
-        return lambda: d.__setitem__(name, old)
-    return lambda: d.pop(name)
-
-
-def _tree_pairs(static, new, pairs, undo):
-    for f in dataclasses.fields(static):
-        a, b = getattr(static, f.name), getattr(new, f.name)
-        if a is b or (isinstance(a, (bool, int, float, str)) and a == b):
-            continue
-        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            if a.shape != b.shape or a.dtype != b.dtype:
-                raise RuntimeError(f"{f.name}: {tuple(b.shape)} {b.dtype} "
-                                   f"into {tuple(a.shape)} {a.dtype}")
-            pairs.append((a, b))
-        elif dataclasses.is_dataclass(a) and type(a) is type(b):
-            _tree_pairs(a, b, pairs, undo)
-        elif undo is not None:
-            undo.append(lambda o=static, n=f.name, v=a: setattr(o, n, v))
-            setattr(static, f.name, b)
-        else:
-            raise RuntimeError(f"{type(static).__name__}.{f.name} changed "
-                               f"under a capture")
 
 
 def trace_hooks(scene, tracer) -> dict:
@@ -629,7 +369,13 @@ def trace_hooks(scene, tracer) -> dict:
                 trace_radiance=trace_radiance)
 
 
-def _build_tracer(scene_data, settings):
+def tracer_for(settings, scene_data):
+    """The ray tracer over ``scene_data`` that ``settings`` ask for, built
+    now; None where the path and the flags trace no rays."""
+    if not (settings.path == RenderPathType.RAYTRACED or settings.flags & (
+            RenderFlags.SHADOW | RenderFlags.AO | RenderFlags.REFLECTION
+            | RenderFlags.GI)):
+        return None
     t0 = time.perf_counter()
     tracer = trace.SceneTracer.build(scene_data, settings)
     _log().info("ray tracer attached", backend=tracer.backend,
@@ -641,9 +387,3 @@ def _build_tracer(scene_data, settings):
                     asked=settings.wide_kernel, reason=tracer.demotion)
     return tracer
 
-
-def _needs_tracer(settings) -> bool:
-    """Whether the settings run ray-traced passes."""
-    return settings.path == RenderPathType.RAYTRACED or bool(
-        settings.flags & (RenderFlags.SHADOW | RenderFlags.AO
-                          | RenderFlags.REFLECTION | RenderFlags.GI))

@@ -922,7 +922,7 @@ def test_captured_frame_equals_eager_frame(dev, case):
     the same kernel launches, counted over the replays."""
     captured, counts_c, r = _render_frames(dev, case, True)
     eager, counts_e, _ = _render_frames(dev, case, False)
-    assert sorted(k[0] for k in r._graphs) == (
+    assert sorted(k[0] for k in r.graphs) == (
         ["dynamic", "dynamic"] if case == "dynamic" else ["frame", "frame"])
     for i, (a, b) in enumerate(zip(captured, eager)):
         assert torch.equal(a, b), (case, i)
@@ -992,7 +992,7 @@ def test_binning_overflow_raises(dev):
     assert all(torch.equal(before[k], v) for k, v in r.state.history.items())
     r.bin_capacity = None
     assert torch.equal(r.render(states[2]), eager.render(states[2]))
-    assert r._graphs[("frame", True)].capacity[0] > 16
+    assert r.graphs[("frame", True)].capacity[0] > 16
     for k, v in eager.state.history.items():
         assert torch.equal(r.state.history[k], v), k
 
@@ -1003,9 +1003,10 @@ def test_binning_overflow_recaptures(dev, monkeypatch):
     capacity and rendered, not dropped: the cube scene at 64x64 with the
     slack set to 0, frames 1-2 far (12 entries, capacity 24), frames 3-4
     near (48 entries): every frame equals the eager frame bit for bit."""
-    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+    from hybridrenderer_tpu_torch.runtime import capture as capture_mod
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
-    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    monkeypatch.setattr(capture_mod, "BIN_SLACK", 0)
     s, scene, cam_kw, _, _ = _capture_case("dynamic")
     data = scene().build(dev)
     far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
@@ -1014,10 +1015,10 @@ def test_binning_overflow_recaptures(dev, monkeypatch):
     states = [far.step(), far.step(), near.step(), near.step()]
     imgs = []
     for capture in (True, False):
-        r = renderer_mod.Renderer.for_scene(s, data, capture=capture)
+        r = Renderer.for_scene(s, data, capture=capture)
         imgs.append([r.render(cs) for cs in states])
         if capture:
-            assert r._graphs[("frame", True)].capacity == (2 * 48,)
+            assert r.graphs[("frame", True)].capacity == (2 * 48,)
     for i, (a, b) in enumerate(zip(*imgs)):
         assert torch.equal(a, b), i
 
@@ -1033,8 +1034,8 @@ def test_traced_frames_equal_untraced(dev, case):
     for i, (a, b) in enumerate(zip(traced, plain)):
         assert torch.equal(a, b), (case, i)
     assert counts_t == counts_p
-    assert all(g.spans == ((), ()) for g in rp._graphs.values())
-    assert all(g.spans[0] and g.spans[1] for g in r._graphs.values())
+    assert all(g.spans == ((), ()) for g in rp.graphs.values())
+    assert all(g.spans[0] and g.spans[1] for g in r.graphs.values())
     tot = r.trace_totals()
     assert tot["clock"] == "device"
     names = [p.name for p in r.path.graph.passes] + ["frame", "commit"]
@@ -1065,7 +1066,7 @@ def test_device_spans_sum_to_the_replayed_frame(dev):
     cam = OrbitCamera(width=1280, height=720, **CAM)
     for _ in range(3):
         r.render(cam.step())
-    g = r._graphs[("frame", True)]
+    g = r.graphs[("frame", True)]
     torch.cuda.synchronize()
     r.reset_trace()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1097,18 +1098,19 @@ def test_traced_binning_overflow_counts_one_recapture(dev, monkeypatch):
     an untraced renderer's."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hybridrenderer_tpu_torch.runtime import capture as capture_mod
     from hybridrenderer_tpu_torch.runtime import profiling
-    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 
-    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    monkeypatch.setattr(capture_mod, "BIN_SLACK", 0)
     s, scene, cam_kw, _, _ = _capture_case("dynamic")
     data = scene().build(dev)
     far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
                       yaw=0.0, focal_point=(0, 2.5, 0))
     near = OrbitCamera(width=64, height=64, **cam_kw)
     states = [far.step(), far.step(), near.step(), near.step()]
-    r = renderer_mod.Renderer.for_scene(s, data, trace=True)
-    plain = renderer_mod.Renderer.for_scene(s, data)
+    r = Renderer.for_scene(s, data, trace=True)
+    plain = Renderer.for_scene(s, data)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for cs in states:
             assert torch.equal(r.render(cs), plain.render(cs))
@@ -1184,7 +1186,7 @@ def test_capture_failure_raises(dev):
     cam = OrbitCamera(width=64, height=64, **cam_kw)
     with pytest.raises(RuntimeError, match="cannot be captured"):
         r.render(cam.step(taa_enabled=True))
-    assert not r._graphs
+    assert not r.graphs
 
 
 @pytest.mark.parametrize("W,H", [(200, 120), (203, 117)])
@@ -1484,23 +1486,20 @@ def _single(s, data):
     return Renderer.for_scene(s, data)
 
 
-@pytest.mark.parametrize("case,shard_rays", [
-    ("hybrid", True), ("hybrid", False), ("full_graph", True),
-    ("full_graph", False), ("forward_taa", True), ("raytraced", True),
-    ("raytraced", False)])
-def test_captured_sharded_frame_equals_eager(dev, case, shard_rays):
-    """H, F, T and R at 64x64 on 4 shards of the one card, and with
-    shard_rays off: four frames through the captured sharded renderer
-    (frames 1 and 2 run eagerly and capture their keys' graphs, 3 and 4
-    replay) equal the eager sharded frames (capture=False) and the
-    single-device frames bit for bit, with the same kernel launches as
-    the eager sharded frames, counted over the replays."""
-    captured, counts_c, r = _sharded_frames(
-        dev, case, _sharded(dev, shard_rays=shard_rays))
-    eager, counts_e, _ = _sharded_frames(
-        dev, case, _sharded(dev, shard_rays=shard_rays, capture=False))
+@pytest.mark.parametrize("case", ["hybrid", "full_graph", "forward_taa",
+                                  "raytraced"])
+def test_captured_sharded_frame_equals_eager(dev, case):
+    """H, F, T and R at 64x64 on 4 shards of the one card: four frames
+    through the captured sharded renderer (frames 1 and 2 run eagerly and
+    capture their keys' graphs, 3 and 4 replay) equal the eager sharded
+    frames (capture=False) and the single-device frames bit for bit,
+    with the same kernel launches as the eager sharded frames, counted
+    over the replays."""
+    captured, counts_c, r = _sharded_frames(dev, case, _sharded(dev))
+    eager, counts_e, _ = _sharded_frames(dev, case,
+                                         _sharded(dev, capture=False))
     single, _, _ = _sharded_frames(dev, case, _single)
-    assert sorted(r._graphs) == [("frame", False), ("frame", True)]
+    assert sorted(r.graphs) == [("frame", False), ("frame", True)]
     for i, (a, b, c) in enumerate(zip(captured, eager, single)):
         assert torch.equal(a, b), (case, i)
         assert torch.equal(a, c), (case, i, (a - c).abs().max().item())
@@ -1514,9 +1513,9 @@ def test_sharded_binning_overflow_recaptures(dev, monkeypatch):
     entries than their capacities: the key is captured again, each shard
     that overflowed at a larger capacity and the others at theirs, and
     every frame equals the eager sharded frame bit for bit."""
-    from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
+    from hybridrenderer_tpu_torch.runtime import capture as capture_mod
 
-    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 1)
+    monkeypatch.setattr(capture_mod, "BIN_SLACK", 1)
     s, scene, cam_kw, _, _ = _capture_case("dynamic")
     far = OrbitCamera(width=64, height=64, distance=60.0, pitch=0.0,
                       yaw=0.0, focal_point=(0, 2.5, 0))
@@ -1524,9 +1523,9 @@ def test_sharded_binning_overflow_recaptures(dev, monkeypatch):
     cams = [far.step(), far.step(), near.step(), near.step()]
     r = _sharded(dev)(s, scene().build(dev))
     captured = [r.render(cs) for cs in cams[:2]]
-    before = r._graphs[("frame", True)].capacity
+    before = r.graphs[("frame", True)].capacity
     captured += [r.render(cs) for cs in cams[2:]]
-    after = r._graphs[("frame", True)].capacity
+    after = r.graphs[("frame", True)].capacity
     eager, _, _ = _sharded_frames(dev, "dynamic", _sharded(dev,
                                                            capture=False),
                                   cams=cams)
@@ -1581,7 +1580,7 @@ def test_sharded_capture_failure_raises(dev):
     cam = OrbitCamera(width=64, height=64, **cam_kw)
     with pytest.raises(RuntimeError, match="cannot be captured"):
         r.render(cam.step(taa_enabled=True))
-    assert not r._graphs and r.frame_count == 0
+    assert not r.graphs and r.frame_count == 0
     assert all(h == {} for h in r.histories)
 
 
@@ -1603,7 +1602,7 @@ def test_sharded_frame_over_separate_cards(dev):
             dev, case, lambda s, data: ShardedRenderer.for_scene(s, data,
                                                                  mesh))
         single, _, _ = _sharded_frames(dev, case, _single)
-        assert len(r._graphs) == 2
+        assert len(r.graphs) == 2
         for i, (a, b) in enumerate(zip(sharded, single)):
             assert a.device == dev and torch.equal(a, b), (case, i)
 

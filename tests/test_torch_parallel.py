@@ -1,10 +1,11 @@
 """The port's row-sharded frame (hybridrenderer_tpu_torch/parallel/) on
 the CPU, mirroring tests/test_parallel.py: the mesh, and the frame of
 8 shards (each on "cpu") against the port's single-device frame at the
-reference's tolerances there (2e-5 on the forward path and for
-shard_rays off against on, 2e-4 with ray passes), every path and both
-frames where two are rendered; and the shards' lockstep. Reading on
-every comparison with the port's frame: 0 (bit for bit).
+reference's tolerances there (2e-5 on the forward path and for the
+fused shadow + AO query against the unfused, 2e-4 with ray passes),
+every path and both frames where two are rendered; and the shards'
+lockstep. Reading on every comparison with the port's frame: 0 (bit
+for bit).
 tests/test_torch_parallel_windows.py holds 15-row shards and the
 reference."""
 import numpy as np
@@ -132,23 +133,20 @@ def test_sharded_raytraced_matches_single_device(cube):
         np.testing.assert_allclose(b, a, rtol=0, atol=2e-4)
 
 
-def test_shard_rays_off_matches_on(cornell):
-    """shard_rays=False traces each query once over the whole image on
-    the first device: the same pixels as the shards' own traces, for the
-    shadow and AO queries (and their fused pair) and the radiance
-    queries."""
+def test_sharded_fused_shadow_ao_matches_unfused(cornell):
+    """The cornell full graph with shadow and AO on 8 shards, with the
+    shadow and AO queries fused into one pair query and unfused: the
+    same pixels."""
     s = RenderSettings(width=64, height=64, path=RenderPathType.HYBRID,
                        flags=FULL | RenderFlags.SHADOW | RenderFlags.AO)
     mesh = make_mesh(devices=["cpu"] * 8)
     out = []
-    for shard_rays, fuse in ((True, False), (False, False), (False, True)):
+    for fuse in (False, True):
         r = ShardedRenderer.for_scene(s.replace(fuse_shadow_ao=fuse),
-                                      cornell, mesh, shard_rays=shard_rays)
-        assert r.shard_rays == shard_rays
+                                      cornell, mesh)
         cam = OrbitCamera(width=64, height=64, **CORNELL_CAM)
         out.append(r.render_np(cam.step(True)))
-    for b in out[1:]:
-        np.testing.assert_allclose(b, out[0], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(out[1], out[0], rtol=0, atol=2e-5)
 
 
 def _run_shards(fns, timeout=60.0):

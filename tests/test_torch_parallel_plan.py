@@ -1,9 +1,9 @@
 """The captured sharded frame's machinery that runs without a card
-(hybridrenderer_tpu_torch/parallel/sharded.py, runtime/renderer.py
-``run_key``): the exchange plan each shard records, the static buffers
-and copies that carry rows between devices in a captured frame, and the
-capture / replay / overflow rule both renderers follow. The captured
-frames themselves run on the card (tests/test_torch_cuda.py)."""
+(hybridrenderer_tpu_torch/parallel/sharded.py, runtime/capture.py
+``CapturedRenderer``): the exchange plan each shard records, the static
+buffers and copies that carry rows between devices in a captured frame,
+and the capture / replay / overflow rule both renderers follow. The
+captured frames themselves run on the card (tests/test_torch_cuda.py)."""
 import pytest
 import torch
 
@@ -15,9 +15,11 @@ from hybridrenderer_tpu_torch.parallel.mesh import make_mesh
 from hybridrenderer_tpu_torch.parallel.sharded import (RowExchange,
                                                        ShardedRenderer,
                                                        _Lockstep, _Segments)
+from hybridrenderer_tpu_torch.runtime import capture as capture_mod
 from hybridrenderer_tpu_torch.runtime import profiling
-from hybridrenderer_tpu_torch.runtime import renderer as renderer_mod
-from hybridrenderer_tpu_torch.runtime.renderer import _Graph, _Result, run_key
+from hybridrenderer_tpu_torch.runtime.capture import (CapturedRenderer,
+                                                      Graph, Result)
+from hybridrenderer_tpu_torch.runtime.renderer import Renderer
 from hybridrenderer_tpu_torch.scene import scene as scenes
 
 from .test_torch_slice import CUBE_CAM
@@ -30,18 +32,15 @@ def _one_thread():
         yield
 
 
-@pytest.mark.parametrize("shard_rays", [True, False])
-def test_exchange_plan_same_on_every_shard_and_frame(shard_rays):
+def test_exchange_plan_same_on_every_shard_and_frame():
     """Hybrid frames (SVGF, shadow and AO rays) on 4 CPU shards of 8 rows:
     every shard records the same exchanges in the same order (kind,
     radius, images; only their row counts may differ), and each key's
-    plan is the same on every frame. With shard_rays off the ray queries
-    add "once" exchanges."""
+    plan is the same on every frame."""
     s = RenderSettings(width=32, height=32, path=RenderPathType.HYBRID,
                        flags=RenderFlags.default_hybrid())
     r = ShardedRenderer.for_scene(s, scenes.cube_scene().build("cpu"),
-                                  make_mesh(devices=["cpu"] * 4),
-                                  shard_rays=shard_rays)
+                                  make_mesh(devices=["cpu"] * 4))
     assert not r.capture
     cam = OrbitCamera(width=32, height=32, **CUBE_CAM)
     plans = []
@@ -62,9 +61,7 @@ def test_exchange_plan_same_on_every_shard_and_frame(shard_rays):
         assert all(rowless(p) == rowless(shards[0]) for p in shards[1:])
         kinds = {kind for kind, _, _ in shards[0]}
         # the history is gathered only when it is valid
-        assert kinds - {"once"} == ({"halo", "gather"} if key == later
-                                    else {"halo"})
-        assert ("once" in kinds) == (not shard_rays)
+        assert kinds == ({"halo", "gather"} if key == later else {"halo"})
 
 
 class _CopySegments(_Segments):
@@ -92,7 +89,7 @@ class _CopySegments(_Segments):
 def test_static_buffers_and_copy_plan_match_exchange():
     """Two images (float (H, W, 3), int (H, W)) in blocks of 5, 3, 4 and 4
     rows (unequal, as half-res grids are) on 4 shards: halos of radius 1,
-    2 and 8 (beyond the next shard), a gather and a once through static
+    2 and 8 (beyond the next shard) and a gather through static
     buffers and their copy plan give exactly what RowExchange gives
     eagerly, and the whole image's rows; every copy reads another shard's
     rows, in place, so a replay after the sources change fills the
@@ -111,7 +108,6 @@ def test_static_buffers_and_copy_plan_match_exchange():
             segments.begin()
         out = [ex.halo(r, *blocks[rank]) for r in (1, 2, 8)]
         out.append(ex.gather(*blocks[rank]))
-        out.append(ex.once(lambda a, b: (2 * a, b + 1), *blocks[rank]))
         if segments is not None:
             segments.end()
         return out
@@ -134,9 +130,6 @@ def test_static_buffers_and_copy_plan_match_exchange():
                 assert torch.equal(e, p) and torch.equal(p, w[lo:hi])
         for e, p, w in zip(eager[rank][3], planned[rank][3], whole):
             assert torch.equal(e, p) and torch.equal(p, w)
-        for e, p, w in zip(eager[rank][4], planned[rank][4],
-                           (2 * whole[0], whole[1] + 1)):
-            assert torch.equal(e, p) and torch.equal(p, w[a:b])
     # every copy reads another shard's block in place, and only the rows
     # the outputs need from other shards are copied: the radius-1 halo of
     # shard 1 copies one row above and one below of each image
@@ -157,20 +150,14 @@ def test_static_buffers_and_copy_plan_match_exchange():
             assert torch.equal(dst, src)
 
 
-class _Owner:
-    """What run_key reads of a renderer."""
-
-    def __init__(self, capture=True):
-        self.capture = capture
-        self.bin_capacity = None
-        self._graphs = {}
-        self.capture_ms = {}
-        self.recaptures = 0
-        self.tracing = profiling.OFF
+def _owner(capture=None):
+    """The captured-frame rule's owner, of fake frames on a CUDA device
+    that it never touches: captured by default."""
+    return CapturedRenderer((torch.device("cuda"),), capture)
 
 
 def _frames(owner, script, fail=()):
-    """run_key over a fake two-shard frame: ``script`` gives each
+    """owner.run_key over a fake two-shard frame: ``script`` gives each
     replay's needed tile entries; capture number i in ``fail`` raises.
     → (calls: eager runs, captures (capacity), commits), a buffer the
     eager frame commits into, render()."""
@@ -181,8 +168,8 @@ def _frames(owner, script, fail=()):
     def eager(undo):
         calls["eager"] += 1
         undo.append(lambda: calls.__setitem__("undone", True))
-        res = _Result("eager", None, (torch.tensor(10), torch.tensor(20)),
-                      [])
+        res = Result("eager", None, (torch.tensor(10), torch.tensor(20)),
+                     [])
         return res, [(buf, torch.ones(2))]
 
     def capture(capacity):
@@ -191,7 +178,7 @@ def _frames(owner, script, fail=()):
         if len(calls["captures"]) in fail:
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
-        res = _Result("graph", None, None, [])
+        res = Result("graph", None, None, [])
 
         def replay():
             res.needed = tuple(torch.tensor(n) for n in script.pop(0))
@@ -199,10 +186,10 @@ def _frames(owner, script, fail=()):
         def commit():
             calls["commits"] += 1
 
-        return _Graph(replay, commit, res, capacity)
+        return Graph(replay, commit, res, capacity)
 
     def render():
-        return run_key(owner, ("frame", True), eager, capture)
+        return owner.run_key(("frame", True), eager, capture)
 
     return calls, buf, render, kernel
 
@@ -213,9 +200,9 @@ def test_run_key_capture_replay_and_overflow(monkeypatch):
     the launches their capture made; a replay that overflows one shard's
     capacity is captured again (that shard's capacity grown, the other's
     kept), replayed and committed once."""
-    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
+    monkeypatch.setattr(capture_mod, "BIN_SLACK", 0)
     native.reset_counts()
-    owner = _Owner()
+    owner = _owner()
     calls, buf, render, kernel = _frames(owner, [(10, 40), (11, 39),
                                                  (12, 45), (12, 45)])
     res, replayed = render()
@@ -234,7 +221,7 @@ def test_run_key_capture_replay_and_overflow(monkeypatch):
     assert calls["captures"] == [(20, 40), (20, 90)]
     assert calls["commits"] == 3 and calls["eager"] == 1
     assert native.KERNELS[kernel].launches == 12
-    assert owner._graphs[("frame", True)].capacity == (20, 90)
+    assert owner.graphs[("frame", True)].capacity == (20, 90)
     assert owner.recaptures == 1
 
 
@@ -245,9 +232,9 @@ def test_run_key_host_spans_nest(monkeypatch):
     commit is a device span (host clock on the CPU)."""
     from torch.profiler import ProfilerActivity, profile
 
-    monkeypatch.setattr(renderer_mod, "BIN_SLACK", 0)
-    owner = _Owner()
-    owner.tracing = profiling.Tracer("cpu")
+    monkeypatch.setattr(capture_mod, "BIN_SLACK", 0)
+    owner = _owner()
+    owner.tracing = profiling.Tracer("cpu")     # the host clock
     _, _, render, _ = _frames(owner, [(10, 20), (30, 20), (30, 20)])
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(3):
@@ -273,7 +260,7 @@ def test_run_key_fixed_capacity_and_capture_failure():
     commit; a frame that cannot be captured raises with the eager frame's
     commits taken back and nothing committed, on the card nothing falls
     back to eager; without capture every use runs eagerly."""
-    owner = _Owner()
+    owner = _owner()
     owner.bin_capacity = 15
     calls, buf, render, _ = _frames(owner, [(16, 3)])
     render()
@@ -281,17 +268,45 @@ def test_run_key_fixed_capacity_and_capture_failure():
     with pytest.raises(RuntimeError, match="fixed binning capacity"):
         render()
     assert calls["commits"] == 0
-    owner = _Owner()
+    owner = _owner()
     calls, buf, render, _ = _frames(owner, [], fail=(1,))
     with pytest.raises(RuntimeError, match="cannot be captured"):
         render()
-    assert calls.get("undone") and not owner._graphs
+    assert calls.get("undone") and not owner.graphs
     assert torch.equal(buf, torch.zeros(2))
-    owner = _Owner(capture=False)
+    owner = _owner(capture=False)
     calls, buf, render, _ = _frames(owner, [])
     for _ in range(2):
         assert render()[1] is False
     assert calls["eager"] == 2 and not calls["captures"]
+
+
+def _single(s, data, **kw):
+    return Renderer.for_scene(s, data, **kw)
+
+
+def _sharded(s, data, **kw):
+    return ShardedRenderer.for_scene(s, data,
+                                     make_mesh(devices=["cpu"] * 2), **kw)
+
+
+@pytest.mark.parametrize("make", [_single, _sharded],
+                         ids=["Renderer", "ShardedRenderer"])
+def test_cpu_renderer_state_and_refusal(make):
+    """Both renderers on CPU inputs: asked for CUDA graphs they raise;
+    by default two frames run eagerly and capture no graph, with the
+    captured frame's state as it starts: no capture time, no recapture
+    and a capacity sized per key."""
+    s = RenderSettings(width=16, height=16, path=RenderPathType.FORWARD,
+                       flags=RenderFlags.LIGHT | RenderFlags.IBL)
+    data = scenes.cube_scene().build("cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        ShardedRenderer(RenderSettings(width=8, height=8), None,
-                        make_mesh(devices=["cpu"] * 2), capture=True)
+        make(s, data, capture=True)
+    r = make(s, data)
+    assert not r.capture
+    assert (r.capture_ms, r.recaptures, r.bin_capacity) == ({}, 0, None)
+    cam = OrbitCamera(width=16, height=16, **CUBE_CAM)
+    for _ in range(2):
+        assert r.render_np(cam.step()).shape == (16, 16, 3)
+    assert r.frame_count == 2 and r.graphs == {}
+    assert (r.capture_ms, r.recaptures, r.bin_capacity) == ({}, 0, None)
