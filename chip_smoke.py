@@ -28,7 +28,9 @@ non-zero without printing a result):
    (hr_shade_hit, hr_shade_finish, on one 1080p full-graph frame's
    reflection and GI hits of the 1000-object scene from framebench's
    camera, exact), TAA's resolve pair (hr_taa_reproject,
-   hr_taa_resolve, on the resolves of forward.orbit's 1080p frame, exact)
+   hr_taa_resolve, on the resolves of forward.orbit's 1080p frame, exact),
+   the G-buffer kernel (hr_gbuffer, on the 1080p G-buffers of the
+   1000-object scene, textured and not, from framebench's camera, exact)
    and K5's library call as device
    time (device_time: graphs of calls over input sets no call finds in
    L2) beside their eager calls' time, K5 at the sharded frame's shard
@@ -1849,6 +1851,111 @@ def check_taa(dev):
     return out
 
 
+# the frames whose G-buffers check_gbuffer records (3-6: an orbiting
+# camera, so the motion is not zero)
+GBUFFER_FRAMES = 4
+# a pixel's bytes the G-buffer kernel must move, each once: K1's attribute
+# row (40 f32), winner and depth in; the planes out (albedo, normal,
+# emissive, world position 12 B each, material and motion 16, object id
+# 4, depth gradients and uv 8)
+GBUFFER_BYTES = 40 * 4 + 8 + 4 * 12 + 2 * 16 + 4 + 2 * 8
+
+
+def _record_gbuffers(dev, settings, host_fn):
+    """The G-buffer builds of frames 3-6 of ``settings`` over host_fn's
+    scene, framebench's camera orbiting 0.01 rad a frame, as the pass
+    hands them over → [gbuffer_planes' arguments]."""
+    import types
+
+    from hybridrenderer_tpu_torch.core.camera import OrbitCamera
+    from hybridrenderer_tpu_torch.ops import gbuffer
+    from hybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    W, H = settings.width, settings.height
+    data = host_fn().build(dev)
+    r = Renderer.for_scene(settings, data, capture=False)
+    build, calls = gbuffer.build_gbuffer, []
+
+    def recording(vis, scene, cam, a, window=None):
+        # the frame's buffers are reused: keep this frame's copies
+        calls.append((vis.tri_id.clone(), vis.depth.clone(), a.clone(),
+                      scene, types.SimpleNamespace(**{
+                          f: getattr(cam, f).clone() for f in (
+                              "proj", "view", "prev_proj", "prev_view",
+                              "proj_inverse")}), None))
+        return build(vis, scene, cam, a, window)
+
+    gbuffer.build_gbuffer = recording
+    cam = OrbitCamera(width=W, height=H, **BENCH_CAM)
+    try:
+        for _ in range(2 + GBUFFER_FRAMES):
+            r.render(cam.step(taa_enabled=True))
+            cam.orbit(0.01, 0.0)
+    finally:
+        gbuffer.build_gbuffer = build
+    del r
+    return calls[-GBUFFER_FRAMES:]
+
+
+def check_gbuffer(dev):
+    """The G-buffer kernel (hr_gbuffer) on framebench's 1080p camera over
+    the 1000-object scene, textured (stress.orbit's, the colour slot) and
+    not (full.orbit's): the kernel against its plain version on the card
+    at the builds of frames 3-6, every plane bit for bit, and its device
+    time over those builds (device_time; the wrapper's two 4x4
+    view-projection products included) beside its bound, the bytes it
+    must move (GBUFFER_BYTES a pixel, each once; texture taps not
+    counted), and the plain version's time."""
+    import torch
+
+    from hybridrenderer_tpu_torch.ops import gbuffer_cuda
+    from hybridrenderer_tpu_torch.scene import scene as scenes
+
+    W, H = HEADLINE["width"], HEADLINE["height"]
+    px = W * H
+    out = {}
+    for tag, textured in (("textured", True), ("untextured", False)):
+        sets = _record_gbuffers(
+            dev, _hybrid_settings(W, H),
+            lambda: scenes.stress_scene(num_objects=SPONZA_OBJECTS,
+                                        textured=textured,
+                                        tex_size=TEX_SIZE))
+        for args in sets:
+            k = gbuffer_cuda.gbuffer_planes(*args)
+            p = gbuffer_cuda.gbuffer_planes_plain(*args)
+            for name, a, b in zip(gbuffer_cuda.Planes._fields, k, p):
+                if not torch_equal_nan(a, b):
+                    raise AssertionError(
+                        f"hr_gbuffer's {name} ({tag}) differs from the "
+                        f"plain version's at {int((a != b).sum())} values")
+        bg = float((sets[-1][0] < 0).float().mean())
+        res = dict(
+            err=0.0, ms=device_time(gbuffer_cuda.gbuffer_planes, sets),
+            eager_ms=cuda_time(lambda: gbuffer_cuda.gbuffer_planes(
+                *sets[0]), 20),
+            plain_ms=cuda_time(lambda: gbuffer_cuda.gbuffer_planes_plain(
+                *sets[0]), 3),
+            bound=bound(GBUFFER_BYTES * px, 0),
+            shape=f"{W}x{H}, frames 3-{2 + GBUFFER_FRAMES} of the hybrid "
+                  f"path on the {SPONZA_OBJECTS}-object scene, {tag} "
+                  f"(framebench's camera), {bg:.4f} of pixels background; "
+                  f"device time over {GBUFFER_FRAMES} sets",
+            tol="every plane bit for bit")
+        if textured:
+            out["gbuffer"] = res
+        else:
+            log(f"[kernel] gbuffer, untextured: {res['ms']:.4f} ms device "
+                f"time (eager calls {res['eager_ms']:.4f}) vs "
+                f"{res['plain_ms']:.4f} ms plain; bound "
+                f"{res['bound'][0]:.4f} ms ({res['bound'][1]}, "
+                f"{GBUFFER_BYTES} B a pixel), "
+                f"{100 * res['bound'][0] / res['ms']:.1f}%; exact at "
+                f"{res['shape']}; on {nvidia_smi_line()}")
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def k5_against(dev, other):
     """K5 of this checkout against K5 built from the tree in ``other``
     (by that tree's own native.py into its own build/; the parent commit
@@ -2474,14 +2581,14 @@ def phase_sharded(dev, out_dir):
     W, H = HEADLINE["width"], HEADLINE["height"]
     mesh = make_mesh(devices=[dev] * SHARDS)
     data = _headline_scene(dev, HEADLINE["objects"])
-    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+    hybrid = ["raster_tiles", "gbuffer", "trace_any", "temporal_fetch",
               "filter_moments", "atrous"]
     paths = (
         ("H", _hybrid_settings(W, H), hybrid),
         ("F", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
          hybrid + ["trace_closest"]),
-        ("T", _forward_settings(W, H), ["raster_tiles"] + TAA),
+        ("T", _forward_settings(W, H), ["raster_tiles", "gbuffer"] + TAA),
         ("R", _raytraced_settings(W, H),
          ["raster_tiles", "trace_closest", "trace_any"] + TAA))
     smi = nvidia_smi_line()
@@ -2617,7 +2724,7 @@ def _wide_rungs(dev, out_dir, runs):
     W, H = HEADLINE["width"], HEADLINE["height"]
     wide = dict(trace_backend="pallas-wide", wide_kernel="compressed")
     direct = ["trace_any", "trace_closest", "trace_packet", "trace_mimt"]
-    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+    hybrid = ["raster_tiles", "gbuffer", "trace_any", "temporal_fetch",
               "filter_moments", "atrous"]
 
     def shape(width, leaf_tris):
@@ -2936,6 +3043,7 @@ def main(argv=None):
                         ("temporal_fetch", check_temporal),
                         ("window_sample", check_window_sample),
                         ("taa", check_taa),
+                        ("gbuffer", check_gbuffer),
                         ("stencils", check_stencils)):
         try:
             res = check(dev)
@@ -2944,7 +3052,7 @@ def main(argv=None):
             failures.append(name)
             continue
         results.update(res if name in ("packet_path", "wide", "stencils",
-                                       "shade", "taa")
+                                       "shade", "taa", "gbuffer")
                        else {name: res})
     for name, res in results.items():
         off = "" if native.KERNELS[name].on_path else \
@@ -2976,7 +3084,7 @@ def main(argv=None):
     from hybridrenderer_tpu_torch.scene import scene as scenes
 
     W, H = HEADLINE["width"], HEADLINE["height"]
-    hybrid = ["raster_tiles", "trace_any", "temporal_fetch",
+    hybrid = ["raster_tiles", "gbuffer", "trace_any", "temporal_fetch",
               "filter_moments", "atrous"]
     wide = dict(trace_backend="pallas-wide")
     direct = ["trace_any", "trace_closest", "trace_packet"]
@@ -2992,7 +3100,7 @@ def main(argv=None):
             hybrid + ["trace_closest"] + shading, per_frame=two_queries),
         "forward_taa": phase_render(dev, args.out, "forward_taa",
                                     _forward_settings(W, H),
-                                    ["raster_tiles"] + TAA),
+                                    ["raster_tiles", "gbuffer"] + TAA),
         "raytraced": phase_render(
             dev, args.out, "raytraced", _raytraced_settings(W, H),
             ["raster_tiles", "trace_closest", "trace_any"] + TAA + shading,
@@ -3013,7 +3121,8 @@ def main(argv=None):
     # K2c, so no any-hit K2)
     runs["headline_tex"] = phase_render(
         dev, args.out, "headline_tex", _hybrid_settings(W, H), hybrid,
-        host_fn=_textured_headline, per_frame={"raster_tiles": 1})
+        host_fn=_textured_headline,
+        per_frame={"raster_tiles": 1, "gbuffer": 1})
     runs["full_graph_tex"] = phase_render(
         dev, args.out, "full_graph_tex", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),
@@ -3021,9 +3130,10 @@ def main(argv=None):
         per_frame=two_queries)
     runs["cutout"] = phase_render(
         dev, args.out, "cutout", _hybrid_settings(W, H),
-        ["raster_tiles", "trace_closest", "temporal_fetch", "filter_moments",
-         "atrous"], absent=["trace_any"], host_fn=scenes.cutout_scene,
-        cam_kw=CUTOUT_CAM, per_frame={"raster_tiles": 2})
+        ["raster_tiles", "gbuffer", "trace_closest", "temporal_fetch",
+         "filter_moments", "atrous"], absent=["trace_any"],
+        host_fn=scenes.cutout_scene, cam_kw=CUTOUT_CAM,
+        per_frame={"raster_tiles": 2, "gbuffer": 1})
     runs["raytraced_cutout"] = phase_render(
         dev, args.out, "raytraced_cutout", _raytraced_settings(W, H),
         ["raster_tiles", "trace_closest"] + TAA + shading,
@@ -3084,7 +3194,7 @@ def main(argv=None):
                                       host_fn=sponza_tex, **large)
     runs["sponza_fwd_tex"] = phase_render(
         dev, args.out, "sponza_fwd_tex", _forward_settings(W, H),
-        ["raster_tiles"] + TAA, host_fn=sponza_tex, **large)
+        ["raster_tiles", "gbuffer"] + TAA, host_fn=sponza_tex, **large)
     runs["full_graph_1000"] = phase_render(
         dev, args.out, "full_graph_1000", _hybrid_settings(
             W, H, extra=RenderFlags.REFLECTION | RenderFlags.GI),

@@ -38,15 +38,12 @@
 //
 // At rays that hit nothing the prepare writes zeros and no active
 // occlusion ray, as its plain version does, and does no other work.
-#include "common.cuh"
+#include "surface.cuh"
 
 struct HrShadeScene {
   const float* rows;  // (n_rows, 53) hit-shading rows
   long long n_rows;
-  const float* tex;  // (N, tex_h, tex_w, 4) stack, or null
-  const int* tex_sizes;  // (N, 2) height, width in use
-  int tex_h, tex_w;
-  int tex_slots;  // bit k: slot k is sampled (colour, emission, r/m, normal)
+  HrTextures tex;  // the stack; its slots sampled at hits
   int sky_tex, has_sky, light_on, ibl;
   int n_lights, n_cdf;
   const int* light_inst;
@@ -71,110 +68,11 @@ constexpr int kTerms = 12;
 constexpr int kThreads = 128;
 constexpr float kPi = static_cast<float>(3.14159265359);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265359);
-constexpr float kMinRoughness = static_cast<float>(0.03 * 0.03);
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 splat(float s) { return {s, s, s}; }
-__device__ __forceinline__ V3 sub_from(float s, V3 a) {  // s - a
-  return {s - a.x, s - a.y, s - a.z};
-}
-
-// maths.dot: left to right
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-          a.x * b.y - a.y * b.x};
-}
-// torch.clamp on the card: NaN passes, else fmaxf / fminf
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-__device__ __forceinline__ float clamp01(float x) {
-  return isnan(x) ? x : fminf(fmaxf(x, 0.0f), 1.0f);
-}
-// torch.linalg.vector_norm over a last axis of 3 on the card
-__device__ __forceinline__ float norm(V3 a) {
-  return sqrtf((a.x * a.x + a.z * a.z) + a.y * a.y);
-}
-__device__ __forceinline__ V3 normalize(V3 a) {
-  const float n = clamp_min(norm(a), 1e-12f);
-  return {a.x / n, a.y / n, a.z / n};
-}
-// a division by a Python number: times its float reciprocal
-__device__ __forceinline__ float div_scalar(float x, float c) {
-  return x * (1.0f / c);
-}
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
-__device__ __forceinline__ void store3(float* p, V3 a) {
-  p[0] = a.x;
-  p[1] = a.y;
-  p[2] = a.z;
-}
-__device__ __forceinline__ int floor_mod(int a, int b) {  // torch.remainder
-  int r = a % b;
-  if (r != 0 && ((r < 0) != (b < 0))) r += b;
-  return r;
-}
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
   long long q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
   return q;
-}
-
-// texture.sample_bilinear of one texture of the stack at uv
-__device__ float4 sample_tex(const HrShadeScene& s, int tex_id, float u,
-                             float v, float4 dflt) {
-  if (tex_id < 0) return dflt;
-  const float h = static_cast<float>(s.tex_sizes[2 * tex_id]);
-  const float w = static_cast<float>(s.tex_sizes[2 * tex_id + 1]);
-  const float x = u * w - 0.5f;
-  const float y = v * h - 0.5f;
-  const float x0 = floorf(x);
-  const float y0 = floorf(y);
-  const float fx = x - x0;
-  const float fy = y - y0;
-  const int wi = static_cast<int>(w);
-  const int hi = static_cast<int>(h);
-  const float4* texels = reinterpret_cast<const float4*>(s.tex);
-  auto tap = [&](float xf, float yf) {
-    const int xi = floor_mod(static_cast<int>(xf), wi);
-    const int yi = floor_mod(static_cast<int>(yf), hi);
-    return __ldg(texels + (static_cast<long long>(tex_id) * s.tex_h + yi) *
-                              s.tex_w + xi);
-  };
-  const float4 c00 = tap(x0, y0);
-  const float4 c10 = tap(x0 + 1.0f, y0);
-  const float4 c01 = tap(x0, y0 + 1.0f);
-  const float4 c11 = tap(x0 + 1.0f, y0 + 1.0f);
-  const float gx = 1.0f - fx;
-  const float gy = 1.0f - fy;
-  auto lerp = [&](float a00, float a10, float a01, float a11) {
-    const float top = a00 * gx + a10 * fx;
-    const float bot = a01 * gx + a11 * fx;
-    return top * gy + bot * fy;
-  };
-  return make_float4(lerp(c00.x, c10.x, c01.x, c11.x),
-                     lerp(c00.y, c10.y, c01.y, c11.y),
-                     lerp(c00.z, c10.z, c01.z, c11.z),
-                     lerp(c00.w, c10.w, c01.w, c11.w));
 }
 
 // sky.procedural_sky
@@ -196,7 +94,8 @@ __device__ V3 environment(const HrShadeScene& s, V3 dir) {
                                          : fminf(fmaxf(dir.y, -1.0f), 1.0f));
   const float u = div_scalar(phi, kTwoPi) + 0.5f;
   const float w = 1.0f - (div_scalar(theta, kPi) + 0.5f);
-  const float4 env = sample_tex(s, s.sky_tex, u, w, make_float4(0, 0, 0, 0));
+  const float4 env =
+      sample_tex(s.tex, s.sky_tex, u, w, make_float4(0, 0, 0, 0));
   return {env.x, env.y, env.z};
 }
 
@@ -387,48 +286,19 @@ __global__ void __launch_bounds__(kThreads)
   V3 geo_n = normalize(to_world({lerp(0), lerp(1), lerp(2)}));
   if (dot(geo_n, dir) > 0.0f) geo_n = -geo_n;  // face the ray
   const float* mrow = row + 37;
-  const bool textured = s.tex_slots != 0;
+  const bool textured = s.tex.slots != 0;
   const float uv_u = textured ? lerp(7) : 0.0f;
   const float uv_v = textured ? lerp(8) : 0.0f;
-  // shade.material_point_from_row
-  V3 colour = load3(mrow);
-  V3 emission = load3(mrow + 4);
-  float roughness = mrow[7];
-  float metallic = mrow[8];
-  const float4 ones = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
-  if (s.tex_slots & 1) {
-    const float4 a =
-        sample_tex(s, static_cast<int>(mrow[10]), uv_u, uv_v, ones);
-    colour = colour * V3{a.x, a.y, a.z};
-  }
-  if (s.tex_slots & 2) {
-    const float4 e =
-        sample_tex(s, static_cast<int>(mrow[11]), uv_u, uv_v, ones);
-    emission = emission * V3{e.x, e.y, e.z};
-  }
-  if (s.tex_slots & 4) {
-    const float4 mr =
-        sample_tex(s, static_cast<int>(mrow[12]), uv_u, uv_v, ones);
-    roughness = roughness * mr.y;
-    metallic = metallic * mr.z;
-  }
-  float r2 = roughness * roughness;
-  r2 = r2 < kMinRoughness ? 0.0f : r2;
+  const HrMaterialPoint mp = material_point(s.tex, mrow, uv_u, uv_v);
+  const V3 colour = mp.colour;
+  const V3 emission = mp.emission;
+  const float r2 = mp.roughness;
+  const float metallic = mp.metallic;
   V3 n = normalize(geo_n);
-  if (s.tex_slots & 8) {  // shade.apply_normal_map
+  if (s.tex.slots & 8) {
     const V3 tw = normalize(to_world({lerp(3), lerp(4), lerp(5)}));
-    const float w = lerp(6);
-    const V3 tn = normalize(tw);
-    const float t_len = norm(tw);
-    const float sign = fabsf(w) < 0.001f ? 1.0f : w;
-    const V3 b = cross(n, tn) * sign;
-    const int nrm_id = static_cast<int>(mrow[13]);
-    const float4 tx = sample_tex(s, nrm_id, uv_u, uv_v,
-                                 make_float4(0.5f, 0.5f, 1.0f, 1.0f));
-    const V3 mapped = normalize(
-        (tn * (tx.x * 2.0f - 1.0f) + b * (tx.y * 2.0f - 1.0f)) +
-        n * (tx.z * 2.0f - 1.0f));
-    if (nrm_id >= 0 && t_len >= 0.001f) n = mapped;
+    n = normal_map(s.tex, n, tw, lerp(6), static_cast<int>(mrow[13]), uv_u,
+                   uv_v);
   }
 
   const V3 view = -dir;

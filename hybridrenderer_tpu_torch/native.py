@@ -158,6 +158,7 @@ _SIGNATURES = {
     "hr_taa_reproject": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                          _P],
     "hr_taa_resolve": [_P, _P, _P, _I, _I, _P, _P],
+    "hr_gbuffer": [_P] * 9 + [_I, _I] + [_P] * 10,
 }
 
 
@@ -249,6 +250,9 @@ KERNELS = {
         # no TPU kernel
         Kernel("taa_reproject", _CSRC + "taa.cu", _TPU + "taa.py:52"),
         Kernel("taa_resolve", _CSRC + "taa.cu", _TPU + "taa.py:52"),
+        # the G-buffer planes from K1's attribute image: plain jnp in the
+        # reference, no TPU kernel
+        Kernel("gbuffer", _CSRC + "gbuffer.cu", _TPU + "gbuffer.py:217"),
     )
 }
 

@@ -318,12 +318,36 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 
 
+class Textures(ctypes.Structure):
+    """csrc/surface.cuh's HrTextures, field for field."""
+    _fields_ = [("data", _P), ("sizes", _P), ("h", _I), ("w", _I),
+                ("slots", _I)]
+
+
+def textures_arg(tex, slots: bool, sky: bool, keep: list) -> Textures:
+    """``Textures`` of the TextureStack ``tex``: the slots any material
+    binds where ``slots`` and the stack holds textures (a material's
+    slots are sampled only there: shade.material_point_from_row), and the
+    stack's data where a slot or the sky (``sky``) samples it. The
+    tensors it points into are appended to ``keep``, to keep alive until
+    the launch."""
+    t = Textures()
+    if slots and texture.has_textures(tex):
+        t.slots = sum(1 << k for k, used in enumerate(tex.slot_usage)
+                      if used)
+    if t.slots or sky:
+        data = native.aligned(tex.data.contiguous())  # float4 taps
+        sizes = tex.sizes.to(torch.int32)
+        keep += [data, sizes]
+        t.data, t.sizes = native.ptr(data), native.ptr(sizes)
+        t.h, t.w = (int(x) for x in tex.data.shape[1:3])
+    return t
+
+
 class ShadeScene(ctypes.Structure):
     """csrc/shade.cu's HrShadeScene, field for field."""
     _fields_ = [
-        ("rows", _P), ("n_rows", _L),
-        ("tex", _P), ("tex_sizes", _P), ("tex_h", _I), ("tex_w", _I),
-        ("tex_slots", _I),
+        ("rows", _P), ("n_rows", _L), ("tex", Textures),
         ("sky_tex", _I), ("has_sky", _I), ("light_on", _I), ("ibl", _I),
         ("n_lights", _I), ("n_cdf", _I),
         ("light_inst", _P), ("light_cdf_start", _P), ("light_cdf_count", _P),
@@ -353,16 +377,9 @@ def _scene_args(shade_rows, sc, ctx, light_on, ibl):
     s = ShadeScene()
     s.sky_tex, s.has_sky = int(sc.sky_texture), int(bool(sc.has_sky_texture))
     s.light_on, s.ibl = int(light_on), int(ibl)
-    tex = sc.textures
-    # the material's slots are sampled only where the stack holds
-    # textures (shade.material_point_from_row), the sky where IBL is on
-    if shade_rows is not None and texture.has_textures(tex):
-        s.tex_slots = sum(1 << k for k, used in enumerate(tex.slot_usage)
-                          if used)
-    if s.tex_slots or (ibl and s.has_sky):
-        s.tex = p(native.aligned(tex.data.contiguous()))  # float4 taps
-        s.tex_sizes = p(tex.sizes.to(torch.int32), torch.int32)
-        s.tex_h, s.tex_w = (int(x) for x in tex.data.shape[1:3])
+    # the sky is sampled where IBL is on
+    s.tex = textures_arg(sc.textures, shade_rows is not None,
+                         ibl and bool(s.has_sky), keep)
     if shade_rows is None:
         return s, keep
     s.rows, s.n_rows = p(shade_rows), shade_rows.shape[0]

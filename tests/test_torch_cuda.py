@@ -9,8 +9,11 @@ every test skips. Run them on a GPU machine (which needs no JAX:
 chip_smoke.py checks the same kernels at the headline's shapes. Every
 kernel does the plain version's float operations in the same order
 (compiled with -fmad=false), so K1-K3, K1v, K2b, K2w, K2m, K5, the
-hit-shading pair and the TAA pair agree exactly; K4's exp and pow may
-differ in the last ulp."""
+hit-shading pair, the TAA pair and the G-buffer agree exactly; K4's exp
+and pow may differ in the last ulp."""
+import dataclasses
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from hybridrenderer_tpu_torch.ops import temporal_cuda, trace_cuda
 from hybridrenderer_tpu_torch.ops.trace import SceneTracer
 from hybridrenderer_tpu_torch.scene import scene as scenes
 
+from . import torch_gbuffer_cases as gbuffer_cases
 from . import torch_shade_cases as shade_cases
 from . import torch_taa_cases as taa_cases
 
@@ -1717,4 +1721,52 @@ def test_replayed_forward_taa_frame_launches_the_taa_kernels(dev):
         taa_enabled=True))
     counts = native.counts()
     assert all(counts[n] == (1, 0) for n in TAA_KERNELS), counts
+    assert not any(plain for _, plain in counts.values())
+
+
+# --- the G-buffer: hr_gbuffer ------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(gbuffer_cases.CASES))
+def test_gbuffer_kernel_matches_plain(dev, case):
+    """hr_gbuffer against its plain version on the card, on each case of
+    tests/torch_gbuffer_cases.py (no texture, the colour slot, four slots
+    with a normal map, a mostly empty image, positions on w = 0, a row
+    window with a row below and one at the image's last row, a size that
+    cuts the blocks): every plane bit for bit. build_gbuffer then
+    launches it once and no plain version, and returns the unsplit
+    G-buffer's planes bit for bit."""
+    from hybridrenderer_tpu_torch.ops import gbuffer, gbuffer_cuda
+
+    c = gbuffer_cases.build(case, dev)
+    args = c.planes_args()
+    k = gbuffer_cuda.gbuffer_planes(*args)
+    p = gbuffer_cuda.gbuffer_planes_plain(*args)
+    for name in gbuffer_cuda.Planes._fields:
+        _assert_same(getattr(k, name), getattr(p, name), name)
+    a, b = c.rows
+    vis = types.SimpleNamespace(tri_id=c.tri_id[a:b], depth=c.depth[a:b])
+    native.reset_counts()
+    gb = gbuffer.build_gbuffer(vis, c.scene, c.cam, c.attrs[a:b],
+                               window=None if c.window is None
+                               else gbuffer_cases.HaloWindow(c))
+    counts = native.counts()
+    assert counts["gbuffer"] == (1, 0), counts
+    assert not any(plain for _, plain in counts.values())
+    want = gbuffer_cases.unsplit_planes(c)
+    for f in dataclasses.fields(gbuffer.GBuffer):
+        _assert_same(getattr(gb, f.name), want[f.name], f.name)
+
+
+@pytest.mark.parametrize("case", ["hybrid", "full_graph", "forward_taa",
+                                  "cutout"])
+def test_replayed_frame_builds_the_gbuffer_in_one_launch(dev, case):
+    """A replayed hybrid, full-graph, forward + TAA and cut-out frame
+    builds its G-buffer with one hr_gbuffer, and runs no plain version."""
+    _, _, r = _render_frames(dev, case, True, frames=3)
+    _, _, cam_kw, taa, _ = _capture_case(case)
+    native.reset_counts()
+    r.render(OrbitCamera(width=64, height=64, **cam_kw).step(
+        taa_enabled=taa))
+    counts = native.counts()
+    assert counts["gbuffer"] == (1, 0), counts
     assert not any(plain for _, plain in counts.values())
